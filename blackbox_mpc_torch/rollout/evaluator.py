@@ -1,0 +1,127 @@
+"""Trajectory evaluation: the rollout hot loop as an eager PyTorch loop over the horizon.
+
+Counterpart of ``blackbox_mpc_tpu/rollout/evaluator.py`` (its ``lax.scan`` becomes a Python
+loop). This is the ``"eager"`` backend of :class:`~blackbox_mpc_torch.policies.MPCPolicy`;
+the ``"kernel"`` backend is :mod:`blackbox_mpc_torch.ops.rollout_kernel`.
+"""
+from __future__ import annotations
+
+import torch
+
+from blackbox_mpc_torch.core.device import resolve_device
+from blackbox_mpc_torch.core.types import DynamicsFn, RewardFn, TrajectoryEvaluator
+
+__all__ = [
+    "make_trajectory_evaluator", "rollout_trajectories", "action_smoothness_penalty",
+    "NAN_REWARD",
+]
+
+# NaN rewards are clamped to this, matching the reference's guard.
+NAN_REWARD = -1e6
+
+
+def rollout_trajectories(
+    dynamics_fn: DynamicsFn,
+    reward_fn: RewardFn,
+    initial_states: torch.Tensor,  # [B, S]
+    action_sequences: torch.Tensor,  # [B, H, U] ([H, B, U] when time_major)
+    *,
+    discount: float = 1.0,
+    return_states: bool = False,
+    time_major: bool = False,
+):
+    """Rolls a batch of action sequences through the dynamics, accumulating reward.
+
+    Returns total_reward [B] (and the visited states [H, B, S] if requested). The discount
+    is carried by repeated multiplication, as the JAX scan carries it.
+    """
+    actions = action_sequences if time_major else action_sequences.transpose(0, 1)
+    state = initial_states
+    total = torch.zeros(state.shape[0], dtype=state.dtype, device=state.device)
+    disc = torch.ones((), dtype=state.dtype, device=state.device)
+    states = []
+    for actions_t in actions:
+        next_state = dynamics_fn(state, actions_t)
+        total = total + disc * reward_fn(state, actions_t, next_state)
+        disc = disc * discount
+        state = next_state
+        if return_states:
+            states.append(next_state)
+    if return_states:
+        return total, torch.stack(states)
+    return total
+
+
+def action_smoothness_penalty(
+    action_sequences: torch.Tensor, weight: float, discount: float = 1.0,
+    time_major: bool = False,
+) -> torch.Tensor:
+    """``w * sum_t discount^t * ||a_t - a_{t-1}||^2`` over [P, A, H, U] plans -> [P, A]
+    (``[H, P, A, U]`` plans when ``time_major``)."""
+    h_axis = 0 if time_major else 2
+    horizon = action_sequences.shape[h_axis]
+    diffs = torch.sum(torch.square(torch.diff(action_sequences, dim=h_axis)), dim=-1)
+    if discount != 1.0:
+        disc = torch.tensor(
+            discount, dtype=diffs.dtype, device=diffs.device
+        ) ** torch.arange(1, horizon, device=diffs.device)
+        diffs = diffs * (disc[:, None, None] if time_major else disc)
+    return weight * torch.sum(diffs, dim=h_axis)
+
+
+def make_trajectory_evaluator(
+    dynamics_fn: DynamicsFn,
+    reward_fn: RewardFn,
+    *,
+    discount: float = 1.0,
+    nan_guard: bool = True,
+    num_particles: int = 1,
+    action_smoothness_weight: float = 0.0,
+    time_major: bool = False,
+    device=None,
+) -> TrajectoryEvaluator:
+    """Builds ``evaluate(initial_states [A,S], action_sequences [P,A,H,U]) -> rewards [P,A]``.
+
+    The initial state of agent ``a`` is tiled across the population agent-minor, each
+    candidate is rolled out for H steps, the discounted rewards are summed, the smoothness
+    cost is subtracted and NaN rewards become -1e6. ``time_major``: candidates are
+    ``[H, P, A, U]``. Inputs must lie on ``device``.
+    """
+    if num_particles < 1:
+        raise ValueError(f"num_particles must be >= 1, got {num_particles}")
+    if num_particles > 1:
+        raise NotImplementedError(
+            "num_particles > 1 is not ported yet (ROADMAP Queue 1 item 11, the "
+            "probabilistic stack)"
+        )
+    if action_smoothness_weight < 0:
+        raise ValueError(
+            f"action_smoothness_weight must be >= 0, got {action_smoothness_weight}"
+        )
+    device = resolve_device(device)
+
+    def evaluate(initial_states: torch.Tensor, action_sequences: torch.Tensor) -> torch.Tensor:
+        if initial_states.device != device or action_sequences.device != device:
+            raise ValueError(f"inputs must be on {device}")
+        if time_major:
+            horizon, pop, agents, dim_u = action_sequences.shape
+            flat_actions = action_sequences.reshape(horizon, pop * agents, dim_u)
+        else:
+            pop, agents, horizon, dim_u = action_sequences.shape
+            flat_actions = action_sequences.reshape(pop * agents, horizon, dim_u)
+        # [A, S] -> [P*A, S], agent minor (as tf.tile(current_states, [pop, 1])).
+        flat_states = initial_states.repeat(pop, 1)
+        total = rollout_trajectories(
+            dynamics_fn, reward_fn, flat_states, flat_actions, discount=discount,
+            time_major=time_major,
+        )
+        rewards = total.reshape(pop, agents)
+        if action_smoothness_weight > 0.0:
+            rewards = rewards - action_smoothness_penalty(
+                action_sequences, action_smoothness_weight, discount, time_major=time_major
+            )
+        if nan_guard:
+            rewards = torch.where(torch.isnan(rewards), NAN_REWARD, rewards)
+        return rewards
+
+    return evaluate

@@ -1,0 +1,29 @@
+"""Import hygiene of the PyTorch port: every module of blackbox_mpc_torch, and chip_smoke.py,
+import without JAX and without the JAX package (the GPU machine has no JAX)."""
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, importlib.util, pkgutil, sys
+import blackbox_mpc_torch
+names = [m.name for m in pkgutil.walk_packages(blackbox_mpc_torch.__path__, "blackbox_mpc_torch.")]
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "flax", "optax", "blackbox_mpc_tpu")))
+assert not bad, bad
+assert "triton" not in sys.modules
+print(len(names))
+"""
+
+
+def test_port_imports_no_jax():
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) >= 20  # every module was walked
