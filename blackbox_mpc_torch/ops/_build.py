@@ -14,11 +14,10 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "SOURCES", "build_all", "load_library"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "load_library"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("rollout",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -44,41 +43,30 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def _start(name: str):
-    """Starts ``nvcc`` for one source into a temporary file; returns (process, tmp, target)."""
+def build(name: str) -> str:
+    """Compiles ``csrc/<name>.cu`` unless it is built already.
+
+    Returns the compiler's output (with ``-Xptxas -v``: registers, shared memory and spills
+    per kernel), or ``""`` when the library was already built.
+    """
     target = _target(name)
+    if target.exists():
+        return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, target
-
-
-def _finish(name: str, proc, tmp: str, target: Path) -> str:
-    out, _ = proc.communicate()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{out}")
+        raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{proc.stdout}")
     os.replace(tmp, target)  # atomic: a concurrent build never loads a partial file
-    return out
-
-
-def build_all() -> dict:
-    """Compiles every source not yet built, all ``nvcc`` processes at once.
-
-    Returns ``{name: compiler output}`` for the sources it compiled (with ``-Xptxas -v``:
-    registers, shared memory and spills per kernel).
-    """
-    pending = [(name, *_start(name)) for name in SOURCES if not _target(name).exists()]
-    return {name: _finish(name, proc, tmp, target) for name, proc, tmp, target in pending}
+    return proc.stdout
 
 
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded shared library of ``csrc/<name>.cu``, built first if needed."""
     if name not in _loaded:
-        target = _target(name)
-        if not target.exists():
-            _finish(name, *_start(name))
-        _loaded[name] = ctypes.CDLL(str(target))
+        build(name)
+        _loaded[name] = ctypes.CDLL(str(_target(name)))
     return _loaded[name]

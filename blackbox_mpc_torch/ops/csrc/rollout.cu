@@ -29,7 +29,8 @@
 // latency more than by L2 bandwidth: 512 threads per CTA and an 8-deep k-unroll (more
 // weight loads in flight) cut a launch from 20.7 to 12.3 ms, and tile 4 (2 CTAs per SM)
 // beat tile 8 despite twice the L2 traffic. Tile 16 needs more than the 128 registers a
-// thread may hold at 512 threads, so the tiles are 8 and 4.
+// thread may hold at 512 threads. So the tile is 4; a second tile comes back only with a
+// measured batch on each side of the rule that would pick it.
 // Operands in bf16 are rounded values held in float32; a product of two bf16 values is exact
 // in float32, so this is the bf16 matmul with float32 accumulation of the JAX kernel.
 // wgmma/TMA and a reward fused into the kernel are later work.
@@ -42,6 +43,7 @@
 namespace {
 
 constexpr int kThreads = 512;
+constexpr int kTile = 4;  // rows per CTA
 constexpr int kMaxLayers = 8;
 constexpr float kEps = 1e-7f;
 
@@ -278,48 +280,39 @@ cudaError_t occupancy(const NetShape& net, int dim_s, int* blocks_per_sm) {
 
 extern "C" {
 
-// Rolls out `rows` rows (a multiple of `tile`) for `horizon` steps and writes the visited
+// Rolls out `rows` rows (a multiple of 4, the tile) for `horizon` steps and writes the visited
 // states. actions [H, rows, U], s0 [rows, S], stats [6, stats_width] and states_out
 // [H, rows, S] are float32; `weights` is every layer's zero-padded [E, K, N] block in the
 // compute type (bf16 != 0: bfloat16, else float32), back to back; `biases` the [E, N] float32
-// blocks. `tile_member` [rows / tile] gives each tile's member (ts1) or is NULL (mean).
+// blocks. `tile_member` [rows / 4] gives each tile's member (ts1) or is NULL (mean).
 // `widths` [n_layers + 1] are the padded layer widths. Returns cudaGetLastError().
 int bbmpc_rollout_states(const float* actions, const float* s0, const float* stats,
                          const void* weights, const float* biases, const int* tile_member,
                          float* states_out, int horizon, int rows, int dim_s, int dim_u,
                          int stats_width, int ensemble, int n_layers, const int* widths,
                          int activation, int normalized, int predict_delta, int bf16,
-                         int tile, void* stream) {
+                         void* stream) {
   NetShape net;
-  if (!make_shape(n_layers, widths, ensemble, &net) || rows % tile) return cudaErrorInvalidValue;
+  if (!make_shape(n_layers, widths, ensemble, &net) || rows % kTile) return cudaErrorInvalidValue;
   const Problem p{horizon, rows, dim_s, dim_u, stats_width, ensemble,
                   activation, normalized, predict_delta};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define BBMPC_LAUNCH(TILE, TYPE) \
-  launch<TILE, TYPE>(actions, s0, stats, weights, biases, tile_member, states_out, p, net, s)
-  switch (tile * 2 + (bf16 ? 1 : 0)) {
-    case 8: return BBMPC_LAUNCH(4, float);
-    case 9: return BBMPC_LAUNCH(4, __nv_bfloat16);
-    case 16: return BBMPC_LAUNCH(8, float);
-    case 17: return BBMPC_LAUNCH(8, __nv_bfloat16);
-    default: return cudaErrorInvalidValue;
+  if (bf16) {
+    return launch<kTile, __nv_bfloat16>(actions, s0, stats, weights, biases, tile_member,
+                                        states_out, p, net, s);
   }
-#undef BBMPC_LAUNCH
+  return launch<kTile, float>(actions, s0, stats, weights, biases, tile_member, states_out, p,
+                              net, s);
 }
 
 // Shared memory per CTA and resident CTAs per SM of one launch configuration.
 int bbmpc_rollout_occupancy(int dim_s, int ensemble, int n_layers, const int* widths, int bf16,
-                            int tile, int* smem, int* blocks_per_sm) {
+                            int* smem, int* blocks_per_sm) {
   NetShape net;
   if (!make_shape(n_layers, widths, ensemble, &net)) return cudaErrorInvalidValue;
-  *smem = (int)smem_bytes(net, dim_s, tile);
-  switch (tile * 2 + (bf16 ? 1 : 0)) {
-    case 8: return occupancy<4, float>(net, dim_s, blocks_per_sm);
-    case 9: return occupancy<4, __nv_bfloat16>(net, dim_s, blocks_per_sm);
-    case 16: return occupancy<8, float>(net, dim_s, blocks_per_sm);
-    case 17: return occupancy<8, __nv_bfloat16>(net, dim_s, blocks_per_sm);
-    default: return cudaErrorInvalidValue;
-  }
+  *smem = (int)smem_bytes(net, dim_s, kTile);
+  if (bf16) return occupancy<kTile, __nv_bfloat16>(net, dim_s, blocks_per_sm);
+  return occupancy<kTile, float>(net, dim_s, blocks_per_sm);
 }
 
 }  // extern "C"

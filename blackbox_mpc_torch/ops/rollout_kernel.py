@@ -25,15 +25,18 @@ import torch
 
 from blackbox_mpc_torch.core.device import resolve_device
 from blackbox_mpc_torch.models.dynamics import DynamicsParams, LearnedDynamicsConfig, ts_member_ids
+from blackbox_mpc_torch.models.normalizer import STATS_FIELDS
 from blackbox_mpc_torch.ops import _kernel_common as kc
 from blackbox_mpc_torch.rollout.evaluator import NAN_REWARD
 
 __all__ = [
-    "KERNEL_TILES", "KernelOperands", "choose_tile", "kernel_occupancy", "make_operands",
+    "TILE", "KernelOperands", "kernel_occupancy", "make_operands",
     "make_rollout_kernel_evaluator", "padded_widths", "rollout_states", "rollout_states_plain",
 ]
 
-KERNEL_TILES = (8, 4)  # rows per CTA the CUDA kernel is instantiated for
+# Rows per CTA (kTile in ops/csrc/rollout.cu). At the flagship's 1000 rows, tile 4 (250 CTAs,
+# 2 per SM) measured faster than tile 8 on the H100 (PERF.md); no larger batch is measured.
+TILE = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,7 +82,7 @@ def make_operands(dp: DynamicsParams, config: LearnedDynamicsConfig) -> KernelOp
 
 def rollout_states_plain(
     config: LearnedDynamicsConfig, ops: KernelOperands, actions: torch.Tensor,
-    s0: torch.Tensor, tile_member: torch.Tensor | None, tile: int,
+    s0: torch.Tensor, tile_member: torch.Tensor | None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel: same inputs, same ``[H, rows, S]`` output.
 
@@ -92,7 +95,7 @@ def rollout_states_plain(
     s = s0
     if grouped:
         ensemble = config.ensemble_size
-        members = torch.repeat_interleave(tile_member.long(), tile)
+        members = torch.repeat_interleave(tile_member.long(), TILE)
         expected = torch.arange(ensemble, device=members.device).repeat_interleave(rows // ensemble)
         if rows % ensemble or not torch.equal(members, expected):
             raise ValueError("ts1 rows must be member-major blocks of equal size")
@@ -111,9 +114,9 @@ def _lib():
     lib = load_library("rollout")
     if not getattr(lib, "_bbmpc_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.bbmpc_rollout_states.argtypes = [p] * 7 + [i] * 7 + [p] + [i] * 5 + [p]
+        lib.bbmpc_rollout_states.argtypes = [p] * 7 + [i] * 7 + [p] + [i] * 4 + [p]
         lib.bbmpc_rollout_states.restype = i
-        lib.bbmpc_rollout_occupancy.argtypes = [i, i, i, p, i, i, p, p]
+        lib.bbmpc_rollout_occupancy.argtypes = [i, i, i, p, i, p, p]
         lib.bbmpc_rollout_occupancy.restype = i
         lib._bbmpc_typed = True
     return lib
@@ -136,7 +139,7 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
 
 def rollout_states(
     config: LearnedDynamicsConfig, ops: KernelOperands, actions: torch.Tensor,
-    s0: torch.Tensor, tile_member: torch.Tensor | None, tile: int,
+    s0: torch.Tensor, tile_member: torch.Tensor | None,
 ) -> torch.Tensor:
     """The kernel's wrapper: ``actions [H, rows, U]``, ``s0 [rows, S]`` -> ``[H, rows, S]``.
 
@@ -144,17 +147,15 @@ def rollout_states(
     current stream or raise; there is no fallback.
     """
     if actions.device.type == "cpu":
-        return rollout_states_plain(config, ops, actions, s0, tile_member, tile)
+        return rollout_states_plain(config, ops, actions, s0, tile_member)
     if actions.device.type != "cuda":
         raise ValueError(f"rollout kernel runs on cuda or cpu tensors, not {actions.device}")
     kc.check_kernel_support(config, "rollout kernel")
-    if tile not in KERNEL_TILES:
-        raise ValueError(f"tile must be one of {KERNEL_TILES}, got {tile}")
     device = actions.device
     horizon, rows, dim_u = actions.shape
     dim_s = config.dim_s
-    if rows % tile or dim_u != config.dim_u:
-        raise ValueError(f"rows ({rows}) must be a multiple of tile ({tile}) and U={config.dim_u}")
+    if rows % TILE or dim_u != config.dim_u:
+        raise ValueError(f"rows ({rows}) must be a multiple of tile ({TILE}) and U={config.dim_u}")
     _check(actions, "actions", torch.float32, (horizon, rows, dim_u), device)
     _check(s0, "s0", torch.float32, (rows, dim_s), device)
     _check(ops.stats, "stats", torch.float32, (6, max(dim_s, dim_u)), device)
@@ -168,7 +169,7 @@ def rollout_states(
     _check(ops.packed_b, "packed_b", torch.float32, (ensemble * sum(n for _, n in pairs),),
            device)
     if tile_member is not None:
-        _check(tile_member, "tile_member", torch.int32, (rows // tile,), device)
+        _check(tile_member, "tile_member", torch.int32, (rows // TILE,), device)
     out = torch.empty((horizon, rows, dim_s), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -178,7 +179,7 @@ def rollout_states(
             out.data_ptr(), horizon, rows, dim_s, dim_u, ops.stats.shape[1],
             ensemble, len(widths) - 1, _int_array(widths),
             kc.KERNEL_ACTIVATIONS[config.activation], int(config.normalized),
-            int(config.predict_delta), int(config.compute_dtype == torch.bfloat16), tile, stream,
+            int(config.predict_delta), int(config.compute_dtype == torch.bfloat16), stream,
         )
     if err != 0:
         raise RuntimeError(f"rollout kernel launch failed: CUDA error {err}")
@@ -189,42 +190,29 @@ def rollout_states(
 rollout_states.launches = 0
 
 
-def kernel_occupancy(config: LearnedDynamicsConfig, tile: int) -> dict:
-    """Shared memory per CTA and resident CTAs per SM of the kernel at ``config``/``tile``."""
+def kernel_occupancy(config: LearnedDynamicsConfig) -> dict:
+    """Shared memory per CTA and resident CTAs per SM of the kernel at ``config``."""
     widths = padded_widths(config)
     smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
     err = _lib().bbmpc_rollout_occupancy(
         config.dim_s, config.ensemble_size, len(widths) - 1, _int_array(widths),
-        int(config.compute_dtype == torch.bfloat16), tile, ctypes.byref(smem),
-        ctypes.byref(blocks),
+        int(config.compute_dtype == torch.bfloat16), ctypes.byref(smem), ctypes.byref(blocks),
     )
     if err != 0:
         raise RuntimeError(f"rollout kernel occupancy query failed: CUDA error {err}")
     return {"smem_bytes": smem.value, "blocks_per_sm": blocks.value, "threads": 512}
 
 
-def choose_tile(rows: int, device: torch.device) -> int:
-    """Largest kernel tile that still gives at least 2 CTAs per SM, else the smallest.
-
-    A larger tile re-reads the weights from L2 fewer times, but the loop is bound by L2
-    latency, which more CTAs in flight hide: at the flagship's 1000 rows tile 4 (250 CTAs)
-    measured faster than tile 8 (125 CTAs) on the H100 (PERF.md). Larger batches are not
-    measured yet. On the CPU the tile only shapes the ts1 padding, and 8 is used.
-    """
-    if device.type != "cuda":
-        return 8
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    for tile in KERNEL_TILES:
-        if -(-rows // tile) >= 2 * sms:
-            return tile
-    return KERNEL_TILES[-1]
+def _versions(dp: DynamicsParams) -> tuple:
+    tensors = [t for layer in dp.params for t in layer.values()]
+    tensors += [getattr(dp.stats, f) for f in STATS_FIELDS]
+    return tuple(t._version for t in tensors)
 
 
 def make_rollout_kernel_evaluator(
     config: LearnedDynamicsConfig,
     reward_fn: Callable,
     *,
-    tile: int | None = None,
     discount: float = 1.0,
     nan_guard: bool = True,
     device=None,
@@ -234,8 +222,8 @@ def make_rollout_kernel_evaluator(
     The counterpart of ``make_pallas_rollout_evaluator``: the initial states are tiled
     agent-minor, ragged rows are padded to whole tiles, and for ts1 the rows are permuted
     member-major with every member's block padded to whole tiles and the rewards scattered
-    back (``pallas_rollout.py:133-166,219-223``). ``tile=None`` picks one per batch
-    (:func:`choose_tile`). The discount is the repeated float32 multiply of the JAX kernels.
+    back (``pallas_rollout.py:133-166,219-223``). The discount is the repeated float32
+    multiply of the JAX kernels.
     """
     kc.check_kernel_support(config, "rollout kernel")
     device = resolve_device(device)
@@ -244,9 +232,11 @@ def make_rollout_kernel_evaluator(
     cache = {}
 
     def operands(dp: DynamicsParams) -> KernelOperands:
-        # Packing is cached per DynamicsParams object (frozen; a new one replaces it).
-        if cache.get("dp") is not dp:
-            cache["dp"], cache["ops"] = dp, make_operands(dp, config)
+        # Packing is cached per DynamicsParams object and the version counters of its tensors,
+        # so weights or stats changed in place (optimizer.step, copy_) are packed anew.
+        versions = _versions(dp)
+        if cache.get("dp") is not dp or cache["versions"] != versions:
+            cache["dp"], cache["versions"], cache["ops"] = dp, versions, make_operands(dp, config)
         return cache["ops"]
 
     @functools.lru_cache(maxsize=8)
@@ -272,7 +262,6 @@ def make_rollout_kernel_evaluator(
         rows = pop * agents
         flat = action_sequences.reshape(rows, horizon, dim_u).float()
         s0 = initial_states.float().repeat(pop, 1)  # agent-minor, as jnp.tile(s, (pop, 1))
-        t = choose_tile(rows, device) if tile is None else tile
         tile_member = None
         if ts1:
             if rows % ensemble:
@@ -281,9 +270,9 @@ def make_rollout_kernel_evaluator(
                 )
             per_member = rows // ensemble
             perm = member_major(rows)
-            block = kc.round_up(per_member, t)
+            block = kc.round_up(per_member, TILE)
             tile_member = torch.arange(ensemble, dtype=torch.int32, device=device)
-            tile_member = tile_member.repeat_interleave(block // t)
+            tile_member = tile_member.repeat_interleave(block // TILE)
 
             def pad_blocks(x):
                 grouped = x.reshape(ensemble, per_member, -1)
@@ -293,13 +282,13 @@ def make_rollout_kernel_evaluator(
             flat = pad_blocks(flat[perm].reshape(rows, -1)).reshape(-1, horizon, dim_u)
             s0 = pad_blocks(s0[perm])
         else:
-            padded_rows = kc.round_up(rows, t)
+            padded_rows = kc.round_up(rows, TILE)
             if padded_rows != rows:
                 flat = torch.nn.functional.pad(flat, (0, 0, 0, 0, 0, padded_rows - rows))
                 s0 = torch.nn.functional.pad(s0, (0, 0, 0, padded_rows - rows))
         acts = flat.transpose(0, 1).contiguous()  # time-major [H, rows_pad, U]
         s0 = s0.contiguous()
-        states = rollout_states(config, operands(dp), acts, s0, tile_member, t)
+        states = rollout_states(config, operands(dp), acts, s0, tile_member)
         prev = torch.cat([s0[None], states[:-1]])
         rows_pad = s0.shape[0]
         r = reward_fn(

@@ -36,27 +36,27 @@ def model(propagation, dtype, device, hidden=(64, 64), ensemble=2):
     return config, init(torch.Generator().manual_seed(0)).to(device), dyn
 
 
-@pytest.mark.parametrize("propagation,dtype,tile", [
-    ("mean", "float32", 4), ("mean", "float32", 8), ("mean", "bfloat16", 8),
-    ("ts1", "float32", 4), ("ts1", "bfloat16", 8),
+@pytest.mark.parametrize("propagation,dtype,rows", [
+    ("mean", "float32", 48), ("mean", "float32", 96), ("mean", "bfloat16", 48),
+    ("ts1", "float32", 48), ("ts1", "bfloat16", 96),
 ])
-def test_kernel_matches_plain(propagation, dtype, tile, device):
+def test_kernel_matches_plain(propagation, dtype, rows, device):
     config, dp, _ = model(propagation, dtype, device, hidden=(61, 30))  # unaligned widths
     ops = rk.make_operands(dp, config)
     g = np.random.default_rng(0)
-    rows, horizon = 48, 6
+    horizon = 6
     acts = torch.as_tensor(g.uniform(-2, 2, (horizon, rows, 2)), dtype=torch.float32,
                            device=device)
     s0 = torch.as_tensor(g.uniform(-1, 1, (rows, 3)), dtype=torch.float32, device=device)
     member = None
     if propagation == "ts1":
         member = torch.arange(2, dtype=torch.int32, device=device)
-        member = member.repeat_interleave(rows // 2 // tile)
+        member = member.repeat_interleave(rows // 2 // rk.TILE)
     before = rk.rollout_states.launches
-    out = rk.rollout_states(config, ops, acts, s0, member, tile)
+    out = rk.rollout_states(config, ops, acts, s0, member)
     torch.cuda.synchronize()
     assert rk.rollout_states.launches == before + 1
-    ref = rk.rollout_states_plain(config, ops, acts, s0, member, tile)
+    ref = rk.rollout_states_plain(config, ops, acts, s0, member)
     # f32: FMA order only; bf16: one rounded activation may land 1 ulp (2^-8) apart.
     tol = 1e-4 if dtype == "float32" else 1e-2
     torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
@@ -85,10 +85,10 @@ def test_wrapper_rejects_bad_inputs(device):
     s0 = torch.zeros(16, 3, device=device)
     with pytest.raises(ValueError, match="contiguous"):
         rk.rollout_states(config, ops, acts.transpose(0, 1).contiguous().transpose(0, 1), s0,
-                          None, 8)
+                          None)
     with pytest.raises(ValueError, match="dtype"):
-        rk.rollout_states(config, ops, acts.double(), s0, None, 8)
-    with pytest.raises(ValueError, match="tile"):
-        rk.rollout_states(config, ops, acts, s0, None, 16)
+        rk.rollout_states(config, ops, acts.double(), s0, None)
+    with pytest.raises(ValueError, match="shape"):
+        rk.rollout_states(config, ops, acts, s0[:8], None)
     with pytest.raises(ValueError, match="multiple"):
-        rk.rollout_states(config, ops, acts[:, :12], s0[:12], None, 8)
+        rk.rollout_states(config, ops, acts[:, :14], s0[:14], None)

@@ -65,9 +65,9 @@ def port_rewards(tcfg, tdp, s0, acts, discount):
     "ensemble,propagation,pop,agents,normalized,discount",
     [
         (2, "mean", 10, 2, True, 1.0),
-        (2, "mean", 7, 3, False, 0.95),  # 21 rows: ragged against tile 8
+        (2, "mean", 7, 3, False, 0.95),  # 21 rows: ragged against the tile
         (1, "mean", 9, 2, True, 0.95),
-        (2, "ts1", 9, 2, True, 1.0),     # 18 rows: each member block padded to a tile
+        (2, "ts1", 9, 2, True, 1.0),     # 18 rows: each member block padded to tiles
         (2, "ts1", 22, 2, True, 0.95),
     ],
 )
@@ -157,3 +157,22 @@ def test_make_operands_pads_to_kernel_widths():
     torch.testing.assert_close(first[:, :5, :15], tdp.params[0]["w"])
     assert float(first[:, 5:].abs().sum()) == 0.0 and float(first[:, :, 15:].abs().sum()) == 0.0
 
+
+
+def test_kernel_evaluator_repacks_params_changed_in_place(rng):
+    """Weights and stats updated in place (as optimizer.step or copy_ do) keep the
+    DynamicsParams object, so the evaluator must not plan with its earlier pack."""
+    _, _, _, tcfg, tdp = setup(2, "mean")
+    _, tdyn_fn = tdyn.make_learned_dynamics(tcfg)
+    s0 = torch.as_tensor(rng.uniform(-1, 1, (2, 3)).astype(np.float32))
+    acts = torch.as_tensor(rng.uniform(-2, 2, (8, 2, 5, 2)).astype(np.float32))
+    ev = rk.make_rollout_kernel_evaluator(tcfg, t_reward, device="cpu")
+    before = ev(tdp, s0, acts)
+    with torch.no_grad():
+        tdp.params[0]["w"].mul_(1.5)
+        tdp.stats.mean_states.add_(0.5)
+        tdp.stats.std_targets.mul_(2.0)
+    after = ev(tdp, s0, acts)
+    ref = t_make_evaluator(partial(tdyn_fn, tdp), t_reward, device="cpu")(s0, acts)
+    assert not torch.allclose(after, before)
+    torch.testing.assert_close(after, ref, rtol=1e-5, atol=1e-5)
