@@ -3,7 +3,9 @@
 A second package beside ``blackbox_mpc_tpu`` (the JAX reference it is tested against). It
 imports torch and numpy only, never JAX nor the JAX package. So far it ports the main path:
 CEM-MPC ``act()`` over a learned MLP ensemble, with the rollout as a hand-written CUDA kernel
-(``rollout_backend="kernel"``) or an eager PyTorch loop (``"eager"``).
+(``rollout_backend="kernel"``) or an eager PyTorch loop (``"eager"``), and the
+generate-in-kernel CEM, whose CUDA kernels draw, roll out and reduce the candidates without
+storing them (``"fused"``).
 """
 from blackbox_mpc_torch.core.types import Bounds
 from blackbox_mpc_torch.learning.handler import DynamicsHandler

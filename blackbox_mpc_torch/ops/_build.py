@@ -1,8 +1,9 @@
 """Builds the port's CUDA kernels from ``ops/csrc`` and loads them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc`` into
-``ops/_build/lib<name>-<hash>.so`` on first use (the hash is of the source and the flags, so
-an edited source is rebuilt). Nothing here runs at import time.
+``ops/_build/lib<name>-<hash>.so`` on first use. The hash is of the source, of every header
+``csrc/*.cuh`` (the sources share ``mlp_step.cuh``) and of the flags, so an edited source or
+header is rebuilt. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -38,30 +39,45 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    source = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh"), key=lambda path: path.name):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> str:
-    """Compiles ``csrc/<name>.cu`` unless it is built already.
+def build(*names: str) -> dict:
+    """Compiles ``csrc/<name>.cu`` for each name not built yet, one ``nvcc`` each, all started
+    together.
 
-    Returns the compiler's output (with ``-Xptxas -v``: registers, shared memory and spills
-    per kernel), or ``""`` when the library was already built.
+    Returns ``{name: compiler output}``: with ``-Xptxas -v``, registers, shared memory and
+    spills per kernel; ``""`` for a library that was already built.
     """
-    target = _target(name)
-    if target.exists():
-        return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, target)  # atomic: a concurrent build never loads a partial file
-    return proc.stdout
+    logs = {name: "" for name in names}
+    running = []
+    for name in names:
+        target = _target(name)
+        if target.exists():
+            continue
+        nvcc = _nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((name, proc, tmp, target))
+    failures = []
+    for name, proc, tmp, target in running:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failures.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, target)  # atomic: a concurrent build never loads a partial file
+            logs[name] = out
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return logs
 
 
 def load_library(name: str) -> ctypes.CDLL:

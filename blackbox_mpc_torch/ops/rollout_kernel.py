@@ -30,8 +30,9 @@ from blackbox_mpc_torch.ops import _kernel_common as kc
 from blackbox_mpc_torch.rollout.evaluator import NAN_REWARD
 
 __all__ = [
-    "TILE", "KernelOperands", "kernel_occupancy", "make_operands",
-    "make_rollout_kernel_evaluator", "padded_widths", "rollout_states", "rollout_states_plain",
+    "TILE", "KernelOperands", "check_operands", "check_tensor", "int_array", "kernel_occupancy",
+    "make_operands", "make_rollout_kernel_evaluator", "operand_cache", "padded_widths",
+    "rollout_states", "rollout_states_plain",
 ]
 
 # Rows per CTA (kTile in ops/csrc/rollout.cu). At the flagship's 1000 rows, tile 4 (250 CTAs,
@@ -122,11 +123,11 @@ def _lib():
     return lib
 
 
-def _int_array(values):
+def int_array(values):
     return (ctypes.c_int * len(values))(*values)
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape, device):
+def check_tensor(t: torch.Tensor, name: str, dtype, shape, device):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -135,6 +136,22 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_operands(config: LearnedDynamicsConfig, ops: KernelOperands, device) -> tuple:
+    """Raises unless ``ops`` are the kernel operands of ``config`` on ``device``; returns the
+    padded widths."""
+    check_tensor(ops.stats, "stats", torch.float32, (6, max(config.dim_s, config.dim_u)), device)
+    widths = padded_widths(config)
+    if tuple(ops.widths) != widths:
+        raise ValueError(f"operands have widths {ops.widths}, config needs {widths}")
+    pairs = list(zip(widths[:-1], widths[1:]))
+    ensemble = config.ensemble_size
+    check_tensor(ops.packed_w, "packed_w", config.compute_dtype,
+                 (ensemble * sum(k * n for k, n in pairs),), device)
+    check_tensor(ops.packed_b, "packed_b", torch.float32,
+                 (ensemble * sum(n for _, n in pairs),), device)
+    return widths
 
 
 def rollout_states(
@@ -156,20 +173,12 @@ def rollout_states(
     dim_s = config.dim_s
     if rows % TILE or dim_u != config.dim_u:
         raise ValueError(f"rows ({rows}) must be a multiple of tile ({TILE}) and U={config.dim_u}")
-    _check(actions, "actions", torch.float32, (horizon, rows, dim_u), device)
-    _check(s0, "s0", torch.float32, (rows, dim_s), device)
-    _check(ops.stats, "stats", torch.float32, (6, max(dim_s, dim_u)), device)
-    widths = padded_widths(config)
-    if tuple(ops.widths) != widths:
-        raise ValueError(f"operands have widths {ops.widths}, config needs {widths}")
-    pairs = list(zip(widths[:-1], widths[1:]))
+    check_tensor(actions, "actions", torch.float32, (horizon, rows, dim_u), device)
+    check_tensor(s0, "s0", torch.float32, (rows, dim_s), device)
+    widths = check_operands(config, ops, device)
     ensemble = config.ensemble_size
-    _check(ops.packed_w, "packed_w", config.compute_dtype,
-           (ensemble * sum(k * n for k, n in pairs),), device)
-    _check(ops.packed_b, "packed_b", torch.float32, (ensemble * sum(n for _, n in pairs),),
-           device)
     if tile_member is not None:
-        _check(tile_member, "tile_member", torch.int32, (rows // TILE,), device)
+        check_tensor(tile_member, "tile_member", torch.int32, (rows // TILE,), device)
     out = torch.empty((horizon, rows, dim_s), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -177,7 +186,7 @@ def rollout_states(
             actions.data_ptr(), s0.data_ptr(), ops.stats.data_ptr(), ops.packed_w.data_ptr(),
             ops.packed_b.data_ptr(), None if tile_member is None else tile_member.data_ptr(),
             out.data_ptr(), horizon, rows, dim_s, dim_u, ops.stats.shape[1],
-            ensemble, len(widths) - 1, _int_array(widths),
+            ensemble, len(widths) - 1, int_array(widths),
             kc.KERNEL_ACTIVATIONS[config.activation], int(config.normalized),
             int(config.predict_delta), int(config.compute_dtype == torch.bfloat16), stream,
         )
@@ -195,7 +204,7 @@ def kernel_occupancy(config: LearnedDynamicsConfig) -> dict:
     widths = padded_widths(config)
     smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
     err = _lib().bbmpc_rollout_occupancy(
-        config.dim_s, config.ensemble_size, len(widths) - 1, _int_array(widths),
+        config.dim_s, config.ensemble_size, len(widths) - 1, int_array(widths),
         int(config.compute_dtype == torch.bfloat16), ctypes.byref(smem), ctypes.byref(blocks),
     )
     if err != 0:
@@ -207,6 +216,21 @@ def _versions(dp: DynamicsParams) -> tuple:
     tensors = [t for layer in dp.params for t in layer.values()]
     tensors += [getattr(dp.stats, f) for f in STATS_FIELDS]
     return tuple(t._version for t in tensors)
+
+
+def operand_cache(config: LearnedDynamicsConfig) -> Callable[[DynamicsParams], KernelOperands]:
+    """``operands(dp)``: :func:`make_operands` of the last ``dp``, packed anew only when ``dp``
+    is another object or a tensor of it was changed in place (optimizer.step, copy_), which
+    its version counters show."""
+    cache = {}
+
+    def operands(dp: DynamicsParams) -> KernelOperands:
+        versions = _versions(dp)
+        if cache.get("dp") is not dp or cache["versions"] != versions:
+            cache["dp"], cache["versions"], cache["ops"] = dp, versions, make_operands(dp, config)
+        return cache["ops"]
+
+    return operands
 
 
 def make_rollout_kernel_evaluator(
@@ -229,15 +253,7 @@ def make_rollout_kernel_evaluator(
     device = resolve_device(device)
     ensemble = config.ensemble_size
     ts1 = ensemble > 1 and config.propagation == "ts1"
-    cache = {}
-
-    def operands(dp: DynamicsParams) -> KernelOperands:
-        # Packing is cached per DynamicsParams object and the version counters of its tensors,
-        # so weights or stats changed in place (optimizer.step, copy_) are packed anew.
-        versions = _versions(dp)
-        if cache.get("dp") is not dp or cache["versions"] != versions:
-            cache["dp"], cache["versions"], cache["ops"] = dp, versions, make_operands(dp, config)
-        return cache["ops"]
+    operands = operand_cache(config)
 
     @functools.lru_cache(maxsize=8)
     def discounts(horizon: int) -> torch.Tensor:

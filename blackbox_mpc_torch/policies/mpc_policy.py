@@ -10,10 +10,15 @@ Rollout backends:
   (:mod:`blackbox_mpc_torch.rollout.evaluator`), any dynamics;
 * ``"kernel"`` (the counterpart of ``"pallas"``): the hand-written CUDA rollout kernel
   (:mod:`blackbox_mpc_torch.ops.rollout_kernel`), learned MLP dynamics with mean/ts1
-  propagation.
+  propagation;
+* ``"fused"`` (alias ``"fused_cem"``): the generate-in-kernel CEM
+  (:mod:`blackbox_mpc_torch.ops.fused_cem`), whose CUDA kernels draw the candidates, roll them
+  out and reduce the elite moments without storing the candidate tensor. Learned MLP dynamics
+  with mean/ts1 propagation, solver ``"CEM"``, undiscounted rewards and no smoothness penalty.
 
-``"fused"`` and ``"auto"`` are not ported yet. The JAX options ``mesh``, ``proposer``,
-``remat_rollout``, ``rng_impl`` and ``metrics_writer`` have no counterpart here yet.
+``"auto"`` is not ported yet, nor are the fused PI2/MPPI, RandomSearch and sep-CMA. The JAX
+options ``mesh``, ``proposer``, ``remat_rollout``, ``rng_impl`` and ``metrics_writer`` have no
+counterpart here yet.
 """
 from __future__ import annotations
 
@@ -29,14 +34,16 @@ from blackbox_mpc_torch.core.types import Bounds
 from blackbox_mpc_torch.learning.handler import DynamicsHandler
 from blackbox_mpc_torch.policies.base import ModelBasedPolicy
 from blackbox_mpc_torch.rollout.evaluator import make_trajectory_evaluator
-from blackbox_mpc_torch.solvers import lookup
+from blackbox_mpc_torch.solvers import SOLVER_REGISTRY, UNPORTED_SOLVERS, lookup
 from blackbox_mpc_torch.solvers.base import exploration_noise as _exploration_noise
 
 logger = logging.getLogger(__name__)
 
 __all__ = ["MPCPolicy", "ROLLOUT_BACKENDS"]
 
-ROLLOUT_BACKENDS = ("eager", "kernel")
+ROLLOUT_BACKENDS = ("eager", "kernel", "fused")
+# The JAX package's fused solver family; of it, the port has the fused CEM so far.
+_FUSED_FAMILY = ("CEM", "PI2", "MPPI", "RandomSearch", "CMA-ES")
 
 
 class MPCPolicy(ModelBasedPolicy):
@@ -75,21 +82,34 @@ class MPCPolicy(ModelBasedPolicy):
         self._planning_horizon = planning_horizon
         self._noise_scale = exploration_noise_scale
         self._discount = discount
-        if rollout_backend in ("fused", "fused_cem", "auto"):
+        if rollout_backend == "fused_cem":
+            rollout_backend = "fused"
+        if rollout_backend == "auto":
             raise NotImplementedError(
-                f"rollout_backend={rollout_backend!r} is not ported yet (ROADMAP Queue 1 "
-                "items 8-9: the fused kernel family and the backend rule)"
+                "rollout_backend='auto' is not ported yet (ROADMAP Queue 1 item 9: the "
+                "backend rule)"
             )
         if rollout_backend not in ROLLOUT_BACKENDS:
             raise ValueError(
-                f"rollout_backend must be one of {ROLLOUT_BACKENDS}, got {rollout_backend!r}"
+                f"rollout_backend must be one of {ROLLOUT_BACKENDS} ('fused_cem' is an alias "
+                f"of 'fused'), got {rollout_backend!r}"
             )
-        if rollout_backend == "kernel" and dynamics_handler.is_true_model:
+        if rollout_backend != "eager" and dynamics_handler.is_true_model:
             raise ValueError(f"rollout_backend={rollout_backend!r} requires learned MLP dynamics")
         self._rollout_backend = rollout_backend
         if action_smoothness_weight < 0:
             raise ValueError(
                 f"action_smoothness_weight must be >= 0, got {action_smoothness_weight}"
+            )
+        if action_smoothness_weight > 0 and rollout_backend == "fused":
+            raise ValueError(
+                "action_smoothness_weight needs the candidate tensor; the fused CEM never "
+                "materializes it — use the 'eager' or 'kernel' backend"
+            )
+        if rollout_backend == "fused" and discount != 1.0:
+            raise ValueError(
+                "the fused solver kernels sum undiscounted rewards; discount != 1.0 would "
+                "be silently ignored — use the 'eager' or 'kernel' backend"
             )
         self._smoothness = float(action_smoothness_weight)
         self._generator = torch.Generator(device=self._device)
@@ -100,6 +120,19 @@ class MPCPolicy(ModelBasedPolicy):
     # ------------------------------------------------------------------ construction
 
     def _build(self, solver_name: str, strict_kwargs: bool = False) -> None:
+        known = solver_name in SOLVER_REGISTRY or solver_name in UNPORTED_SOLVERS
+        if self._rollout_backend == "fused" and known:  # an unknown name: lookup's KeyError
+            if solver_name not in _FUSED_FAMILY:
+                raise ValueError(
+                    "rollout_backend='fused' backs the generate-in-kernel solver family "
+                    f"(CEM, PI2, MPPI, RandomSearch, CMA-ES with diagonal=True), not "
+                    f"{solver_name}"
+                )
+            if solver_name != "CEM":
+                raise NotImplementedError(
+                    f"rollout_backend='fused' with {solver_name} is not ported yet (ROADMAP "
+                    "Queue 1 items 8 and 10: the fused PI2/MPPI, RandomSearch and sep-CMA)"
+                )
         config_cls, factory = lookup(solver_name)
         valid = set(config_cls.__dataclass_fields__)
         kept = {k: v for k, v in self._solver_kwargs.items() if k in valid}
@@ -124,8 +157,14 @@ class MPCPolicy(ModelBasedPolicy):
                 f"time_major=True requires the eager evaluator; the "
                 f"{self._rollout_backend!r} backend's candidate contract is [P, A, H, U]"
             )
-        evaluate = self._make_evaluate(time_major)
-        solver = factory(config, self._bounds, evaluate)
+        if self._rollout_backend == "fused":
+            from blackbox_mpc_torch.ops.fused_cem import make_fused_cem
+
+            handler = self._handler
+            solver = make_fused_cem(config, self._bounds, handler.config,
+                                    lambda: handler.dynamics_params, self._reward_fn)
+        else:
+            solver = factory(config, self._bounds, self._make_evaluate(time_major))
         self._solver_name = solver_name
         self._config = config
         self._solver = solver

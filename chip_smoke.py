@@ -4,17 +4,24 @@ Run from the repository root on a machine with a CUDA card: ``python3 chip_smoke
 It imports nothing of JAX and nothing of the JAX package. Phases, each fatal on failure:
 
 1. device: print the card's name and power limit (``nvidia-smi``); no CUDA -> exit 2.
-2. build: compile the port's CUDA source with ``nvcc``.
+2. build: compile the port's CUDA sources with ``nvcc``, one process per source, together.
 3. kernel vs plain at the flagship shape (rows=1000, H=50, a 5-member 3x500 tanh ensemble,
-   S=17, U=6, seeded random weights, non-trivial normalizer stats): the rollout kernel (K2
-   with K1 inside) against its plain PyTorch version on the same inputs, for mean/f32,
-   mean/bf16 and ts1/f32. Both the whole visited-state tensor [H, rows, S] and the rewards
-   summed from it are held to stated tolerances; times of both and the analytic bound.
-4. reference on a small input: the kernel evaluator against the eager evaluator.
-5. slice: ``MPCPolicy(rollout_backend="kernel")`` with CEM at the flagship settings
-   (pop=1000, 5 iterations, 50 elites) acts 5 steps, closing the loop through the model;
-   actions must be finite and in bounds, and the kernel's launch count over exactly that
-   run must be steps x iterations. The same for the eager backend, timed.
+   S=17, U=6, seeded random weights, non-trivial normalizer stats), each kernel against its
+   plain PyTorch version on the same inputs, with the times of both and the analytic bound:
+   - the rollout kernel (K2 with K1 inside) for mean/f32, mean/bf16 and ts1/f32: the whole
+     visited-state tensor [H, rows, S] and the rewards summed from it;
+   - the fused sample + rollout kernel (K4, with the counter RNG K3) for mean/f32, mean/bf16
+     and ts1/f32 (logical tile 128, so 8 tiles for 5 members), and its streamed form (K5)
+     for mean/f32: the drawn actions, the visited states and the rewards;
+   - the elite-moment kernel (K6) with a 50-elite 0/1 mask and with softmax weights, which
+     must also repeat bit for bit.
+4. reference on a small input: the kernel evaluator against the eager evaluator, and the
+   fused kernels against the same closures on CPU tensors (the plain versions).
+5. slice: ``MPCPolicy`` with CEM at the flagship settings (pop=1000, 5 iterations, 50
+   elites) acts 5 steps after a warm-up, closing the loop through the model, on the
+   ``"kernel"`` and on the ``"fused"`` backend; actions must be finite and in bounds, and
+   each kernel's launch count over exactly that run must be steps x iterations for the
+   kernels of that backend and 0 for the others. The eager backend runs 3 steps, timed.
 
 The line before the last two is ``{"kernels": [...]}``; then the card's name and power
 limit; the last line is ``{"ok": true, "device": {...}}``.
@@ -33,8 +40,16 @@ ROWS, HORIZON, STEPS, ITERS = 1000, 50, 5, 5
 # relative); bf16: one rounded activation may land 1 ulp (2^-8) apart and propagate through
 # 50 steps (measured ~2e-4 relative).
 TOLERANCE = {"float32": 1e-4, "bfloat16": 1e-2}
+# K6's sums against the plain version's, relative to max(1, max |plain|): both sum 1000
+# float32 terms, in other orders.
+MOMENT_TOLERANCE = 1e-5
 H100_PEAK = {"float32": 67e12, "bfloat16": 989e12}  # dense FLOP/s, SXM, 700 W
 H100_BYTES_PER_S = 3.35e12
+# Operations of one clipped normal draw of the counter RNG (K3), counted as float32 operations
+# at the SIMT rate, a transcendental as one: the counter (2), two keyed uniforms (14 each:
+# fmix32 is 8), Box-Muller (6) and the clip (2).
+RNG_OPS = 38
+FUSED_TILE = 128  # ts1's logical tile in phase 3: 8 tiles of 1000 rows for 5 members
 
 
 def nvidia_smi() -> str:
@@ -90,25 +105,54 @@ def flagship_params(config, device):
     return dp.replace(stats=stats).to(device)
 
 
-def bound(config, rows: int, horizon: int, members: int) -> tuple[float, str]:
-    """Least time for one launch: max(bytes moved / HBM rate, FLOPs / peak), in ms."""
+def mlp_work(config, rows: int, horizon: int, members: int) -> tuple[float, float]:
+    """(FLOPs of the MLP over all rows and steps, bytes of its weights, biases and stats)."""
     import torch
 
     sizes = [config.dim_s + config.dim_u, *config.hidden, config.dim_s]
     macs = sum(a * b for a, b in zip(sizes[:-1], sizes[1:]))
-    flops = 2.0 * macs * members * rows * horizon
     itemsize = torch.tensor([], dtype=config.compute_dtype).element_size()
-    n_bias = sum(sizes[1:])
-    bytes_moved = (
-        4 * horizon * rows * config.dim_u + 4 * rows * config.dim_s  # actions, s0 in
-        + config.ensemble_size * (macs * itemsize + 4 * n_bias)  # weights, biases in
-        + 4 * 6 * max(config.dim_s, config.dim_u)  # stats in
-        + 4 * horizon * rows * config.dim_s  # states out
-    )
-    dtype = "bfloat16" if config.compute_dtype == torch.bfloat16 else "float32"
+    weight_bytes = (config.ensemble_size * (macs * itemsize + 4 * sum(sizes[1:]))
+                    + 4 * 6 * max(config.dim_s, config.dim_u))
+    return 2.0 * macs * members * rows * horizon, weight_bytes
+
+
+def least_ms(flops: float, bytes_moved: float, dtype: str) -> tuple[float, str]:
+    """Least time on the card: max(bytes moved / HBM rate, operations / peak), in ms."""
     t_ops = flops / H100_PEAK[dtype] * 1e3
     t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def dtype_name(config) -> str:
+    import torch
+
+    return "bfloat16" if config.compute_dtype == torch.bfloat16 else "float32"
+
+
+def bound(config, rows: int, horizon: int, members: int) -> tuple[float, str]:
+    """K2: actions and s0 in, weights in, states out; the MLP's FLOPs."""
+    flops, weight_bytes = mlp_work(config, rows, horizon, members)
+    bytes_moved = (4 * horizon * rows * config.dim_u + 4 * rows * config.dim_s + weight_bytes
+                   + 4 * horizon * rows * config.dim_s)
+    return least_ms(flops, bytes_moved, dtype_name(config))
+
+
+def fused_bound(config, rows: int, horizon: int, members: int, agents: int) -> tuple[float, str]:
+    """K4/K5: s0, mean, std and the seed in, weights in, states and actions out; the MLP's
+    FLOPs plus the draws and the actions formed from them."""
+    flops, weight_bytes = mlp_work(config, rows, horizon, members)
+    draws = rows * horizon * config.dim_u
+    bytes_moved = (4 * agents * (config.dim_s + 2 * horizon * config.dim_u) + 4 + weight_bytes
+                   + 4 * horizon * rows * (config.dim_s + config.dim_u))
+    return least_ms(flops + draws * (RNG_OPS + 2), bytes_moved, dtype_name(config))
+
+
+def moments_bound(population: int, agents: int, hu: int) -> tuple[float, str]:
+    """K6: std, weights and the seed in, two sums out; per (row, column) one draw and six
+    operations (std * z, w * x, x * x, w * x^2 and the two adds)."""
+    bytes_moved = 4 * agents * hu + 4 * population * agents + 4 + 2 * 4 * agents * hu
+    return least_ms(population * agents * hu * (RNG_OPS + 6), bytes_moved, "float32")
 
 
 def kernel_vs_plain(device, propagation: str, dtype: str) -> dict:
@@ -168,14 +212,122 @@ def kernel_vs_plain(device, propagation: str, dtype: str) -> dict:
     return res
 
 
+def fused_vs_plain(device, propagation: str, dtype: str, streamed: bool = False) -> dict:
+    """K4 (or K5) against its plain version: drawn actions, visited states and rewards."""
+    import numpy as np
+    import torch
+
+    from blackbox_mpc_torch.models.dynamics import LearnedDynamicsConfig
+    from blackbox_mpc_torch.ops import fused_cem as fc
+    from blackbox_mpc_torch.ops import rollout_kernel as rk
+
+    config = LearnedDynamicsConfig(**FLAGSHIP, propagation=propagation,
+                                   compute_dtype=getattr(torch, dtype))
+    ops = rk.make_operands(flagship_params(config, device), config)
+    g = np.random.default_rng(4)
+    hu = HORIZON * config.dim_u
+    s0 = torch.as_tensor(g.normal(0, 1, (1, config.dim_s)), dtype=torch.float32, device=device)
+    # The flagship's first CEM iteration samples around the midpoint with std 0.5.
+    mean = torch.as_tensor(g.uniform(-0.3, 0.3, (1, hu)), dtype=torch.float32, device=device)
+    std = torch.as_tensor(g.uniform(0.2, 0.5, (1, hu)), dtype=torch.float32, device=device)
+    seed = torch.tensor([1234567891], dtype=torch.int32, device=device)
+    member, member_tile, members = None, fc.TILE, config.ensemble_size
+    if propagation == "ts1":
+        rr, _ = fc.make_fused_cem_kernels(config, reward_fn, horizon=HORIZON, agents=1,
+                                          population=ROWS, tile=FUSED_TILE)
+        member = torch.as_tensor(rr.tile_member_ids, device=device)
+        member_tile, members = FUSED_TILE, 1
+    wrapper = fc.fused_rollout_streamed if streamed else fc.fused_rollout
+
+    def kernel():
+        return wrapper(config, ops, s0, mean, std, seed, ROWS, member, member_tile)
+
+    def plain():
+        return fc.fused_rollout_plain(config, ops, s0, mean, std, seed, ROWS, member,
+                                      member_tile, streamed=streamed)
+
+    (states, actions), (ref_states, ref_actions) = kernel(), plain()
+    torch.cuda.synchronize()
+    case = f"{'K5' if streamed else 'K4'} {propagation}/{dtype}"
+    if not bool(torch.isfinite(states).all() and torch.isfinite(actions).all()):
+        raise AssertionError(f"{case}: kernel states or actions not finite")
+    s0_rows = s0.expand(ROWS, -1)
+    got = rewards_from_states(s0_rows, actions, states)
+    ref = rewards_from_states(s0_rows, ref_actions, ref_states)
+    errs = {}
+    for what, a, b, tol in (("actions", actions, ref_actions, TOLERANCE["float32"]),
+                            ("states", states, ref_states, TOLERANCE[dtype]),
+                            ("rewards", got, ref, TOLERANCE[dtype])):
+        err, scale = float((a - b).abs().max()), max(1.0, float(b.abs().max()))
+        errs[what] = (err, scale, tol)
+    bound_ms, bound_by = fused_bound(config, ROWS, HORIZON, members, 1)
+    res = {
+        "case": case, "member_tile": member_tile,
+        **{f"{what}_max_abs_err": e for what, (e, _, _) in errs.items()},
+        **{f"{what}_max_rel_err": e / sc for what, (e, sc, _) in errs.items()},
+        "max_abs_err": errs["rewards"][0], "tolerance_rel": TOLERANCE[dtype],
+        "ms": cuda_ms(kernel, 5), "plain_ms": cuda_ms(plain, 3),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    print(json.dumps(res), flush=True)
+    for what, (err, scale, tol) in errs.items():
+        if err > tol * scale:
+            raise AssertionError(f"{case}: kernel vs plain {what} {err} > {tol} * {scale}")
+    return res
+
+
+def moments_vs_plain(device, weights: str) -> dict:
+    """K6 against its plain version, and against itself: two runs, the same bits."""
+    import numpy as np
+    import torch
+
+    from blackbox_mpc_torch.ops import fused_cem as fc
+
+    g = np.random.default_rng(5)
+    hu = HORIZON * FLAGSHIP["dim_u"]
+    std = torch.as_tensor(g.uniform(0.2, 0.5, (1, hu)), dtype=torch.float32, device=device)
+    seed = torch.tensor([987654321], dtype=torch.int32, device=device)
+    if weights == "elite_mask":
+        w = np.zeros(ROWS, np.float32)
+        w[g.choice(ROWS, 50, replace=False)] = 1.0
+    else:
+        e = np.exp(g.normal(0, 3, ROWS))
+        w = (e / e.sum()).astype(np.float32)
+    w = torch.as_tensor(w, device=device)
+
+    def kernel():
+        return fc.elite_moments(std, w, seed)
+
+    def plain():
+        return fc.elite_moments_plain(std, w, seed)
+
+    first, second, ref = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError(f"K6 {weights}: two runs differ")
+    err = max(float((a - b).abs().max()) for a, b in zip(first, ref))
+    scale = max(1.0, max(float(b.abs().max()) for b in ref))
+    bound_ms, bound_by = moments_bound(ROWS, 1, hu)
+    res = {"case": f"K6 {weights}", "max_abs_err": err, "max_rel_err": err / scale,
+           "tolerance_rel": MOMENT_TOLERANCE, "repeat_bitwise": True,
+           "ms": cuda_ms(kernel, 20), "plain_ms": cuda_ms(plain, 5),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    print(json.dumps(res), flush=True)
+    if err > MOMENT_TOLERANCE * scale:
+        raise AssertionError(f"K6 {weights}: kernel vs plain {err} > {MOMENT_TOLERANCE} * {scale}")
+    return res
+
+
 def small_reference(device) -> None:
-    """Kernel evaluator vs the eager evaluator on a small input (f32, rtol/atol 1e-4)."""
+    """Kernel evaluator vs the eager evaluator, and the fused kernels vs their plain versions,
+    on a small input (f32, rtol/atol 1e-4; moments 1e-5)."""
     from functools import partial
 
     import numpy as np
     import torch
 
     from blackbox_mpc_torch.models.dynamics import LearnedDynamicsConfig, make_learned_dynamics
+    from blackbox_mpc_torch.ops.fused_cem import make_fused_cem_kernels
     from blackbox_mpc_torch.ops.rollout_kernel import make_rollout_kernel_evaluator
     from blackbox_mpc_torch.rollout.evaluator import make_trajectory_evaluator
 
@@ -195,15 +347,44 @@ def small_reference(device) -> None:
         torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
         print(json.dumps({"small_reference": propagation, "shape": list(got.shape),
                           "max_abs_err": float((got - ref).abs().max())}), flush=True)
+        # The fused kernels against the same closures on CPU tensors (the plain versions,
+        # which tests/test_torch_fused_cem.py holds against the JAX package).
+        rr, em = make_fused_cem_kernels(config, reward_fn, horizon=10, agents=2,
+                                        population=35, tile=8)
+        mean = torch.as_tensor(g.uniform(-0.5, 0.5, (2, 10, 6)), dtype=torch.float32,
+                               device=device)
+        std = torch.as_tensor(g.uniform(0.1, 0.5, (2, 10, 6)), dtype=torch.float32,
+                              device=device)
+        got = rr(dp, s0, mean, std, 42)
+        ref = rr(dp.to("cpu"), s0.cpu(), mean.cpu(), std.cpu(), 42)
+        torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-4)
+        mask = (got >= got.topk(5, dim=0).values[-1]).float()
+        for a, b in zip(em(mean, std, 42, mask), em(mean.cpu(), std.cpu(), 42, mask.cpu())):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+        print(json.dumps({"small_reference": f"fused {propagation}", "shape": list(got.shape),
+                          "max_abs_err": float((got.cpu() - ref).abs().max())}), flush=True)
+
+
+def launch_counters() -> dict:
+    """Every kernel wrapper with a launch count, by the name the kernels line gives it."""
+    from blackbox_mpc_torch.ops import fused_cem as fc
+    from blackbox_mpc_torch.ops import rollout_kernel as rk
+
+    return {"rollout_states": rk.rollout_states, "fused_rollout": fc.fused_rollout,
+            "fused_rollout_streamed": fc.fused_rollout_streamed,
+            "elite_moments": fc.elite_moments}
+
+
+# The kernels each backend's act() must launch once per CEM iteration; all others, never.
+BACKEND_KERNELS = {"kernel": ("rollout_states",), "fused": ("fused_rollout", "elite_moments"),
+                   "eager": ()}
 
 
 def drive_policy(device, backend: str, steps: int) -> dict:
     import numpy as np
-    import torch
 
     from blackbox_mpc_torch import DynamicsHandler, LearnedDynamicsConfig, MPCPolicy
     from blackbox_mpc_torch.core.spaces import BoxSpace
-    from blackbox_mpc_torch.ops import rollout_kernel as rk
 
     config = LearnedDynamicsConfig(**FLAGSHIP, propagation="mean")
     handler = DynamicsHandler(config, seed=0, device=device)
@@ -215,7 +396,9 @@ def drive_policy(device, backend: str, steps: int) -> dict:
     )
     obs = np.zeros(17, np.float32)
     policy.act(obs)  # warm-up: first-use costs (kernel load, cuBLAS handles)
-    rk.rollout_states.launches = 0
+    counters = launch_counters()
+    for wrapper in counters.values():
+        wrapper.launches = 0
     times = []
     for t in range(steps):
         t0 = time.perf_counter()
@@ -225,10 +408,11 @@ def drive_policy(device, backend: str, steps: int) -> dict:
             raise AssertionError(f"{backend}: action out of bounds or not finite: {action}")
         if not (np.all(np.isfinite(obs)) and np.isfinite(reward)):
             raise AssertionError(f"{backend}: predicted next obs/reward not finite")
-    launches = rk.rollout_states.launches
-    expected = steps * ITERS if backend == "kernel" else 0
+    launches = {name: wrapper.launches for name, wrapper in counters.items()}
+    expected = {name: steps * ITERS if name in BACKEND_KERNELS[backend] else 0
+                for name in counters}
     if launches != expected:
-        raise AssertionError(f"{backend}: {launches} kernel launches, expected {expected}")
+        raise AssertionError(f"{backend}: kernel launches {launches}, expected {expected}")
     res = {"policy": backend, "steps": steps, "launches": launches,
            "act_ms": times, "act_ms_median": float(np.median(times)),
            "last_action": [float(a) for a in action], "last_predicted_reward": float(reward)}
@@ -253,32 +437,47 @@ def main() -> int:
     print(f"device: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    log = _build.build("rollout")
-    print(json.dumps({"build_s": time.perf_counter() - t0, "compiled": bool(log)}), flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"rollout: {line.strip()}")
+    logs = _build.build("rollout", "fused_cem")
+    print(json.dumps({"build_s": time.perf_counter() - t0,
+                      "compiled": sorted(name for name, log in logs.items() if log)}), flush=True)
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"{name}: {line.strip()}")
 
     cases = [kernel_vs_plain(device, p, d)
              for p, d in (("mean", "float32"), ("mean", "bfloat16"), ("ts1", "float32"))]
+    fused = [fused_vs_plain(device, p, d)
+             for p, d in (("mean", "float32"), ("mean", "bfloat16"), ("ts1", "float32"))]
+    streamed = fused_vs_plain(device, "mean", "float32", streamed=True)
+    moments = [moments_vs_plain(device, w) for w in ("elite_mask", "softmax")]
     small_reference(device)
     kernel_run = drive_policy(device, "kernel", STEPS)
+    fused_run = drive_policy(device, "fused", STEPS)
     drive_policy(device, "eager", 3)
+    print(json.dumps({"act_ms_median": {"kernel": kernel_run["act_ms_median"],
+                                        "fused": fused_run["act_ms_median"]}}), flush=True)
 
-    main_case = cases[0]  # mean/f32: the configuration the policy ran
+    # The first case of each kernel is mean/f32 (K6: the 50-elite mask), as the policy ran.
+    entries = [
+        ("rollout_states", "rollout.cu", "pallas_rollout.py:73", kernel_run, cases[0]),
+        ("fused_rollout", "fused_cem.cu", "pallas_cem.py:338", fused_run, fused[0]),
+        ("fused_rollout_streamed", "fused_cem.cu", "pallas_cem.py:404", fused_run, streamed),
+        ("elite_moments", "fused_cem.cu", "pallas_cem.py:485", fused_run, moments[0]),
+    ]
     print(json.dumps({"kernels": [{
-        "name": "rollout_states",
+        "name": name,
         "route": "cuda",
-        "source": "blackbox_mpc_torch/ops/csrc/rollout.cu",
-        "replaces": "blackbox_mpc_tpu/ops/pallas_rollout.py:73",
-        "launches": kernel_run["launches"],
-        "max_abs_err": main_case["max_abs_err"],
-        "ms": main_case["ms"],
-        "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
+        "source": f"blackbox_mpc_torch/ops/csrc/{source}",
+        "replaces": f"blackbox_mpc_tpu/ops/{replaces}",
+        "launches": run["launches"][name],
+        "max_abs_err": case["max_abs_err"],
+        "ms": case["ms"],
+        "plain_ms": case["plain_ms"],
+        "bound_ms": case["bound_ms"],
+        "bound_by": case["bound_by"],
         "library_ms": None,
-    }]}))
+    } for name, source, replaces, run, case in entries]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

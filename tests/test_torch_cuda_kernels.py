@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from blackbox_mpc_torch.models.dynamics import LearnedDynamicsConfig, make_learned_dynamics
+from blackbox_mpc_torch.ops import fused_cem as fc
 from blackbox_mpc_torch.ops import rollout_kernel as rk
 from blackbox_mpc_torch.rollout.evaluator import make_trajectory_evaluator
 
@@ -92,3 +93,129 @@ def test_wrapper_rejects_bad_inputs(device):
         rk.rollout_states(config, ops, acts, s0[:8], None)
     with pytest.raises(ValueError, match="multiple"):
         rk.rollout_states(config, ops, acts[:, :14], s0[:14], None)
+
+
+# ---------------------------------------------------------------- K4-K6: the fused CEM kernels
+
+
+def fused_inputs(device, agents=3, horizon=6, seed=2**31 - 2):
+    g = np.random.default_rng(2)
+    s0 = torch.as_tensor(g.uniform(-1, 1, (agents, 3)), dtype=torch.float32, device=device)
+    mean = torch.as_tensor(g.uniform(-0.5, 0.5, (agents, horizon * 2)), dtype=torch.float32,
+                           device=device)
+    std = torch.as_tensor(g.uniform(0.1, 0.6, (agents, horizon * 2)), dtype=torch.float32,
+                          device=device)
+    return s0, mean, std, torch.tensor([seed], dtype=torch.int32, device=device)
+
+
+@pytest.mark.parametrize("propagation,dtype,rows,streamed", [
+    ("mean", "float32", 48, False), ("mean", "float32", 272, False),
+    ("mean", "bfloat16", 272, False), ("ts1", "float32", 272, False),
+    ("mean", "float32", 272, True),
+])
+def test_fused_rollout_matches_plain(propagation, dtype, rows, streamed, device):
+    """272 rows for 3 agents: the rows do not split evenly among the agents."""
+    config, dp, _ = model(propagation, dtype, device, hidden=(61, 30))
+    ops = rk.make_operands(dp, config)
+    s0, mean, std, seed = fused_inputs(device)
+    member, member_tile = None, fc.TILE
+    if propagation == "ts1":
+        member_tile = 8  # a logical tile of two CTAs; its members alternate 0, 1, 0, ...
+        member = torch.arange(-(-rows // member_tile), device=device).remainder(2).int()
+    wrapper = fc.fused_rollout_streamed if streamed else fc.fused_rollout
+    before = wrapper.launches
+    states, actions = wrapper(config, ops, s0, mean, std, seed, rows, member, member_tile)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    ref_states, ref_actions = fc.fused_rollout_plain(config, ops, s0, mean, std, seed, rows,
+                                                     member, member_tile, streamed=streamed)
+    # the drawn actions: logf/cosf of the kernel and of torch's CUDA ops may differ in an ulp
+    torch.testing.assert_close(actions, ref_actions, rtol=0, atol=1e-6)
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(states, ref_states, rtol=tol, atol=tol)
+
+
+def test_fused_rollout_block_and_streamed_give_the_same_rewards(device):
+    """K4 and K5 draw the same actions from the same counters and roll them out the same way:
+    the rewards of 270 rows (ragged) agree, as do the states and actions behind them."""
+    config, dp, _ = model("mean", "float32", device)
+    s0, mean, std, seed = fused_inputs(device)
+    kw = dict(horizon=6, agents=3, population=90)
+    block, _ = fc.make_fused_cem_kernels(config, reward, **kw)
+    streamed, _ = fc.make_fused_cem_kernels(config, reward, streamed=True, **kw)
+    before = (fc.fused_rollout.launches, fc.fused_rollout_streamed.launches)
+    args = (dp, s0, mean.reshape(3, 6, 2), std.reshape(3, 6, 2), seed)
+    torch.testing.assert_close(streamed(*args), block(*args), rtol=1e-6, atol=1e-6)
+    assert (fc.fused_rollout.launches, fc.fused_rollout_streamed.launches) == (
+        before[0] + 1, before[1] + 1)
+    ops = rk.make_operands(dp, config)
+    a = fc.fused_rollout(config, ops, s0, mean, std, seed, 272)
+    b = fc.fused_rollout_streamed(config, ops, s0, mean, std, seed, 272)
+    torch.testing.assert_close(b[1], a[1], rtol=0, atol=0)
+    torch.testing.assert_close(b[0], a[0], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("weights", ["elite_mask", "softmax"])
+def test_elite_moments_matches_plain_and_repeats_bit_for_bit(weights, device):
+    _, mean, std, seed = fused_inputs(device, agents=2, horizon=50)
+    population = 1000  # more than 8 per chunk at 256 chunks: the chunked pass and its sum
+    g = np.random.default_rng(3)
+    if weights == "elite_mask":
+        w = np.zeros((population, 2), np.float32)
+        for a in range(2):
+            w[g.choice(population, 50, replace=False), a] = 1.0
+    else:
+        logits = g.normal(size=(population, 2))
+        w = (np.exp(logits) / np.exp(logits).sum(0)).astype(np.float32)
+    w = torch.as_tensor(w.reshape(-1), device=device)
+    before = fc.elite_moments.launches
+    first = fc.elite_moments(std, w, seed)
+    second = fc.elite_moments(std, w, seed)
+    torch.cuda.synchronize()
+    assert fc.elite_moments.launches == before + 2
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)  # two-pass reduction, no atomics
+    for got, ref in zip(first, fc.elite_moments_plain(std, w, seed)):
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("propagation", ["mean", "ts1"])
+def test_fused_kernels_rewards_match_cpu(propagation, device):
+    """make_fused_cem_kernels end to end on the card (ragged 270 rows, ts1 by logical tiles of
+    8) against the same closures on CPU tensors, which take the plain versions."""
+    config, dp, _ = model(propagation, "float32", device)
+    s0, mean, std, _ = fused_inputs(device)
+    rr, em = fc.make_fused_cem_kernels(config, reward, horizon=6, agents=3, population=90, tile=8)
+    got = rr(dp, s0, mean.reshape(3, 6, 2), std.reshape(3, 6, 2), 77)
+    ref = rr(dp.to("cpu"), s0.cpu(), mean.cpu().reshape(3, 6, 2), std.cpu().reshape(3, 6, 2), 77)
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-4)
+    mask = (got >= got.topk(9, dim=0).values[-1]).float()  # 9 elites per agent
+    got_m = em(mean, std, 77, mask)
+    ref_m = em(mean.cpu(), std.cpu(), 77, mask.cpu())
+    for a, b in zip(got_m, ref_m):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+
+
+def test_fused_wrappers_reject_bad_inputs(device):
+    config, dp, _ = model("mean", "float32", device)
+    ops = rk.make_operands(dp, config)
+    s0, mean, std, seed = fused_inputs(device)
+    with pytest.raises(ValueError, match="seed is on cpu"):
+        fc.fused_rollout(config, ops, s0, mean, std, seed.cpu(), 48)
+    with pytest.raises(ValueError, match="dtype"):
+        fc.fused_rollout(config, ops, s0, mean.double(), std, seed, 48)
+    with pytest.raises(ValueError, match="dtype"):
+        fc.fused_rollout(config, ops, s0, mean, std, seed.long(), 48)
+    with pytest.raises(ValueError, match="shape"):
+        fc.fused_rollout_streamed(config, ops, s0[:2], mean, std, seed, 48)
+    with pytest.raises(ValueError, match="multiple"):
+        fc.fused_rollout(config, ops, s0, mean, std, seed, 46)
+    with pytest.raises(ValueError, match="contiguous"):
+        fc.fused_rollout(config, ops, s0, mean.t().contiguous().t(), std, seed, 48)
+    w = torch.ones(48 * 3, device=device)
+    with pytest.raises(ValueError, match="seed is on cpu"):
+        fc.elite_moments(std, w, seed.cpu())
+    with pytest.raises(ValueError, match="dtype"):
+        fc.elite_moments(std, w.double(), seed)
+    with pytest.raises(ValueError, match="population"):
+        fc.elite_moments(std, w[:-1], seed)

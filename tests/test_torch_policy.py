@@ -97,9 +97,11 @@ def test_constructor_errors(monkeypatch):
 
     with pytest.raises(ValueError, match="rollout_backend"):
         build(rollout_backend="xla")
-    for name in ("fused", "auto"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            build(rollout_backend=name)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        build(rollout_backend="auto")
+    # "fused" and its alias build (their errors are in test_torch_fused_cem.py)
+    for name in ("fused", "fused_cem"):
+        assert build(rollout_backend=name, **SOLVER).solver_name == "CEM"
     with pytest.raises(ValueError, match="learned MLP"):
         build(true, rollout_backend="kernel")
     with pytest.raises(KeyError, match="available"):
