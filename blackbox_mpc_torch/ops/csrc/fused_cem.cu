@@ -1,12 +1,13 @@
-// The generate-in-kernel CEM for Hopper (sm_90a): K3 (counter RNG), K4 (sample + rollout),
-// K5 (the same, generating each step's actions inside the step) and K6 (regenerate the
-// samples and reduce the elite moments).
+// The generate-in-kernel solver family for Hopper (sm_90a): K3 (counter RNG), K4 (sample +
+// rollout), K5 (the same, generating each step's actions inside the step) and K6 (regenerate
+// the samples and reduce the weighted moments).
 //
 // Replaces ops/pallas_cem.py of the JAX package: `_mix`, `_uniform`, `_normal`, `_gen_z`,
 // `_tile_counter` (K3), `kernel_a` (K4), `kernel_a_streamed` (K5) and `kernel_b` (K6) of
-// `make_fused_cem_kernels`, at its white-noise, normal-sampling path. The candidate tensor
-// [P, A, H, U] is never stored: K6 regenerates each row's z from the same global counters
-// (counter = row * H*U + h*U + u, row = p*A + a) that K4 drew it from.
+// `make_fused_cem_kernels`, with every option of theirs: white, colored and uniform sampling,
+// the bounds clip with its squared-violation penalty, injected candidates and the MPPI dot.
+// The candidate tensor [P, A, H, U] is never stored: K6 regenerates each row's z from the same
+// global counters (counter = row * n_cols + col, row = p*A + a) that K4 drew it from.
 //
 // * K3: all integer arithmetic is uint32 (C++ int32 overflow is undefined, JAX wraps):
 //   key = fmix32(seed), x = fmix32(counter * 0x9E3779B1 ^ key), u = (top 24 bits + 0.5) / 2^24.
@@ -14,28 +15,46 @@
 //   and z = clip(sqrt(-2 log u1) * cos(f32(2 pi) * u2), -2, 2) with logf/cosf/sqrtf at full
 //   precision (no --use_fast_math). __fadd_rn/__fmul_rn keep the compiler from contracting
 //   mean + std * z into an FMA, so the drawn actions round as the plain version's do.
+//   `gen_z_tile` yields a tile's z [T, H*U] for K4 and K6 alike. White (n_cols = H*U) and
+//   uniform (2u - 1 from the first key) are per element. Colored is per row: n_cols = U*2F
+//   unclipped normals, each action dim's 2F normals contracted with the [2F, H] spectral basis
+//   (the block that the JAX kernel's dense [U*2F, H*U] matrix repeats per action dim; 10.4 KB at
+//   the flagship, in shared memory when it fits), then the row's mean and population std, the
+//   division by std + 1e-8 and the clip at +/-2. The contraction is a chain of fmaf in k order
+//   and the row sums are lane-strided with a butterfly, all in explicit round-to-nearest
+//   intrinsics, so K4 and K6 get the same bits from it whatever their block sizes.
 // * K4/K5: one CTA per row tile of 4, as in K2 (rollout.cu), running mlp_step.cuh for every
 //   horizon step. K4 generates the tile's whole z block [T, H*U] into shared memory before the
 //   H loop (4.8 KB at the flagship) and forms the actions per row from its agent's mean/std;
 //   K5 is the same CTA body (one template flag) that generates step h's [T, U] inside step h.
 //   For ts1 a CTA runs member tile_member[row0 / member_tile], where member_tile is the JAX
 //   kernel's logical tile (256 by default), so the member of every row is the JAX one.
+//   The options live in a second instantiation of K4 (template flag kFlagged), whose prologue
+//   branches at run time and whose H loop is the plain one: one warp per row clips to the
+//   bounds and sums (raw - clipped)^2, overrides injected rows (population index >= population
+//   - extra_slots) from `extra`, and sums <gvec, centered> with centered taken after the clip,
+//   each sum lane-strided with a butterfly, so in a fixed order.
 // * The reward: as in K2, a prebuilt library cannot call the user's torch reward_fn. So K4/K5
-//   write the visited states [H, rows, S] and the actions they drew [H, rows, U], time-major,
-//   and the wrapper (ops/fused_cem.py) applies reward_fn to all H*rows transitions at once and
-//   sums them undiscounted. The JAX kernel never stores the candidates; this is the one
-//   deliberate divergence (1.2 MB of actions at the flagship). Fusing a fixed reward form is
-//   later work.
-// * K6: a two-pass deterministic reduction. Pass 1 gives each thread one (agent, column) pair
-//   over one chunk of population indices: it regenerates z for the rows of its agent
-//   (row = p*A + a), forms centered = std * z and writes the chunk's sum of w*centered and of
-//   w*centered^2. Pass 2 adds the chunks in a fixed order. No atomics, so repeated runs give
-//   the same bits. The weights w are a 0/1 elite mask for CEM, or any weights.
+//   write the visited states [H, rows, S] and the actions they ended up with [H, rows, U],
+//   time-major, and the wrapper (ops/fused_cem.py) applies reward_fn to all H*rows transitions
+//   at once, sums them undiscounted and subtracts the penalty. The JAX kernel never stores the
+//   candidates; this is the one deliberate divergence (1.2 MB of actions at the flagship).
+//   Fusing a fixed reward form is later work.
+// * K6: a two-pass deterministic reduction. Pass 1 writes, per chunk of population indices,
+//   the chunk's sum of w*centered and of w*centered^2; pass 2 adds the chunks in a fixed order.
+//   No atomics, so repeated runs give the same bits. The weights w are a 0/1 elite mask for
+//   CEM, or any weights (PI2's softmax, CMA's log-rank). For plain white noise pass 1 gives
+//   each thread one (agent, column) pair and draws its own z. A colored z depends on its whole
+//   row, so with any option pass 1 is `elite_partial_rows_kernel`: a CTA per (chunk, agent)
+//   generates whole rows, four at a time, through `gen_z_tile`, and each thread accumulates
+//   its columns over the rows in order; centered = clip(mean + std*z) - mean with the bounds
+//   clip, and extra - mean on injected rows.
 //
 // What bounds them on the H100: K4/K5 by the same L2 weight streaming as K2 (every CTA reads
-// every member's weights from L2 at every step; the RNG adds about 1e-4 of the MLP's work).
-// K6 moves a few KB and draws H*U*rows normals: it is bound by launch latency and the RNG
-// arithmetic (two fmix32, logf, cosf, sqrtf per element).
+// every member's weights from L2 at every step; the RNG adds about 1e-4 of the MLP's work, the
+// colored contraction 2F multiply-adds per element). K6 moves a few KB and draws H*U*rows
+// normals: it is bound by launch latency and the RNG arithmetic (two fmix32, logf, cosf, sqrtf
+// per element).
 
 #include "mlp_step.cuh"
 
@@ -67,12 +86,181 @@ __device__ __forceinline__ Keys make_keys(const int* seed) {
   return Keys{fmix32(s), fmix32(s + 0x632BE5ABu)};
 }
 
-// Clipped N(0, 1) of one element counter.
-__device__ __forceinline__ float normal_z(uint32_t counter, const Keys& keys) {
+// N(0, 1) of one element counter by Box-Muller, unclipped.
+__device__ __forceinline__ float normal_raw(uint32_t counter, const Keys& keys) {
   const float u1 = uniform01(counter, keys.k1);
   const float u2 = uniform01(counter, keys.k2);
-  const float g = __fmul_rn(sqrtf(__fmul_rn(-2.0f, logf(u1))), cosf(__fmul_rn(kTwoPi, u2)));
-  return fminf(fmaxf(g, -2.0f), 2.0f);
+  return __fmul_rn(sqrtf(__fmul_rn(-2.0f, logf(u1))), cosf(__fmul_rn(kTwoPi, u2)));
+}
+
+__device__ __forceinline__ float clip2(float g) { return fminf(fmaxf(g, -2.0f), 2.0f); }
+
+// Clipped N(0, 1) of one element counter.
+__device__ __forceinline__ float normal_z(uint32_t counter, const Keys& keys) {
+  return clip2(normal_raw(counter, keys));
+}
+
+enum Sampling { kWhite = 0, kUniform = 1, kColored = 2 };
+
+// The options of K4 and K6. A null pointer switches its option off.
+struct Features {
+  int sampling;        // Sampling
+  int n_cols;          // RNG counters per row: H*U, or U*2F when colored
+  int two_f;           // rows of the spectral basis, 2 * (H/2 + 1) (colored)
+  int basis_in_smem;   // the kernel copies the basis into shared memory first
+  const float* basis;  // [2F, H] (colored)
+  const float* extra;  // [extra_slots * agents, H*U] injected candidates
+  int extra_slots;     // the last extra_slots population indices read `extra`
+  int population;
+  const float* clip;   // [2, U]: lower, upper
+  const float* gvec;   // [agents, H*U]
+  float* penalty_out;  // [rows], written with clip
+  float* dot_out;      // [rows], written with gvec
+};
+
+// Sum over the warp in a fixed order; every lane gets it.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// K3 for a tile: z [T][H*U] of the rows row0 + r * row_stride, r < n_rows (the rest get 0).
+// `g` is scratch [T][n_cols] for the colored draw; `basis` is [2F][H]. Ends with a barrier.
+// Nothing here depends on the block size, so K4 and K6 get the same bits.
+template <int T>
+__device__ __forceinline__ void gen_z_tile(float* z, float* g, const float* basis,
+                                           const Features& f, int horizon, int dim_u,
+                                           uint32_t row0, uint32_t row_stride, int n_rows,
+                                           const Keys& keys) {
+  const int hu = horizon * dim_u;
+  const int nt = blockDim.x;
+  if (f.sampling != kColored) {
+    for (int i = threadIdx.x; i < T * hu; i += nt) {
+      const int r = i / hu, c = i % hu;
+      float v = 0.f;
+      if (r < n_rows) {
+        const uint32_t counter = (row0 + static_cast<uint32_t>(r) * row_stride) *
+                                     static_cast<uint32_t>(hu) +
+                                 static_cast<uint32_t>(c);
+        v = f.sampling == kUniform
+                ? __fadd_rn(__fmul_rn(2.0f, uniform01(counter, keys.k1)), -1.0f)
+                : normal_z(counter, keys);
+      }
+      z[i] = v;
+    }
+    __syncthreads();
+    return;
+  }
+  const int nc = f.n_cols, two_f = f.two_f;
+  for (int i = threadIdx.x; i < T * nc; i += nt) {
+    const int r = i / nc, col = i % nc;
+    g[i] = r < n_rows ? normal_raw((row0 + static_cast<uint32_t>(r) * row_stride) *
+                                           static_cast<uint32_t>(nc) +
+                                       static_cast<uint32_t>(col),
+                                   keys)
+                      : 0.f;
+  }
+  __syncthreads();
+  // Action dim u's 2F normals through the basis: column c = h*U + u.
+  for (int i = threadIdx.x; i < T * hu; i += nt) {
+    const int r = i / hu, c = i % hu;
+    const int h = c / dim_u, u = c % dim_u;
+    const float* gr = g + r * nc + u * two_f;
+    float acc = 0.f;
+    for (int k = 0; k < two_f; ++k) acc = fmaf(gr[k], basis[k * horizon + h], acc);
+    z[i] = acc;
+  }
+  __syncthreads();
+  // One warp per row: unit population std over the whole (H, U) sequence, then the clip.
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, n_warps = nt / 32;
+  const float n = static_cast<float>(hu);
+  for (int r = warp; r < T; r += n_warps) {
+    float* zr = z + r * hu;
+    float s = 0.f;
+    for (int c = lane; c < hu; c += 32) s = __fadd_rn(s, zr[c]);
+    const float mu = __fdiv_rn(warp_sum(s), n);
+    float q = 0.f;
+    for (int c = lane; c < hu; c += 32) {
+      const float d = __fsub_rn(zr[c], mu);
+      q = fmaf(d, d, q);
+    }
+    const float sd = sqrtf(fmaxf(__fdiv_rn(warp_sum(q), n), 0.f));
+    const float denom = __fadd_rn(sd, 1e-8f);
+    for (int c = lane; c < hu; c += 32) zr[c] = clip2(__fdiv_rn(zr[c], denom));
+  }
+  __syncthreads();
+}
+
+// K4's options, one warp per row of the tile: turns the z block in `acts` [T][H*U] into the
+// actions the rollout takes (clipped to the bounds, or the injected candidate), stores them to
+// actions_out [H, rows, U], and writes the row's penalty and dot.
+template <int T>
+__device__ __forceinline__ void form_actions(float* acts, int row0, int agents, int hu,
+                                             const float* __restrict__ mean,
+                                             const float* __restrict__ std, const Features& f,
+                                             float* __restrict__ actions_out,
+                                             const Problem& p) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, n_warps = blockDim.x / 32;
+  const int U = p.dim_u;
+  const int fresh = f.population - f.extra_slots;
+  for (int r = warp; r < T; r += n_warps) {
+    const int row = row0 + r, a = row % agents, pi = row / agents;
+    // The grid's padding rows have pi >= population: they never read `extra`.
+    const bool injected = f.extra != nullptr && pi >= fresh && pi < f.population;
+    const float* inj =
+        injected ? f.extra + ((long long)(pi - fresh) * agents + a) * hu : nullptr;
+    float pen = 0.f, dot = 0.f;
+    for (int c = lane; c < hu; c += 32) {
+      const float m = mean[a * hu + c];
+      const float dev = __fmul_rn(std[a * hu + c], acts[r * hu + c]);
+      float v = __fadd_rn(m, dev);
+      float centered = dev;
+      if (f.clip != nullptr) {
+        const int u = c % U;
+        const float clipped = fminf(fmaxf(v, f.clip[u]), f.clip[U + u]);
+        const float d = __fsub_rn(v, clipped);
+        pen = fmaf(d, d, pen);
+        v = clipped;
+        centered = __fsub_rn(v, m);
+      }
+      if (injected) {
+        v = inj[c];
+        centered = __fsub_rn(v, m);
+      }
+      if (f.gvec != nullptr) dot = fmaf(f.gvec[a * hu + c], centered, dot);
+      acts[r * hu + c] = v;
+      actions_out[((long long)(c / U) * p.rows + row) * U + c % U] = v;
+    }
+    pen = warp_sum(pen);
+    dot = warp_sum(dot);
+    if (lane == 0) {
+      if (f.penalty_out != nullptr) f.penalty_out[row] = pen;
+      if (f.dot_out != nullptr) f.dot_out[row] = dot;
+    }
+  }
+}
+
+// K4's prologue with options: the tile's z through gen_z_tile, then form_actions. `acts` is
+// [T][H*U], followed by the colored draw's [T][n_cols] normals and, if it is kept in shared
+// memory, the [2F][H] basis.
+template <int T>
+__device__ __forceinline__ void sample_with_options(float* acts, int row0, int agents,
+                                                 const float* __restrict__ mean,
+                                                 const float* __restrict__ std,
+                                                 const Keys& keys, const Features& f,
+                                                 float* __restrict__ actions_out,
+                                                 const Problem& p) {
+  const int hu = p.horizon * p.dim_u;
+  float* g = acts + T * hu;
+  const float* basis = f.basis;
+  if (f.basis_in_smem) {
+    float* b = g + T * f.n_cols;
+    for (int i = threadIdx.x; i < f.two_f * p.horizon; i += blockDim.x) b[i] = f.basis[i];
+    basis = b;
+  }
+  gen_z_tile<T>(acts, g, basis, f, p.horizon, p.dim_u, static_cast<uint32_t>(row0), 1u, T, keys);
+  form_actions<T>(acts, row0, agents, hu, mean, std, f, actions_out, p);
 }
 
 // The action of row `row`, flat column c = h*U + u, from its agent's mean/std. Also stored to
@@ -91,17 +279,18 @@ __device__ __forceinline__ float draw_action(int row, int c, int hu, int agents,
   return v;
 }
 
-template <int T, typename W, bool kStreamed>
+template <int T, typename W, bool kStreamed, bool kFlagged>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 fused_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ mean,
                      const float* __restrict__ std, const int* __restrict__ seed,
                      const int* __restrict__ tile_member, int member_tile, int agents,
                      const float* __restrict__ stats, const W* __restrict__ weights,
                      const float* __restrict__ biases, float* __restrict__ states_out,
-                     float* __restrict__ actions_out, Problem p, NetShape net) {
+                     float* __restrict__ actions_out, Problem p, NetShape net, Features f) {
   extern __shared__ float4 smem4[];
   const StepSmem sm = carve<T>(reinterpret_cast<float*>(smem4), net, p.dim_s);
-  float* acts = sm.tail;  // K4: [T][H*U]; K5: [T][U]
+  // K4: [T][H*U], then with options [T][n_cols] normals and the [2F][H] basis; K5: [T][U]
+  float* acts = sm.tail;
   const int S = p.dim_s, U = p.dim_u, hu = p.horizon * p.dim_u;
   const int row0 = blockIdx.x * T;
   const int member = tile_member ? tile_member[row0 / member_tile] : -1;
@@ -111,7 +300,9 @@ fused_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ mea
     const int r = i / S, j = i % S;
     sm.st[i] = s0[((row0 + r) % agents) * S + j];
   }
-  if (!kStreamed) {
+  if constexpr (kFlagged) {
+    sample_with_options<T>(acts, row0, agents, mean, std, keys, f, actions_out, p);
+  } else if (!kStreamed) {
     for (int i = threadIdx.x; i < T * hu; i += kThreads) {
       acts[i] = draw_action(row0 + i / hu, i % hu, hu, agents, mean, std, keys, actions_out, p);
     }
@@ -161,6 +352,67 @@ elite_partial_kernel(const float* __restrict__ std, const float* __restrict__ we
   out[n + idx] = sumsq;
 }
 
+// Pass 1 of K6 with any option: one CTA per (chunk, agent) regenerates the agent's rows of the
+// chunk, T at a time, through gen_z_tile; thread t owns the columns t, t + blockDim, ... and
+// adds the rows to them in order. Writes the same partial layout as elite_partial_kernel.
+template <int T>
+__global__ void __launch_bounds__(kMomentThreads)
+elite_partial_rows_kernel(const float* __restrict__ mean, const float* __restrict__ std,
+                          const float* __restrict__ weight, const int* __restrict__ seed,
+                          int population, int agents, int horizon, int dim_u, int chunk,
+                          Features f, float* __restrict__ partial) {
+  extern __shared__ float4 smem4[];
+  const int hu = horizon * dim_u;
+  float* z = reinterpret_cast<float*>(smem4);  // [T][H*U]
+  float* acc = z + T * hu;                     // [2][H*U]
+  float* g = acc + 2 * hu;                     // [T][n_cols] (colored)
+  const float* basis = f.basis;
+  if (f.basis_in_smem) {
+    float* b = g + T * f.n_cols;
+    for (int i = threadIdx.x; i < f.two_f * horizon; i += kMomentThreads) b[i] = f.basis[i];
+    basis = b;
+  }
+  for (int c = threadIdx.x; c < 2 * hu; c += kMomentThreads) acc[c] = 0.f;
+  const int a = blockIdx.y;
+  const int p0 = blockIdx.x * chunk;
+  const int p1 = min(population, p0 + chunk);
+  const int fresh = population - f.extra_slots;
+  const Keys keys = make_keys(seed);
+  for (int pt = p0; pt < p1; pt += T) {
+    const int n_rows = min(T, p1 - pt);
+    gen_z_tile<T>(z, g, basis, f, horizon, dim_u, static_cast<uint32_t>(pt * agents + a),
+                  static_cast<uint32_t>(agents), n_rows, keys);
+    for (int c = threadIdx.x; c < hu; c += kMomentThreads) {
+      const float m = mean != nullptr ? mean[a * hu + c] : 0.f;
+      const float sd = std[a * hu + c];
+      float sum = acc[c], sumsq = acc[hu + c];
+      for (int r = 0; r < n_rows; ++r) {
+        const int pi = pt + r;
+        const float w = weight[pi * agents + a];
+        float x = __fmul_rn(sd, z[r * hu + c]);
+        if (f.clip != nullptr) {
+          const int u = c % dim_u;
+          x = __fsub_rn(fminf(fmaxf(__fadd_rn(m, x), f.clip[u]), f.clip[dim_u + u]), m);
+        }
+        if (f.extra != nullptr && pi >= fresh) {
+          x = __fsub_rn(f.extra[((long long)(pi - fresh) * agents + a) * hu + c], m);
+        }
+        sum += w * x;
+        sumsq += w * (x * x);
+      }
+      acc[c] = sum;
+      acc[hu + c] = sumsq;
+    }
+    __syncthreads();
+  }
+  const int n = agents * hu;
+  float* out = partial + (long long)blockIdx.x * 2 * n;
+  for (int c = threadIdx.x; c < hu; c += kMomentThreads) {
+    out[a * hu + c] = acc[c];
+    out[n + a * hu + c] = acc[hu + c];
+  }
+}
+
 // Pass 2 of K6: the chunks in order.
 __global__ void __launch_bounds__(kMomentThreads)
 elite_final_kernel(const float* __restrict__ partial, int n_chunks, int n,
@@ -176,31 +428,68 @@ elite_final_kernel(const float* __restrict__ partial, int n_chunks, int n,
   sumsq_out[idx] = sumsq;
 }
 
-template <int T, typename W, bool kStreamed>
+// Shared memory above which the kernels read the colored basis from global memory instead of a
+// copy of their own: two CTAs of K4 still fit an SM below it.
+constexpr size_t kBasisSmemLimit = 110 * 1024;
+
+bool flagged(const Features& f) {
+  return f.sampling != kWhite || f.extra != nullptr || f.clip != nullptr || f.gvec != nullptr;
+}
+
+bool valid(const Features& f, int horizon, int dim_u, int population) {
+  if (f.sampling < kWhite || f.sampling > kColored) return false;
+  if (f.sampling == kColored) {
+    if (f.basis == nullptr || f.two_f != 2 * (horizon / 2 + 1) || f.n_cols != dim_u * f.two_f) {
+      return false;
+    }
+  } else if (f.n_cols != horizon * dim_u) {
+    return false;
+  }
+  if (f.extra != nullptr &&
+      (f.extra_slots < 1 || f.population != population || f.extra_slots >= population)) {
+    return false;
+  }
+  if (f.extra == nullptr && f.extra_slots != 0) return false;
+  return true;
+}
+
+// Floats of shared memory the options add to `base_bytes`: the colored draw's [tile][n_cols]
+// normals and, where it fits under kBasisSmemLimit, the basis (sets f->basis_in_smem).
+size_t option_floats(Features* f, size_t base_bytes, int tile, int horizon) {
+  if (f->sampling != kColored) return 0;
+  size_t floats = (size_t)tile * f->n_cols;
+  const size_t basis = (size_t)f->two_f * horizon;
+  f->basis_in_smem = base_bytes + (floats + basis) * sizeof(float) <= kBasisSmemLimit;
+  return floats + (f->basis_in_smem ? basis : 0);
+}
+
+template <int T, typename W, bool kStreamed, bool kFlagged>
 cudaError_t launch(const float* s0, const float* mean, const float* std, const int* seed,
                    const int* tile_member, int member_tile, int agents, const float* stats,
                    const void* weights, const float* biases, float* states_out,
-                   float* actions_out, const Problem& p, const NetShape& net,
+                   float* actions_out, const Problem& p, const NetShape& net, Features f,
                    cudaStream_t stream) {
   const int tail = kStreamed ? T * p.dim_u : T * p.horizon * p.dim_u;
-  const size_t smem = smem_bytes(net, p.dim_s, T) + (size_t)tail * sizeof(float);
-  auto kern = fused_rollout_kernel<T, W, kStreamed>;
+  size_t smem = smem_bytes(net, p.dim_s, T) + (size_t)tail * sizeof(float);
+  if (kFlagged) smem += option_floats(&f, smem, T, p.horizon) * sizeof(float);
+  auto kern = fused_rollout_kernel<T, W, kStreamed, kFlagged>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kern<<<p.rows / T, kThreads, smem, stream>>>(s0, mean, std, seed, tile_member, member_tile,
                                                agents, stats, static_cast<const W*>(weights),
-                                               biases, states_out, actions_out, p, net);
+                                               biases, states_out, actions_out, p, net, f);
   return cudaGetLastError();
 }
 
-template <bool kStreamed>
+template <bool kStreamed, bool kFlagged>
 int fused_rollout(const float* s0, const float* mean, const float* std, const int* seed,
                   const int* tile_member, int member_tile, const float* stats,
                   const void* weights, const float* biases, float* states_out,
                   float* actions_out, int horizon, int rows, int agents, int dim_s, int dim_u,
                   int stats_width, int ensemble, int n_layers, const int* widths,
-                  int activation, int normalized, int predict_delta, int bf16, void* stream) {
+                  int activation, int normalized, int predict_delta, int bf16,
+                  const Features& f, void* stream) {
   NetShape net;
   if (!make_shape(n_layers, widths, ensemble, &net) || rows % kTile || agents < 1 ||
       (tile_member && (member_tile <= 0 || member_tile % kTile))) {
@@ -210,13 +499,13 @@ int fused_rollout(const float* s0, const float* mean, const float* std, const in
                   activation, normalized, predict_delta};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    return launch<kTile, __nv_bfloat16, kStreamed>(s0, mean, std, seed, tile_member,
-                                                   member_tile, agents, stats, weights, biases,
-                                                   states_out, actions_out, p, net, s);
+    return launch<kTile, __nv_bfloat16, kStreamed, kFlagged>(
+        s0, mean, std, seed, tile_member, member_tile, agents, stats, weights, biases,
+        states_out, actions_out, p, net, f, s);
   }
-  return launch<kTile, float, kStreamed>(s0, mean, std, seed, tile_member, member_tile, agents,
-                                         stats, weights, biases, states_out, actions_out, p,
-                                         net, s);
+  return launch<kTile, float, kStreamed, kFlagged>(s0, mean, std, seed, tile_member,
+                                                   member_tile, agents, stats, weights, biases,
+                                                   states_out, actions_out, p, net, f, s);
 }
 
 }  // namespace
@@ -226,24 +515,45 @@ extern "C" {
 // K4. Draws the actions of `rows` rows (a multiple of 4; row = p * agents + a, agent-minor)
 // from the counter RNG under `seed` [1] (int32, on the device) and the per-agent mean/std
 // [agents, H*U], rolls them out from s0 [agents, S] for `horizon` steps, and writes the visited
-// states [H, rows, S] and the drawn actions [H, rows, U]. `tile_member` [ceil(rows /
+// states [H, rows, S] and the actions it rolled out [H, rows, U]. `tile_member` [ceil(rows /
 // member_tile)] gives each logical tile of `member_tile` rows (a multiple of 4) its member
 // (ts1), or is NULL (mean). Weights, biases, stats and widths are as in bbmpc_rollout_states.
-// Returns cudaGetLastError().
+// The options (each off at 0 / NULL): `sampling` 0 white normal, 1 uniform in (-1, 1), 2 colored
+// through `basis` [two_f, H] with n_cols = U * two_f counters per row (otherwise n_cols = H*U);
+// `extra` [extra_slots * agents, H*U] replaces the draws of population indices >= population -
+// extra_slots; `clip` [2, U] clips the actions and writes the squared violation per row to
+// `penalty_out` [rows]; `gvec` [agents, H*U] writes <gvec, action - mean> per row (std * z
+// where nothing clipped or injected) to `dot_out` [rows]. Returns cudaGetLastError().
 int bbmpc_fused_rollout(const float* s0, const float* mean, const float* std, const int* seed,
                         const int* tile_member, int member_tile, const float* stats,
                         const void* weights, const float* biases, float* states_out,
                         float* actions_out, int horizon, int rows, int agents, int dim_s,
                         int dim_u, int stats_width, int ensemble, int n_layers,
                         const int* widths, int activation, int normalized, int predict_delta,
-                        int bf16, void* stream) {
-  return fused_rollout<false>(s0, mean, std, seed, tile_member, member_tile, stats, weights,
-                              biases, states_out, actions_out, horizon, rows, agents, dim_s,
-                              dim_u, stats_width, ensemble, n_layers, widths, activation,
-                              normalized, predict_delta, bf16, stream);
+                        int bf16, int sampling, int n_cols, int two_f, const float* basis,
+                        const float* extra, int extra_slots, int population, const float* clip,
+                        const float* gvec, float* penalty_out, float* dot_out, void* stream) {
+  const Features f{sampling, n_cols,     two_f, 0,    basis,       extra,
+                   extra_slots, population, clip,  gvec, penalty_out, dot_out};
+  if (!valid(f, horizon, dim_u, population) || (clip != nullptr && penalty_out == nullptr) ||
+      (gvec != nullptr && dot_out == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  if (flagged(f)) {
+    return fused_rollout<false, true>(s0, mean, std, seed, tile_member, member_tile, stats,
+                                      weights, biases, states_out, actions_out, horizon, rows,
+                                      agents, dim_s, dim_u, stats_width, ensemble, n_layers,
+                                      widths, activation, normalized, predict_delta, bf16, f,
+                                      stream);
+  }
+  return fused_rollout<false, false>(s0, mean, std, seed, tile_member, member_tile, stats,
+                                     weights, biases, states_out, actions_out, horizon, rows,
+                                     agents, dim_s, dim_u, stats_width, ensemble, n_layers,
+                                     widths, activation, normalized, predict_delta, bf16, f,
+                                     stream);
 }
 
-// K5: the same function as K4, generating step h's actions inside step h.
+// K5: the same function as K4 without options, generating step h's actions inside step h.
 int bbmpc_fused_rollout_streamed(const float* s0, const float* mean, const float* std,
                                  const int* seed, const int* tile_member, int member_tile,
                                  const float* stats, const void* weights, const float* biases,
@@ -251,26 +561,55 @@ int bbmpc_fused_rollout_streamed(const float* s0, const float* mean, const float
                                  int agents, int dim_s, int dim_u, int stats_width,
                                  int ensemble, int n_layers, const int* widths, int activation,
                                  int normalized, int predict_delta, int bf16, void* stream) {
-  return fused_rollout<true>(s0, mean, std, seed, tile_member, member_tile, stats, weights,
-                             biases, states_out, actions_out, horizon, rows, agents, dim_s,
-                             dim_u, stats_width, ensemble, n_layers, widths, activation,
-                             normalized, predict_delta, bf16, stream);
+  Features f{};
+  f.n_cols = horizon * dim_u;
+  return fused_rollout<true, false>(s0, mean, std, seed, tile_member, member_tile, stats,
+                                    weights, biases, states_out, actions_out, horizon, rows,
+                                    agents, dim_s, dim_u, stats_width, ensemble, n_layers,
+                                    widths, activation, normalized, predict_delta, bf16, f,
+                                    stream);
 }
 
-// K6. sum_out/sumsq_out [agents, hu] = sum over the population of weight[row] * x and
-// weight[row] * x^2, x = std[a] * z(row), row = p * agents + a; weight [population * agents].
-// `partial` is scratch of ceil(population / chunk) * 2 * agents * hu floats.
-int bbmpc_elite_moments(const float* std, const float* weight, const int* seed, float* partial,
-                        float* sum_out, float* sumsq_out, int population, int agents, int hu,
-                        int chunk, void* stream) {
-  if (population < 1 || agents < 1 || hu < 1 || chunk < 1) return cudaErrorInvalidValue;
+// K6. sum_out/sumsq_out [agents, H*U] = sum over the population of weight[row] * x and
+// weight[row] * x^2, row = p * agents + a, weight [population * agents], where x is the
+// centered sample: std[a] * z(row); with `clip` [2, U], clip(mean[a] + std[a] * z) - mean[a];
+// on the last `extra_slots` population indices, extra - mean[a]. `sampling`, `n_cols`, `two_f`
+// and `basis` are as in bbmpc_fused_rollout; `mean` may be NULL without clip and extra.
+// `partial` is scratch of ceil(population / chunk) * 2 * agents * H*U floats.
+int bbmpc_elite_moments(const float* mean, const float* std, const float* weight,
+                        const int* seed, float* partial, float* sum_out, float* sumsq_out,
+                        int population, int agents, int horizon, int dim_u, int chunk,
+                        int sampling, int n_cols, int two_f, const float* basis,
+                        const float* extra, int extra_slots, const float* clip, void* stream) {
+  if (population < 1 || agents < 1 || horizon < 1 || dim_u < 1 || chunk < 1) {
+    return cudaErrorInvalidValue;
+  }
+  Features f{sampling, n_cols,     two_f, 0,       basis,   extra,
+             extra_slots, population, clip,  nullptr, nullptr, nullptr};
+  if (!valid(f, horizon, dim_u, population) ||
+      ((clip != nullptr || extra != nullptr) && mean == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int hu = horizon * dim_u;
   const int n = agents * hu;
   const int n_chunks = (population + chunk - 1) / chunk;
   const int col_blocks = (n + kMomentThreads - 1) / kMomentThreads;
-  elite_partial_kernel<<<dim3(n_chunks, col_blocks), kMomentThreads, 0, s>>>(
-      std, weight, seed, population, agents, hu, chunk, partial);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err;
+  if (flagged(f)) {
+    if (agents > 65535) return cudaErrorInvalidValue;
+    size_t smem = (size_t)(kTile + 2) * hu * sizeof(float);
+    smem += option_floats(&f, smem, kTile, horizon) * sizeof(float);
+    auto kern = elite_partial_rows_kernel<kTile>;
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kern<<<dim3(n_chunks, agents), kMomentThreads, smem, s>>>(
+        mean, std, weight, seed, population, agents, horizon, dim_u, chunk, f, partial);
+  } else {
+    elite_partial_kernel<<<dim3(n_chunks, col_blocks), kMomentThreads, 0, s>>>(
+        std, weight, seed, population, agents, hu, chunk, partial);
+  }
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   elite_final_kernel<<<col_blocks, kMomentThreads, 0, s>>>(partial, n_chunks, n, sum_out,
                                                            sumsq_out);

@@ -11,14 +11,15 @@ Rollout backends:
 * ``"kernel"`` (the counterpart of ``"pallas"``): the hand-written CUDA rollout kernel
   (:mod:`blackbox_mpc_torch.ops.rollout_kernel`), learned MLP dynamics with mean/ts1
   propagation;
-* ``"fused"`` (alias ``"fused_cem"``): the generate-in-kernel CEM
+* ``"fused"`` (alias ``"fused_cem"``): the generate-in-kernel solver family
   (:mod:`blackbox_mpc_torch.ops.fused_cem`), whose CUDA kernels draw the candidates, roll them
-  out and reduce the elite moments without storing the candidate tensor. Learned MLP dynamics
-  with mean/ts1 propagation, solver ``"CEM"``, undiscounted rewards and no smoothness penalty.
+  out and reduce the weighted moments without storing the candidate tensor. Learned MLP
+  dynamics with mean/ts1 propagation; solvers ``"CEM"`` (with the iCEM options), ``"PI2"``,
+  ``"MPPI"``, ``"RandomSearch"`` and ``"CMA-ES"`` with ``diagonal=True``; undiscounted rewards
+  and no smoothness penalty.
 
-``"auto"`` is not ported yet, nor are the fused PI2/MPPI, RandomSearch and sep-CMA. The JAX
-options ``mesh``, ``proposer``, ``remat_rollout``, ``rng_impl`` and ``metrics_writer`` have no
-counterpart here yet.
+``"auto"`` is not ported yet. The JAX options ``mesh``, ``proposer``, ``remat_rollout``,
+``rng_impl`` and ``metrics_writer`` have no counterpart here yet.
 """
 from __future__ import annotations
 
@@ -42,8 +43,14 @@ logger = logging.getLogger(__name__)
 __all__ = ["MPCPolicy", "ROLLOUT_BACKENDS"]
 
 ROLLOUT_BACKENDS = ("eager", "kernel", "fused")
-# The JAX package's fused solver family; of it, the port has the fused CEM so far.
-_FUSED_FAMILY = ("CEM", "PI2", "MPPI", "RandomSearch", "CMA-ES")
+# The fused solver family, by registry name: the factory of ops/fused_cem.py behind each.
+_FUSED_FAMILY = {
+    "CEM": "make_fused_cem",
+    "PI2": "make_fused_pi2",
+    "MPPI": "make_fused_pi2",
+    "RandomSearch": "make_fused_random_search",
+    "CMA-ES": "make_fused_sep_cma",  # requires diagonal=True (the factory checks)
+}
 
 
 class MPCPolicy(ModelBasedPolicy):
@@ -121,18 +128,13 @@ class MPCPolicy(ModelBasedPolicy):
 
     def _build(self, solver_name: str, strict_kwargs: bool = False) -> None:
         known = solver_name in SOLVER_REGISTRY or solver_name in UNPORTED_SOLVERS
-        if self._rollout_backend == "fused" and known:  # an unknown name: lookup's KeyError
-            if solver_name not in _FUSED_FAMILY:
-                raise ValueError(
-                    "rollout_backend='fused' backs the generate-in-kernel solver family "
-                    f"(CEM, PI2, MPPI, RandomSearch, CMA-ES with diagonal=True), not "
-                    f"{solver_name}"
-                )
-            if solver_name != "CEM":
-                raise NotImplementedError(
-                    f"rollout_backend='fused' with {solver_name} is not ported yet (ROADMAP "
-                    "Queue 1 items 8 and 10: the fused PI2/MPPI, RandomSearch and sep-CMA)"
-                )
+        # an unknown name gets lookup's KeyError
+        if self._rollout_backend == "fused" and known and solver_name not in _FUSED_FAMILY:
+            raise ValueError(
+                "rollout_backend='fused' backs the generate-in-kernel solver family "
+                f"(CEM, PI2, MPPI, RandomSearch, CMA-ES with diagonal=True), not "
+                f"{solver_name}"
+            )
         config_cls, factory = lookup(solver_name)
         valid = set(config_cls.__dataclass_fields__)
         kept = {k: v for k, v in self._solver_kwargs.items() if k in valid}
@@ -158,11 +160,14 @@ class MPCPolicy(ModelBasedPolicy):
                 f"{self._rollout_backend!r} backend's candidate contract is [P, A, H, U]"
             )
         if self._rollout_backend == "fused":
-            from blackbox_mpc_torch.ops.fused_cem import make_fused_cem
+            from blackbox_mpc_torch.ops import fused_cem
 
+            # Each factory stores its state in config.dtype (base.with_state_dtype) and reads
+            # the handler's current parameters at every solve.
             handler = self._handler
-            solver = make_fused_cem(config, self._bounds, handler.config,
-                                    lambda: handler.dynamics_params, self._reward_fn)
+            fused_factory = getattr(fused_cem, _FUSED_FAMILY[solver_name])
+            solver = fused_factory(config, self._bounds, handler.config,
+                                   lambda: handler.dynamics_params, self._reward_fn)
         else:
             solver = factory(config, self._bounds, self._make_evaluate(time_major))
         self._solver_name = solver_name

@@ -1,7 +1,8 @@
 """Solver registry: one factory per trajectory optimizer, keyed by name.
 
-Counterpart of ``blackbox_mpc_tpu/solvers/__init__.py``. Only CEM is ported so far; the other
-names of the JAX registry raise ``NotImplementedError`` until their slice lands.
+Counterpart of ``blackbox_mpc_tpu/solvers/__init__.py``. Ported: CEM (with the iCEM options),
+PI2, MPPI, RandomSearch and CMA-ES, the solvers the fused kernels of ``ops/fused_cem.py`` back.
+The other names of the JAX registry (``UNPORTED_SOLVERS``) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -10,15 +11,24 @@ from typing import Callable, Dict, Tuple, Type
 from blackbox_mpc_torch.core.types import Bounds, Solver, SolverAux, TrajectoryEvaluator
 from blackbox_mpc_torch.solvers.base import SolverConfig
 from blackbox_mpc_torch.solvers.cem import CEMConfig, CEMState, make_cem
+from blackbox_mpc_torch.solvers.cma_es import CMAESConfig, CMAESState, make_cma_es
+from blackbox_mpc_torch.solvers.pi2 import MPPIConfig, PI2Config, PI2State, make_pi2
+from blackbox_mpc_torch.solvers.random_search import (
+    RandomSearchConfig,
+    RandomSearchState,
+    make_random_search,
+)
 
 SOLVER_REGISTRY: Dict[str, Tuple[Type[SolverConfig], Callable]] = {
     "CEM": (CEMConfig, make_cem),
+    "CMA-ES": (CMAESConfig, make_cma_es),
+    "MPPI": (MPPIConfig, make_pi2),
+    "PI2": (PI2Config, make_pi2),
+    "RandomSearch": (RandomSearchConfig, make_random_search),
 }
 
 # Solvers of the JAX package that the port does not have yet.
-UNPORTED_SOLVERS = frozenset(
-    {"CEM-GD", "CMA-ES", "Gradient", "MPPI", "PI2", "PSO", "RandomSearch", "SPSA"}
-)
+UNPORTED_SOLVERS = frozenset({"CEM-GD", "Gradient", "PSO", "SPSA"})
 
 
 def lookup(name: str):
@@ -44,5 +54,7 @@ def make_solver(
 
 __all__ = [
     "SOLVER_REGISTRY", "UNPORTED_SOLVERS", "lookup", "make_solver", "Solver", "SolverAux",
-    "SolverConfig", "CEMConfig", "CEMState", "make_cem",
+    "SolverConfig", "CEMConfig", "CEMState", "make_cem", "CMAESConfig", "CMAESState",
+    "make_cma_es", "MPPIConfig", "PI2Config", "PI2State", "make_pi2", "RandomSearchConfig",
+    "RandomSearchState", "make_random_search",
 ]

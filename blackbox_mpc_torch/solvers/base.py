@@ -1,12 +1,17 @@
 """Shared configuration and helpers for the derivative-free trajectory solvers.
 
 Counterpart of ``blackbox_mpc_tpu/solvers/base.py``: bounds bookkeeping, midpoint/variance
-initialization, warm-start time shifting and the exploration-noise rule.
+initialization, warm-start time shifting, the bound-violation penalty, the iCEM colored noise
+(with the spectral-synthesis basis the fused kernels contract) and the exploration-noise rule.
+The time-major colored noise and ``adam_polish`` are not ported yet (ROADMAP Queue 1 items 4
+and 10).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
+import numpy as np
 import torch
 
 from blackbox_mpc_torch.core.types import Bounds, Solver, truncated_normal
@@ -18,6 +23,10 @@ __all__ = [
     "init_solution_variance",
     "constrain_variance",
     "shift_time",
+    "bound_violation_penalty",
+    "colored_noise",
+    "colored_spectrum",
+    "colored_synthesis_basis",
     "exploration_noise",
 ]
 
@@ -99,6 +108,64 @@ def constrain_variance(
 def shift_time(plan: torch.Tensor) -> torch.Tensor:
     """Warm-start shift: drop step 0, repeat the final step. plan=[..., H, U]."""
     return torch.cat([plan[..., 1:, :], plan[..., -1:, :]], dim=-2)
+
+
+def bound_violation_penalty(
+    samples: torch.Tensor, bounds: Bounds
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Clips samples ``[P, A, H, U]`` to bounds; returns (feasible samples, squared-violation
+    penalty ``[P, A]``)."""
+    feasible = bounds.clip(samples)
+    violation = torch.square(samples - feasible)
+    return feasible, violation.reshape(samples.shape[0], samples.shape[1], -1).sum(-1)
+
+
+def colored_spectrum(generator: torch.Generator, shape, dtype=torch.float32):
+    """The white complex spectrum of :func:`colored_noise`: (real, imaginary), each
+    ``[..., U, F]`` standard normals, F = H // 2 + 1, for ``shape = [..., H, U]``."""
+    *lead, horizon, dim_u = shape
+    size = (*lead, dim_u, horizon // 2 + 1)
+    real = torch.randn(size, generator=generator, device=generator.device, dtype=dtype)
+    imag = torch.randn(size, generator=generator, device=generator.device, dtype=dtype)
+    return real, imag
+
+
+def colored_noise(generator: torch.Generator, beta: float, shape,
+                  dtype=torch.float32) -> torch.Tensor:
+    """Temporally colored (power-law) noise along the horizon axis, the iCEM sampler.
+
+    ``shape`` is ``[..., H, U]``; the spectrum over the H axis is scaled ``f^(-beta/2)``
+    (beta=0: white noise). The signal is normalized to unit standard deviation over each
+    whole ``(H, U)`` action sequence, not per step.
+    """
+    horizon = shape[-2]
+    nfreq = horizon // 2 + 1
+    real, imag = colored_spectrum(generator, shape, dtype)
+    freqs = torch.arange(1, nfreq + 1, dtype=dtype, device=real.device)  # avoids f=0 blowup
+    spectrum = torch.complex(real, imag) * freqs ** (-beta / 2.0)
+    signal = torch.fft.irfft(spectrum, n=horizon, dim=-1).transpose(-1, -2)  # [..., H, U]
+    std = torch.std(signal, dim=(-2, -1), keepdim=True, unbiased=False) + 1e-8
+    return signal / std
+
+
+def colored_synthesis_basis(horizon: int, beta: float) -> np.ndarray:
+    """Static ``[2F, H]`` spectral-synthesis basis (numpy, float64), F = H // 2 + 1.
+
+    Row 2k / 2k+1 is the irfft of the ``(k+1)^(-beta/2)``-scaled unit real / imaginary impulse
+    at frequency k, so ``coeffs [.., 2F] @ basis -> [.., H]`` reproduces
+    ``irfft(spectrum * f^(-beta/2))`` for ``spectrum = re + i*im``. The fused kernels contract
+    it per action dim (``ops/fused_cem.py``).
+    """
+    nfreq = horizon // 2 + 1
+    scale = np.arange(1, nfreq + 1, dtype=np.float64) ** (-beta / 2.0)
+    basis = np.zeros((2 * nfreq, horizon), np.float64)
+    for k in range(nfreq):
+        spec = np.zeros(nfreq, np.complex128)
+        spec[k] = scale[k]
+        basis[2 * k] = np.fft.irfft(spec, n=horizon)
+        spec[k] = 1j * scale[k]
+        basis[2 * k + 1] = np.fft.irfft(spec, n=horizon)
+    return basis
 
 
 def exploration_noise(

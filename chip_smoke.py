@@ -13,15 +13,20 @@ It imports nothing of JAX and nothing of the JAX package. Phases, each fatal on 
    - the fused sample + rollout kernel (K4, with the counter RNG K3) for mean/f32, mean/bf16
      and ts1/f32 (logical tile 128, so 8 tiles for 5 members), and its streamed form (K5)
      for mean/f32: the drawn actions, the visited states and the rewards;
-   - the elite-moment kernel (K6) with a 50-elite 0/1 mask and with softmax weights, which
-     must also repeat bit for bit.
+   - K4 with its options (mean/f32): the iCEM set (colored noise beta 2, 6 injected
+     candidates), the MPPI set (bounds clip with its penalty, the dot) and uniform sampling;
+   - the elite-moment kernel (K6) with a 50-elite 0/1 mask and with softmax weights, and with
+     the options colored + injected and bounds clip; every case must also repeat bit for bit.
 4. reference on a small input: the kernel evaluator against the eager evaluator, and the
-   fused kernels against the same closures on CPU tensors (the plain versions).
-5. slice: ``MPCPolicy`` with CEM at the flagship settings (pop=1000, 5 iterations, 50
-   elites) acts 5 steps after a warm-up, closing the loop through the model, on the
-   ``"kernel"`` and on the ``"fused"`` backend; actions must be finite and in bounds, and
-   each kernel's launch count over exactly that run must be steps x iterations for the
-   kernels of that backend and 0 for the others. The eager backend runs 3 steps, timed.
+   fused kernels, plain and with each solver's option set, against the same closures on CPU
+   tensors (the plain versions).
+5. slice: ``MPCPolicy`` at the flagship settings (pop=1000, 50 elites, 5 iterations) acts 3
+   steps after a warm-up, closing the loop through the model: CEM on the ``"kernel"`` and on
+   the ``"fused"`` backend, then on ``"fused"`` CEM with the iCEM options, MPPI, RandomSearch
+   and CMA-ES (diagonal). Actions must be finite and in bounds, and each kernel's launch count
+   over exactly that run must be steps x iterations for the kernels of that solver (K4 and
+   K6; RandomSearch: K4 once per step, K6 never) and 0 for the others. The eager backend runs
+   3 steps, timed.
 
 The line before the last two is ``{"kernels": [...]}``; then the card's name and power
 limit; the last line is ``{"ok": true, "device": {...}}``.
@@ -34,7 +39,7 @@ import sys
 import time
 
 FLAGSHIP = dict(dim_s=17, dim_u=6, hidden=(500, 500, 500), ensemble_size=5)
-ROWS, HORIZON, STEPS, ITERS = 1000, 50, 5, 5
+ROWS, HORIZON, STEPS, ITERS = 1000, 50, 3, 5
 # Max |kernel - plain| over the visited states and over the rewards, each relative to
 # max(1, max |plain|). f32: the kernel's FMA order differs from cuBLAS's (measured ~1e-7
 # relative); bf16: one rounded activation may land 1 ulp (2^-8) apart and propagate through
@@ -43,6 +48,12 @@ TOLERANCE = {"float32": 1e-4, "bfloat16": 1e-2}
 # K6's sums against the plain version's, relative to max(1, max |plain|): both sum 1000
 # float32 terms, in other orders.
 MOMENT_TOLERANCE = 1e-5
+# K4's per-row penalty and dot against the plain version's, relative to max(1, max |plain|):
+# each sums H*U = 300 float32 terms, the kernel lane-strided with a butterfly, torch otherwise.
+ROW_SUM_TOLERANCE = 1e-4
+# Colored draws: the kernel contracts 2F = 52 terms per element with fmaf and reduces the row
+# statistics in its own order; torch multiplies by the dense [312, 300] basis. The actions (at
+# most 1.3 in magnitude here) may differ by a few ulp of z <= 2, well inside 1e-4.
 H100_PEAK = {"float32": 67e12, "bfloat16": 989e12}  # dense FLOP/s, SXM, 700 W
 H100_BYTES_PER_S = 3.35e12
 # Operations of one clipped normal draw of the counter RNG (K3), counted as float32 operations
@@ -50,6 +61,8 @@ H100_BYTES_PER_S = 3.35e12
 # fmix32 is 8), Box-Muller (6) and the clip (2).
 RNG_OPS = 38
 FUSED_TILE = 128  # ts1's logical tile in phase 3: 8 tiles of 1000 rows for 5 members
+EXTRA_SLOTS = 6  # the iCEM drive's injected candidates: keep_elites 5 + the mean
+COLORED_BETA = 2.0
 
 
 def nvidia_smi() -> str:
@@ -138,21 +151,58 @@ def bound(config, rows: int, horizon: int, members: int) -> tuple[float, str]:
     return least_ms(flops, bytes_moved, dtype_name(config))
 
 
-def fused_bound(config, rows: int, horizon: int, members: int, agents: int) -> tuple[float, str]:
+def option_work(features, rows: int, horizon: int, dim_u: int,
+                row_outputs: bool = True) -> tuple[float, float]:
+    """(operations, bytes) that the options add per launch over ``rows`` candidate rows.
+
+    Colored: per row U*2F unclipped normals in place of H*U clipped ones, 2F multiply-adds per
+    element through the basis, and six operations per element for the row's mean, variance,
+    division and clip; the basis is read once. Clip, injection and dot: about eight operations
+    per element (clip, difference, square and add; subtract, multiply and add), their operands
+    read once and K4's per-row outputs (``row_outputs``) written once.
+    """
+    if features is None:
+        return 0.0, 0.0
+    hu = horizon * dim_u
+    flops, moved = 0.0, 0.0
+    if features.basis is not None:
+        two_f = features.basis.shape[0]
+        flops += rows * ((dim_u * two_f - hu) * RNG_OPS + hu * (2 * two_f + 6))
+        moved += 4 * two_f * horizon
+    for operand in (features.extra, features.clip, features.gvec):
+        if operand is not None:
+            flops += rows * hu * 8 / 3
+            moved += 4 * operand.numel()
+    if row_outputs:
+        moved += 4 * rows * ((features.clip is not None) + (features.gvec is not None))
+    return flops, moved
+
+
+def fused_bound(config, rows: int, horizon: int, members: int, agents: int,
+                features=None) -> tuple[float, str]:
     """K4/K5: s0, mean, std and the seed in, weights in, states and actions out; the MLP's
-    FLOPs plus the draws and the actions formed from them."""
+    FLOPs plus the draws and the actions formed from them, plus the options' work."""
     flops, weight_bytes = mlp_work(config, rows, horizon, members)
     draws = rows * horizon * config.dim_u
     bytes_moved = (4 * agents * (config.dim_s + 2 * horizon * config.dim_u) + 4 + weight_bytes
                    + 4 * horizon * rows * (config.dim_s + config.dim_u))
-    return least_ms(flops + draws * (RNG_OPS + 2), bytes_moved, dtype_name(config))
+    more_flops, more_bytes = option_work(features, rows, horizon, config.dim_u)
+    return least_ms(flops + draws * (RNG_OPS + 2) + more_flops, bytes_moved + more_bytes,
+                    dtype_name(config))
 
 
-def moments_bound(population: int, agents: int, hu: int) -> tuple[float, str]:
-    """K6: std, weights and the seed in, two sums out; per (row, column) one draw and six
-    operations (std * z, w * x, x * x, w * x^2 and the two adds)."""
+def moments_bound(population: int, agents: int, hu: int, features=None,
+                  dim_u: int = 1) -> tuple[float, str]:
+    """K6: std (with options also mean), weights and the seed in, two sums out; per (row,
+    column) one draw and six operations (std * z, w * x, x * x, w * x^2 and the two adds),
+    plus the options' work."""
     bytes_moved = 4 * agents * hu + 4 * population * agents + 4 + 2 * 4 * agents * hu
-    return least_ms(population * agents * hu * (RNG_OPS + 6), bytes_moved, "float32")
+    more_flops, more_bytes = option_work(features, population * agents, hu // dim_u, dim_u,
+                                         row_outputs=False)
+    if features is not None:
+        bytes_moved += 4 * agents * hu
+    return least_ms(population * agents * hu * (RNG_OPS + 6) + more_flops,
+                    bytes_moved + more_bytes, "float32")
 
 
 def kernel_vs_plain(device, propagation: str, dtype: str) -> dict:
@@ -212,8 +262,36 @@ def kernel_vs_plain(device, propagation: str, dtype: str) -> dict:
     return res
 
 
-def fused_vs_plain(device, propagation: str, dtype: str, streamed: bool = False) -> dict:
-    """K4 (or K5) against its plain version: drawn actions, visited states and rewards."""
+def flagship_features(device, options: str, mean=None, std=None):
+    """``Features`` of the flagship shape (one agent, H*U = 300) for an option set: "icem"
+    (colored noise and EXTRA_SLOTS injected candidates in a population of ROWS), "mppi" (a
+    bounds clip at +/-0.5, which clips a visible share of mean +/-0.3 + std 0.2-0.5 * z, and
+    the dot against mean / variance), "uniform", or "clip"."""
+    import numpy as np
+    import torch
+
+    from blackbox_mpc_torch.ops import fused_cem as fc
+
+    dim_u = FLAGSHIP["dim_u"]
+    g = np.random.default_rng(7)
+    if options == "icem":
+        basis2 = torch.as_tensor(fc._colored_basis2(HORIZON, dim_u, COLORED_BETA), device=device)
+        extra = torch.as_tensor(g.uniform(-1, 1, (EXTRA_SLOTS, HORIZON * dim_u)),
+                                dtype=torch.float32, device=device)
+        return fc.Features(basis2=basis2, extra=extra, population=ROWS,
+                           basis=basis2[:2 * (HORIZON // 2 + 1), ::dim_u].contiguous())
+    if options == "uniform":
+        return fc.Features(sampling="uniform")
+    clip = torch.tensor([[-0.5] * dim_u, [0.5] * dim_u], device=device)
+    if options == "clip":
+        return fc.Features(clip=clip)
+    return fc.Features(clip=clip, gvec=(mean / (std * std)).contiguous())
+
+
+def fused_closures(device, propagation: str, dtype: str, streamed: bool = False,
+                   options: str | None = None) -> dict:
+    """The flagship inputs of K4 (or K5) and the closures that run its kernel and its plain
+    version on them."""
     import numpy as np
     import torch
 
@@ -237,32 +315,89 @@ def fused_vs_plain(device, propagation: str, dtype: str, streamed: bool = False)
                                           population=ROWS, tile=FUSED_TILE)
         member = torch.as_tensor(rr.tile_member_ids, device=device)
         member_tile, members = FUSED_TILE, 1
-    wrapper = fc.fused_rollout_streamed if streamed else fc.fused_rollout
+    features = flagship_features(device, options, mean, std) if options else None
+    more = {} if streamed else {"features": features}
 
     def kernel():
-        return wrapper(config, ops, s0, mean, std, seed, ROWS, member, member_tile)
+        if streamed:
+            return fc.fused_rollout_streamed(config, ops, s0, mean, std, seed, ROWS, member,
+                                             member_tile)
+        return fc.fused_rollout(config, ops, s0, mean, std, seed, ROWS, member, member_tile,
+                                **more)
 
     def plain():
         return fc.fused_rollout_plain(config, ops, s0, mean, std, seed, ROWS, member,
-                                      member_tile, streamed=streamed)
+                                      member_tile, streamed=streamed, **more)
 
-    (states, actions), (ref_states, ref_actions) = kernel(), plain()
-    torch.cuda.synchronize()
     case = f"{'K5' if streamed else 'K4'} {propagation}/{dtype}"
+    if options:
+        case += f" {options}"
+    return dict(case=case, kernel=kernel, plain=plain, config=config, s0=s0, features=features,
+                member_tile=member_tile, members=members)
+
+
+def retime_in_turns(device, rounds: int = 3) -> None:
+    """K4 (mean/f32) plain and with each option set, and K5, timed again in turns, so that no
+    case owes its time to its place in the run: the median and range over ``rounds``."""
+    import numpy as np
+
+    cases = [fused_closures(device, "mean", "float32", options=o)
+             for o in (None, "icem", "mppi", "uniform")]
+    cases.append(fused_closures(device, "mean", "float32", streamed=True))
+    times = {c["case"]: [] for c in cases}
+    for _ in range(rounds):
+        for c in cases:
+            times[c["case"]].append(cuda_ms(c["kernel"], 5))
+    print(json.dumps({"retimed_in_turns_ms": {
+        case: {"median": float(np.median(t)), "min": min(t), "max": max(t)}
+        for case, t in times.items()}}), flush=True)
+
+
+def fused_vs_plain(device, propagation: str, dtype: str, streamed: bool = False,
+                   options: str | None = None) -> dict:
+    """K4 (or K5) against its plain version: the actions rolled out, the visited states and
+    the rewards; with ``options`` (see :func:`flagship_features`) also the penalty, which the
+    rewards then include, and the dots."""
+    import torch
+
+    closures = fused_closures(device, propagation, dtype, streamed, options)
+    case, kernel, plain, config, s0, features, member_tile, members = (
+        closures[k] for k in ("case", "kernel", "plain", "config", "s0", "features",
+                              "member_tile", "members"))
+    out, ref_out = kernel(), plain()
+    (states, actions), (ref_states, ref_actions) = out[:2], ref_out[:2]
+    torch.cuda.synchronize()
     if not bool(torch.isfinite(states).all() and torch.isfinite(actions).all()):
         raise AssertionError(f"{case}: kernel states or actions not finite")
     s0_rows = s0.expand(ROWS, -1)
     got = rewards_from_states(s0_rows, actions, states)
     ref = rewards_from_states(s0_rows, ref_actions, ref_states)
+    compared = [("actions", actions, ref_actions, TOLERANCE["float32"]),
+                ("states", states, ref_states, TOLERANCE[dtype])]
+    clipped_share = None
+    if features is not None and features.clip is not None:
+        got, ref = got - out[2], ref - ref_out[2]  # rewards = evaluate(clipped) - penalty
+        compared.append(("penalty", out[2], ref_out[2], ROW_SUM_TOLERANCE))
+        at_bound = (actions == features.clip[0]) | (actions == features.clip[1])
+        clipped_share = float(at_bound.float().mean())
+        if not 0.02 < clipped_share < 0.9:
+            raise AssertionError(f"{case}: {clipped_share:.3f} of the draws clip, not a "
+                                 "visible share")
+    if features is not None and features.gvec is not None:
+        compared.append(("dots", out[3], ref_out[3], ROW_SUM_TOLERANCE))
+    if features is not None and features.extra is not None:
+        injected = actions[:, ROWS - EXTRA_SLOTS:].transpose(0, 1).reshape(EXTRA_SLOTS, -1)
+        if not torch.equal(injected, features.extra):
+            raise AssertionError(f"{case}: the injected rows did not roll out `extra`")
+    compared.append(("rewards", got, ref, TOLERANCE[dtype]))
     errs = {}
-    for what, a, b, tol in (("actions", actions, ref_actions, TOLERANCE["float32"]),
-                            ("states", states, ref_states, TOLERANCE[dtype]),
-                            ("rewards", got, ref, TOLERANCE[dtype])):
+    for what, a, b, tol in compared:
         err, scale = float((a - b).abs().max()), max(1.0, float(b.abs().max()))
         errs[what] = (err, scale, tol)
-    bound_ms, bound_by = fused_bound(config, ROWS, HORIZON, members, 1)
+    bound_ms, bound_by = fused_bound(config, ROWS, HORIZON, members, 1, features)
     res = {
         "case": case, "member_tile": member_tile,
+        **({} if clipped_share is None else {"clipped_share": clipped_share}),
         **{f"{what}_max_abs_err": e for what, (e, _, _) in errs.items()},
         **{f"{what}_max_rel_err": e / sc for what, (e, sc, _) in errs.items()},
         "max_abs_err": errs["rewards"][0], "tolerance_rel": TOLERANCE[dtype],
@@ -276,8 +411,9 @@ def fused_vs_plain(device, propagation: str, dtype: str, streamed: bool = False)
     return res
 
 
-def moments_vs_plain(device, weights: str) -> dict:
-    """K6 against its plain version, and against itself: two runs, the same bits."""
+def moments_vs_plain(device, weights: str, options: str | None = None) -> dict:
+    """K6 against its plain version, and against itself: two runs, the same bits. ``options``
+    names a set of :func:`flagship_features`."""
     import numpy as np
     import torch
 
@@ -294,12 +430,16 @@ def moments_vs_plain(device, weights: str) -> dict:
         e = np.exp(g.normal(0, 3, ROWS))
         w = (e / e.sum()).astype(np.float32)
     w = torch.as_tensor(w, device=device)
+    mean = torch.as_tensor(g.uniform(-0.3, 0.3, (1, hu)), dtype=torch.float32, device=device)
+    features = flagship_features(device, options) if options else None
+    if options:
+        weights = f"{weights} {options}"
 
     def kernel():
-        return fc.elite_moments(std, w, seed)
+        return fc.elite_moments(std, w, seed, mean, features)
 
     def plain():
-        return fc.elite_moments_plain(std, w, seed)
+        return fc.elite_moments_plain(std, w, seed, mean, features)
 
     first, second, ref = kernel(), kernel(), plain()
     torch.cuda.synchronize()
@@ -307,7 +447,7 @@ def moments_vs_plain(device, weights: str) -> dict:
         raise AssertionError(f"K6 {weights}: two runs differ")
     err = max(float((a - b).abs().max()) for a, b in zip(first, ref))
     scale = max(1.0, max(float(b.abs().max()) for b in ref))
-    bound_ms, bound_by = moments_bound(ROWS, 1, hu)
+    bound_ms, bound_by = moments_bound(ROWS, 1, hu, features, FLAGSHIP["dim_u"])
     res = {"case": f"K6 {weights}", "max_abs_err": err, "max_rel_err": err / scale,
            "tolerance_rel": MOMENT_TOLERANCE, "repeat_bitwise": True,
            "ms": cuda_ms(kernel, 20), "plain_ms": cuda_ms(plain, 5),
@@ -363,6 +503,39 @@ def small_reference(device) -> None:
             torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
         print(json.dumps({"small_reference": f"fused {propagation}", "shape": list(got.shape),
                           "max_abs_err": float((got.cpu() - ref).abs().max())}), flush=True)
+        # The same with each fused solver's option set: iCEM, MPPI, PI2 with colored noise,
+        # RandomSearch.
+        box = (np.full(6, -0.4, np.float32), np.full(6, 0.45, np.float32))
+        for name, options in (
+            ("icem", dict(colored_noise_beta=COLORED_BETA, extra_slots=3)),
+            ("mppi", dict(clip_bounds=box, aux_dot=True)),
+            ("pi2 colored", dict(clip_bounds=box, colored_noise_beta=1.0)),
+            ("uniform", dict(sampling="uniform")),
+        ):
+            rr, em = make_fused_cem_kernels(config, reward_fn, horizon=10, agents=2,
+                                            population=35, tile=8, **options)
+            both, rollout_only = {}, {}
+            if options.get("extra_slots"):
+                both["extra"] = torch.as_tensor(g.uniform(-1, 1, (3, 2, 60)),
+                                                dtype=torch.float32, device=device)
+            if options.get("aux_dot"):
+                rollout_only["gvec"] = torch.as_tensor(g.normal(0, 1, (2, 60)),
+                                                       dtype=torch.float32, device=device)
+            on_cpu = lambda named: {k: v.cpu() for k, v in named.items()}  # noqa: E731
+            got = rr(dp, s0, mean, std, 42, **both, **rollout_only)
+            ref = rr(dp.to("cpu"), s0.cpu(), mean.cpu(), std.cpu(), 42, **on_cpu(both),
+                     **on_cpu(rollout_only))
+            if options.get("aux_dot"):
+                torch.testing.assert_close(got[1].cpu(), ref[1], rtol=1e-4, atol=1e-4)
+                got, ref = got[0], ref[0]
+            torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-4)
+            weights = torch.softmax(got, dim=0)
+            for a, b in zip(em(mean, std, 42, weights, **both),
+                            em(mean.cpu(), std.cpu(), 42, weights.cpu(), **on_cpu(both))):
+                torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+            print(json.dumps({"small_reference": f"fused {propagation} {name}",
+                              "shape": list(got.shape),
+                              "max_abs_err": float((got.cpu() - ref).abs().max())}), flush=True)
 
 
 def launch_counters() -> dict:
@@ -375,24 +548,42 @@ def launch_counters() -> dict:
             "elite_moments": fc.elite_moments}
 
 
-# The kernels each backend's act() must launch once per CEM iteration; all others, never.
+# The kernels each backend's act() must launch once per solver iteration; all others, never.
 BACKEND_KERNELS = {"kernel": ("rollout_states",), "fused": ("fused_rollout", "elite_moments"),
                    "eager": ()}
+# The fused family at the flagship settings, by the label of its drive: (registry name, solver
+# kwargs, solver iterations per act(), kernels launched once per iteration).
+FUSED_FAMILY = {
+    "fused iCEM": ("CEM", dict(num_elite=50, max_iterations=ITERS,
+                               colored_noise_beta=COLORED_BETA, keep_elites=EXTRA_SLOTS - 1,
+                               mean_as_candidate=True, execute_best=True),
+                   ITERS, BACKEND_KERNELS["fused"]),
+    "fused MPPI": ("MPPI", dict(max_iterations=ITERS), ITERS, BACKEND_KERNELS["fused"]),
+    "fused RandomSearch": ("RandomSearch", dict(), 1, ("fused_rollout",)),
+    "fused CMA-ES": ("CMA-ES", dict(num_elite=50, max_iterations=ITERS, diagonal=True), ITERS,
+                     BACKEND_KERNELS["fused"]),
+}
 
 
-def drive_policy(device, backend: str, steps: int) -> dict:
+def drive_policy(device, backend: str, steps: int, label: str | None = None) -> dict:
+    """``steps`` closed-loop ``act()`` calls after a warm-up. ``label`` names a drive of
+    FUSED_FAMILY; without it the solver is the flagship CEM on ``backend``."""
     import numpy as np
 
     from blackbox_mpc_torch import DynamicsHandler, LearnedDynamicsConfig, MPCPolicy
     from blackbox_mpc_torch.core.spaces import BoxSpace
 
+    solver_name, solver_kwargs, iterations, kernels = (
+        FUSED_FAMILY[label] if label
+        else ("CEM", dict(num_elite=50, max_iterations=ITERS), ITERS, BACKEND_KERNELS[backend]))
+    label = label or backend
     config = LearnedDynamicsConfig(**FLAGSHIP, propagation="mean")
     handler = DynamicsHandler(config, seed=0, device=device)
     handler.set_params(flagship_params(config, device))
     policy = MPCPolicy(
-        BoxSpace.of(-1.0, 1.0, dim=6), reward_fn, handler, rollout_backend=backend,
-        planning_horizon=HORIZON, population=ROWS, num_elite=50, max_iterations=ITERS,
-        seed=0, device=device,
+        BoxSpace.of(-1.0, 1.0, dim=6), reward_fn, handler, solver_name=solver_name,
+        rollout_backend=backend, planning_horizon=HORIZON, population=ROWS, seed=0,
+        device=device, **solver_kwargs,
     )
     obs = np.zeros(17, np.float32)
     policy.act(obs)  # warm-up: first-use costs (kernel load, cuBLAS handles)
@@ -405,15 +596,14 @@ def drive_policy(device, backend: str, steps: int) -> dict:
         action, obs, reward = policy.act(obs, t)  # returns host arrays: synchronised
         times.append((time.perf_counter() - t0) * 1e3)
         if not (np.all(np.isfinite(action)) and np.all(np.abs(action) <= 1.0)):
-            raise AssertionError(f"{backend}: action out of bounds or not finite: {action}")
+            raise AssertionError(f"{label}: action out of bounds or not finite: {action}")
         if not (np.all(np.isfinite(obs)) and np.isfinite(reward)):
-            raise AssertionError(f"{backend}: predicted next obs/reward not finite")
+            raise AssertionError(f"{label}: predicted next obs/reward not finite")
     launches = {name: wrapper.launches for name, wrapper in counters.items()}
-    expected = {name: steps * ITERS if name in BACKEND_KERNELS[backend] else 0
-                for name in counters}
+    expected = {name: steps * iterations if name in kernels else 0 for name in counters}
     if launches != expected:
-        raise AssertionError(f"{backend}: kernel launches {launches}, expected {expected}")
-    res = {"policy": backend, "steps": steps, "launches": launches,
+        raise AssertionError(f"{label}: kernel launches {launches}, expected {expected}")
+    res = {"policy": label, "solver": solver_name, "steps": steps, "launches": launches,
            "act_ms": times, "act_ms_median": float(np.median(times)),
            "last_action": [float(a) for a in action], "last_predicted_reward": float(reward)}
     print(json.dumps(res), flush=True)
@@ -450,13 +640,20 @@ def main() -> int:
     fused = [fused_vs_plain(device, p, d)
              for p, d in (("mean", "float32"), ("mean", "bfloat16"), ("ts1", "float32"))]
     streamed = fused_vs_plain(device, "mean", "float32", streamed=True)
+    for options in ("icem", "mppi", "uniform"):
+        fused_vs_plain(device, "mean", "float32", options=options)
+    retime_in_turns(device)
     moments = [moments_vs_plain(device, w) for w in ("elite_mask", "softmax")]
+    moments_vs_plain(device, "elite_mask", "icem")
+    moments_vs_plain(device, "softmax", "clip")
     small_reference(device)
     kernel_run = drive_policy(device, "kernel", STEPS)
     fused_run = drive_policy(device, "fused", STEPS)
+    family = {label: drive_policy(device, "fused", STEPS, label) for label in FUSED_FAMILY}
     drive_policy(device, "eager", 3)
-    print(json.dumps({"act_ms_median": {"kernel": kernel_run["act_ms_median"],
-                                        "fused": fused_run["act_ms_median"]}}), flush=True)
+    print(json.dumps({"act_ms_median": {
+        "kernel": kernel_run["act_ms_median"], "fused": fused_run["act_ms_median"],
+        **{label: run["act_ms_median"] for label, run in family.items()}}}), flush=True)
 
     # The first case of each kernel is mean/f32 (K6: the 50-elite mask), as the policy ran.
     entries = [

@@ -1,8 +1,10 @@
 """Port parity for CEM: one ``cem_iteration`` of blackbox_mpc_torch against the JAX one on
-identical injected candidates (rtol 1e-5), and the port's truncated normal by distribution.
+identical injected candidates (rtol 1e-5), with each iCEM option, and the port's truncated
+normal by distribution; the helpers of ``solvers/base.py`` against the JAX ones.
 
 ``jax.random`` and ``torch.Generator`` cannot give the same draws, so both modules'
-``truncated_normal`` is replaced, test-side only, by one that returns the same numpy z."""
+``truncated_normal`` and ``colored_noise`` are replaced, test-side only, by ones that return
+the same numpy z (its first ``shape[0]`` candidates)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,11 +24,15 @@ P, A, H, U = 32, 2, 6, 3
 
 
 def inject(monkeypatch, z):
-    """Both packages' CEM draw ``mean + z * stddev`` with the same z."""
+    """Both packages' CEM draw ``mean + z * stddev`` (and colored noise ``z``) with the same z."""
     monkeypatch.setattr(jcem, "truncated_normal",
-                        lambda key, mean, std, shape: mean + jnp.asarray(z) * std)
+                        lambda key, mean, std, shape: mean + jnp.asarray(z)[:shape[0]] * std)
     monkeypatch.setattr(tcem, "truncated_normal",
-                        lambda gen, mean, std, shape: mean + torch.as_tensor(z) * std)
+                        lambda gen, mean, std, shape: mean + torch.as_tensor(z)[:shape[0]] * std)
+    monkeypatch.setattr(jbase, "colored_noise",
+                        lambda key, beta, shape, dtype=None: jnp.asarray(z)[:shape[0]])
+    monkeypatch.setattr(tbase, "colored_noise",
+                        lambda gen, beta, shape, dtype=None: torch.as_tensor(z)[:shape[0]])
 
 
 TARGET = np.linspace(-0.5, 0.5, H * U, dtype=np.float32).reshape(H, U)
@@ -55,10 +61,11 @@ def test_cem_iteration_matches_jax(alpha, num_elite, monkeypatch, rng):
         jnp.asarray(mean), jnp.asarray(var), jax.random.PRNGKey(0),
         jnp.zeros((A, 0, H, U)),
     )
-    tm, tv, tvals = tcem.cem_iteration(
+    tm, tv, _, telites, tvals = tcem.cem_iteration(
         tcem.CEMConfig(**kw), TBounds.of(lo, hi), t_evaluate, torch.as_tensor(obs),
         torch.as_tensor(mean), torch.as_tensor(var), torch.Generator(),
     )
+    assert telites.shape == (A, num_elite, H, U)
     np.testing.assert_allclose(tm.numpy(), np.asarray(jm), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(tvals.numpy(), np.asarray(jvals), rtol=1e-5, atol=1e-6)
@@ -130,17 +137,136 @@ def test_with_state_dtype_bf16_roundtrip():
     assert state.mean.dtype == torch.bfloat16 and action.dtype == torch.float32
 
 
-@pytest.mark.parametrize("option,value", [
-    ("colored_noise_beta", 2.0), ("keep_elites", 2), ("population_decay", 0.5),
-    ("mean_as_candidate", True), ("execute_best", True), ("time_major", True),
-])
-def test_unported_cem_options_raise(option, value):
+@pytest.mark.parametrize("solver", ["CEM", "PI2", "MPPI", "RandomSearch"])
+def test_unported_cem_options_raise(solver):
+    """The time-major candidate layout is what is left of the options that raise."""
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        make_solver("CEM", TBounds.of(-1.0, 1.0, dim=U), t_evaluate, **{option: value})
+        make_solver(solver, TBounds.of(-1.0, 1.0, dim=U), t_evaluate, time_major=True)
+
+
+@pytest.mark.parametrize("options,match", [
+    (dict(keep_elites=51), "keep_elites"), (dict(keep_elites=-1), "keep_elites"),
+    (dict(population=8, num_elite=8, keep_elites=7, mean_as_candidate=True), "population - 2"),
+    (dict(population_decay=0.0), "population_decay"), (dict(population_decay=1.5), "decay"),
+])
+def test_cem_option_ranges_raise_as_in_jax(options, match):
+    with pytest.raises(ValueError, match=match):
+        jcem.make_cem(jcem.CEMConfig(**options), JBounds.of(-1.0, 1.0, dim=U), j_evaluate)
+    with pytest.raises(ValueError, match=match):
+        make_solver("CEM", TBounds.of(-1.0, 1.0, dim=U), t_evaluate, **options)
+
+
+ICEM_OPTIONS = {
+    "colored": dict(colored_noise_beta=2.0),
+    "keep_elites": dict(keep_elites=3),
+    "mean_as_candidate": dict(mean_as_candidate=True),
+    "decay": dict(population_decay=0.7),
+    "execute_best": dict(execute_best=True),
+    "all": dict(colored_noise_beta=1.0, keep_elites=2, mean_as_candidate=True,
+                population_decay=0.8, execute_best=True, warm_start=True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ICEM_OPTIONS))
+def test_icem_solve_matches_jax(name, monkeypatch, rng):
+    """make_cem with each iCEM option over three iterations, both sides drawing the same z."""
+    z = np.clip(rng.normal(size=(P, A, H, U)), -2, 2).astype(np.float32)
+    inject(monkeypatch, z)
+    obs = rng.normal(size=(A, 4)).astype(np.float32)
+    kw = dict(planning_horizon=H, population=P, num_agents=A, num_elite=4, max_iterations=3,
+              **ICEM_OPTIONS[name])
+    js = jcem.make_cem(jcem.CEMConfig(**kw), JBounds.of(-1.0, 1.0, dim=U), j_evaluate)
+    ja, jstate, jaux = js.solve(js.init(jax.random.PRNGKey(0)), jnp.asarray(obs), 0,
+                                jax.random.PRNGKey(1))
+    ts = make_solver("CEM", TBounds.of(-1.0, 1.0, dim=U), t_evaluate, **kw)
+    ta, tstate, taux = ts.solve(ts.init(torch.Generator()), torch.as_tensor(obs), 0,
+                                torch.Generator())
+    np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(taux.plan.numpy(), np.asarray(jaux.plan), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(taux.expected_reward.numpy(), np.asarray(jaux.expected_reward),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(tstate.mean.numpy(), np.asarray(jstate.mean), rtol=1e-5, atol=1e-6)
+
+
+def test_icem_iteration_matches_jax(monkeypatch, rng):
+    """One cem_iteration with carried elites, the mean as a candidate, colored noise and a
+    decayed population: the update, the carried block and the ranked elites."""
+    z = np.clip(rng.normal(size=(P, A, H, U)), -2, 2).astype(np.float32)
+    inject(monkeypatch, z)
+    mean = rng.uniform(-0.5, 0.5, (A, H, U)).astype(np.float32)
+    var = rng.uniform(0.05, 0.5, (A, H, U)).astype(np.float32)
+    carried = rng.uniform(-1, 1, (A, 3, H, U)).astype(np.float32)
+    obs = rng.normal(size=(A, 4)).astype(np.float32)
+    kw = dict(planning_horizon=H, population=P, num_agents=A, num_elite=5, keep_elites=3,
+              mean_as_candidate=True, colored_noise_beta=2.0)
+    jm, jv, _, jcar, jel, jvals = jcem.cem_iteration(
+        jcem.CEMConfig(**kw), JBounds.of(-1.0, 1.0, dim=U), j_evaluate, jnp.asarray(obs),
+        jnp.asarray(mean), jnp.asarray(var), jax.random.PRNGKey(0), jnp.asarray(carried),
+        population=20, n_extract=1)
+    tm, tv, tcar, tel, tvals = tcem.cem_iteration(
+        tcem.CEMConfig(**kw), TBounds.of(-1.0, 1.0, dim=U), t_evaluate, torch.as_tensor(obs),
+        torch.as_tensor(mean), torch.as_tensor(var), torch.Generator(),
+        torch.as_tensor(carried), population=20, n_extract=1)
+    assert tel.shape == (A, 3, H, U) == jel.shape  # max(n_extract, keep_elites)
+    for t, j in ((tm, jm), (tv, jv), (tcar, jcar), (tel, jel), (tvals, jvals)):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-5, atol=1e-6)
+
+
+def test_iteration_populations_and_init_carried_match_jax():
+    for kw in (dict(), dict(population_decay=0.5), dict(population_decay=0.9, keep_elites=10),
+               dict(population=60, num_elite=30, population_decay=0.3, mean_as_candidate=True)):
+        assert tcem.iteration_populations(tcem.CEMConfig(**kw)) == jcem.iteration_populations(
+            jcem.CEMConfig(**kw))
+    state = tcem.CEMState(mean=torch.zeros(A, H, U), variance=torch.ones(A, H, U))
+    bounds = TBounds.of(-1.0, 1.0, dim=U)
+    gen = torch.Generator().manual_seed(0)
+    before = gen.get_state()
+    empty = tcem.init_carried(tcem.CEMConfig(num_agents=A, planning_horizon=H), bounds, state, gen)
+    assert empty.shape == (A, 0, H, U) and torch.equal(gen.get_state(), before)  # no draw
+    carried = tcem.init_carried(tcem.CEMConfig(num_agents=A, planning_horizon=H, keep_elites=4),
+                                bounds, state, gen)
+    assert carried.shape == (A, 4, H, U) and float(carried.abs().max()) <= 2.0
+
+
+def test_colored_noise_matches_jax_on_the_same_spectrum(monkeypatch, rng):
+    shape = (5, A, 50, U)
+    re, im = (rng.normal(size=(5, A, U, 26)).astype(np.float32) for _ in range(2))
+    draws = iter([jnp.asarray(re), jnp.asarray(im)])
+    monkeypatch.setattr(jax.random, "normal", lambda key, shape, dtype=None: next(draws))
+    monkeypatch.setattr(tbase, "colored_spectrum",
+                        lambda gen, shape, dtype=None: (torch.as_tensor(re), torch.as_tensor(im)))
+    for beta in (0.0, 2.0):
+        draws = iter([jnp.asarray(re), jnp.asarray(im)])
+        ref = np.asarray(jbase.colored_noise(jax.random.PRNGKey(0), beta, shape))
+        got = tbase.colored_noise(torch.Generator(), beta, shape).numpy()
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_colored_noise_is_unit_std_and_smooth():
+    z = tbase.colored_noise(torch.Generator().manual_seed(0), 3.0, (64, 2, 50, 3))
+    assert z.shape == (64, 2, 50, 3)
+    np.testing.assert_allclose(z.std(dim=(-2, -1), unbiased=False).numpy(), 1.0, rtol=1e-4)
+    white = tbase.colored_noise(torch.Generator().manual_seed(0), 0.0, (64, 2, 50, 3))
+    rough = lambda x: float((x[..., 1:, :] - x[..., :-1, :]).square().mean())  # noqa: E731
+    assert rough(z) < 0.2 * rough(white)
+
+
+def test_colored_synthesis_basis_and_penalty_match_jax(rng):
+    for horizon, beta in ((50, 2.0), (7, 0.5), (6, 4.0)):
+        np.testing.assert_array_equal(tbase.colored_synthesis_basis(horizon, beta),
+                                      jbase.colored_synthesis_basis(horizon, beta))
+    lo, hi = np.array([-1.0, 0.0], np.float32), np.array([1.0, 4.0], np.float32)
+    samples = rng.uniform(-3, 6, (9, A, H, 2)).astype(np.float32)
+    jf, jp = jbase.bound_violation_penalty(jnp.asarray(samples), JBounds.of(lo, hi))
+    tf, tp = tbase.bound_violation_penalty(torch.as_tensor(samples), TBounds.of(lo, hi))
+    np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=1e-6)
+    assert tp.shape == (9, A) and float(tp.min()) >= 0.0 and float(tp.max()) > 0.0
 
 
 def test_registry_errors():
     with pytest.raises(KeyError, match="available"):
         make_solver("bogus", TBounds.of(-1.0, 1.0, dim=U), t_evaluate)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_solver("PI2", TBounds.of(-1.0, 1.0, dim=U), t_evaluate)
+    for name in ("PSO", "SPSA", "Gradient", "CEM-GD"):
+        with pytest.raises(NotImplementedError, match="item 10"):
+            make_solver(name, TBounds.of(-1.0, 1.0, dim=U), t_evaluate)

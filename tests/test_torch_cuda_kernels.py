@@ -6,6 +6,8 @@ kernel has no CPU mode. The file imports no JAX, so it runs on a GPU machine tha
     python -m pytest --noconftest -p no:cacheprovider -o addopts="" -m cuda \
         tests/test_torch_cuda_kernels.py -q
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -219,3 +221,175 @@ def test_fused_wrappers_reject_bad_inputs(device):
         fc.elite_moments(std, w.double(), seed)
     with pytest.raises(ValueError, match="population"):
         fc.elite_moments(std, w[:-1], seed)
+
+
+# ---------------------------------------------------------------- the options of K4 and K6
+
+HORIZON, AGENTS, POPULATION = 6, 3, 90  # 270 rows: the grid pads them to 272
+
+
+def make_features(device, flags, agents=AGENTS, horizon=HORIZON, population=POPULATION,
+                  slots=4):
+    """``fc.Features`` with the options named in ``flags`` ("colored+extra", "clip+dot", ...)."""
+    g = np.random.default_rng(4)
+    hu = horizon * 2
+    kw = {}
+    if "colored" in flags:
+        basis2 = torch.as_tensor(fc._colored_basis2(horizon, 2, 2.0), device=device)
+        kw.update(basis2=basis2, basis=basis2[:2 * (horizon // 2 + 1), ::2].contiguous())
+    if "uniform" in flags:
+        kw["sampling"] = "uniform"
+    if "clip" in flags:  # narrow against std 0.1-0.6 around a mean in +/-0.5: many draws clip
+        kw["clip"] = torch.tensor([[-0.4, -0.3], [0.5, 0.35]], device=device)
+    if "extra" in flags:
+        kw["extra"] = torch.as_tensor(g.uniform(-1, 1, (slots * agents, hu)),
+                                      dtype=torch.float32, device=device)
+        kw["population"] = population
+    if "dot" in flags:
+        kw["gvec"] = torch.as_tensor(g.normal(size=(agents, hu)), dtype=torch.float32,
+                                     device=device)
+    return fc.Features(**kw)
+
+
+@pytest.mark.parametrize("flags,propagation,dtype", [
+    ("colored", "mean", "float32"), ("uniform", "mean", "float32"), ("clip", "mean", "float32"),
+    ("clip+dot", "mean", "float32"), ("extra", "mean", "float32"),
+    ("colored+extra", "mean", "float32"), ("extra+dot", "mean", "float32"),
+    ("colored+clip+dot", "mean", "bfloat16"), ("clip+dot", "ts1", "float32"),
+    ("colored+extra", "ts1", "float32"),
+])
+def test_fused_rollout_options_match_plain(flags, propagation, dtype, device):
+    """Every option of K4 at 272 rows (270 real ones for 3 agents: the two padding rows lie
+    past the injected slots and must not read ``extra``), also under ts1."""
+    config, dp, _ = model(propagation, dtype, device, hidden=(61, 30))
+    ops = rk.make_operands(dp, config)
+    s0, mean, std, seed = fused_inputs(device)
+    features = make_features(device, flags)
+    member, member_tile = None, fc.TILE
+    if propagation == "ts1":
+        member_tile = 8
+        member = torch.arange(272 // member_tile, device=device).remainder(2).int()
+    before = fc.fused_rollout.launches
+    got = fc.fused_rollout(config, ops, s0, mean, std, seed, 272, member, member_tile,
+                           features=features)
+    torch.cuda.synchronize()
+    assert fc.fused_rollout.launches == before + 1
+    ref = fc.fused_rollout_plain(config, ops, s0, mean, std, seed, 272, member, member_tile,
+                                 features=features)
+    # White and uniform draws are the plain version's bits; the colored contraction and row
+    # statistics sum in another order than torch's matmul and mean (a few ulp of z <= 2).
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-5 if "colored" in flags else 1e-6)
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(got[0], ref[0], rtol=tol, atol=tol)
+    for flag, a, b in (("clip", got[2], ref[2]), ("dot", got[3], ref[3])):  # penalty, dots
+        assert (a is not None) == (b is not None) == (flag in flags)
+        if flag in flags:
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    if "clip" in flags:
+        lo, hi = features.clip
+        assert bool(((got[1] >= lo) & (got[1] <= hi)).all()) and float(got[2].max()) > 0
+    if "extra" in flags:  # the injected rows roll out `extra` itself
+        injected = got[1][:, (POPULATION - 4) * AGENTS:POPULATION * AGENTS]
+        want = features.extra.reshape(4 * AGENTS, HORIZON, 2).transpose(0, 1)
+        assert torch.equal(injected, want)
+
+
+@pytest.mark.parametrize("flags", ["colored", "uniform", "clip", "extra", "colored+extra",
+                                   "colored+clip"])
+def test_elite_moments_options_match_plain_and_repeat_bit_for_bit(flags, device):
+    agents, horizon, population = 2, 50, 1000
+    _, mean, std, seed = fused_inputs(device, agents=agents, horizon=horizon)
+    features = make_features(device, flags, agents, horizon, population, slots=6)
+    g = np.random.default_rng(3)
+    logits = g.normal(size=(population, agents))
+    w = (np.exp(logits) / np.exp(logits).sum(0)).astype(np.float32)
+    w = torch.as_tensor(w.reshape(-1), device=device)
+    before = fc.elite_moments.launches
+    first = fc.elite_moments(std, w, seed, mean, features)
+    second = fc.elite_moments(std, w, seed, mean, features)
+    torch.cuda.synchronize()
+    assert fc.elite_moments.launches == before + 2
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)  # two passes, no atomics, with every option
+    for got, ref in zip(first, fc.elite_moments_plain(std, w, seed, mean, features)):
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_elite_moments_regenerates_the_rows_of_fused_rollout(device):
+    """K6 sees K4's bits: with a one-hot weight on one row, the colored + clipped centered sum
+    is that row's rolled-out actions less the mean, to the last bit."""
+    config, dp, _ = model("mean", "float32", device)
+    ops = rk.make_operands(dp, config)
+    s0, mean, std, seed = fused_inputs(device)
+    features = make_features(device, "colored+clip")
+    _, actions, _, _ = fc.fused_rollout(config, ops, s0, mean, std, seed, 272,
+                                        features=features)
+    for row in (0, 131, 269):
+        w = torch.zeros(POPULATION * AGENTS, device=device)
+        w[row] = 1.0
+        csum, _ = fc.elite_moments(std, w, seed, mean, features)
+        want = actions[:, row].reshape(-1) - mean[row % AGENTS]
+        assert torch.equal(csum[row % AGENTS], want)
+
+
+@pytest.mark.parametrize("options", [
+    dict(colored_noise_beta=2.0, extra_slots=3), dict(sampling="uniform"),
+    dict(clip_bounds=(np.array([-0.4, -0.3]), np.array([0.5, 0.35])), aux_dot=True),
+    dict(colored_noise_beta=1.0, clip_bounds=(np.array([-0.4, -0.3]), np.array([0.5, 0.35]))),
+])
+def test_fused_kernels_options_match_cpu(options, device):
+    """make_fused_cem_kernels with each solver's flag set, card against CPU closures."""
+    config, dp, _ = model("mean", "float32", device)
+    s0, mean, std, _ = fused_inputs(device)
+    mean, std = mean.reshape(AGENTS, HORIZON, 2), std.reshape(AGENTS, HORIZON, 2)
+    rr, em = fc.make_fused_cem_kernels(config, reward, horizon=HORIZON, agents=AGENTS,
+                                       population=POPULATION, tile=8, **options)
+    g = np.random.default_rng(6)
+    kw = {}
+    if options.get("extra_slots"):
+        kw["extra"] = torch.as_tensor(g.uniform(-1, 1, (3, AGENTS, HORIZON * 2)),
+                                      dtype=torch.float32, device=device)
+    rr_kw = dict(kw)
+    if options.get("aux_dot"):
+        rr_kw["gvec"] = torch.as_tensor(g.normal(size=(AGENTS, HORIZON * 2)),
+                                        dtype=torch.float32, device=device)
+    cpu = lambda d: {k: v.cpu() for k, v in d.items()}  # noqa: E731
+    got = rr(dp, s0, mean, std, 77, **rr_kw)
+    ref = rr(dp.to("cpu"), s0.cpu(), mean.cpu(), std.cpu(), 77, **cpu(rr_kw))
+    if options.get("aux_dot"):
+        torch.testing.assert_close(got[1].cpu(), ref[1], rtol=1e-4, atol=1e-4)
+        got, ref = got[0], ref[0]
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-4)
+    weights = torch.softmax(got, dim=0)
+    for a, b in zip(em(mean, std, 77, weights, **kw),
+                    em(mean.cpu(), std.cpu(), 77, weights.cpu(), **cpu(kw))):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+
+
+def test_fused_option_inputs_are_checked(device):
+    config, dp, _ = model("mean", "float32", device)
+    ops = rk.make_operands(dp, config)
+    s0, mean, std, seed = fused_inputs(device)
+    good = make_features(device, "colored+extra+dot")
+
+    def roll(**changes):
+        return fc.fused_rollout(config, ops, s0, mean, std, seed, 272,
+                                features=dataclasses.replace(good, **changes))
+
+    with pytest.raises(ValueError, match="basis has shape"):
+        roll(basis=good.basis[:-1].contiguous())
+    with pytest.raises(ValueError, match="extra is on cpu"):
+        roll(extra=good.extra.cpu())
+    with pytest.raises(ValueError, match="fresh candidate"):
+        roll(population=4)
+    with pytest.raises(ValueError, match="gvec has shape"):
+        roll(gvec=good.gvec[:, :-1].contiguous())
+    with pytest.raises(ValueError, match="clip has shape"):
+        roll(clip=torch.zeros(2, 3, device=device))
+    with pytest.raises(ValueError, match="normal sampling only"):
+        roll(sampling="uniform")
+    w = torch.ones(POPULATION * AGENTS, device=device)
+    with pytest.raises(ValueError, match="needs mean"):
+        fc.elite_moments(std, w, seed, None, make_features(device, "clip"))
+    with pytest.raises(ValueError, match="features.population"):
+        fc.elite_moments(std, w[:30], seed, mean, make_features(device, "extra"))

@@ -341,13 +341,12 @@ def test_policy_fused_constructor_errors():
     for name in ("SPSA", "PSO", "Gradient", "CEM-GD"):
         with pytest.raises(ValueError, match="fused"):
             build(solver_name=name)
-    for name in ("PI2", "MPPI", "RandomSearch", "CMA-ES"):
-        with pytest.raises(NotImplementedError, match="items 8 and 10"):
-            build(solver_name=name)
+    with pytest.raises(ValueError, match="sep-CMA only"):
+        build(solver_name="CMA-ES")  # diagonal=False, as in the JAX package
     with pytest.raises(KeyError, match="available"):
         build(solver_name="bogus")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        build(keep_elites=2)
+    with pytest.raises(ValueError, match="keep_elites"):
+        build(keep_elites=60)
     with pytest.raises(NotImplementedError, match="item 9"):
         MPCPolicy(space, t_reward, th, device="cpu", rollout_backend="auto")
     # ts1 at 4 tiles of 256 rows for 5 members raises, as in the JAX package
@@ -358,18 +357,32 @@ def test_policy_fused_constructor_errors():
         build(ts1, population=1000)
 
 
-@pytest.mark.parametrize("flag,value,match", [
-    ("colored_noise_beta", 2.0, "Queue 1 item 4"),
-    ("extra_slots", 2, "Queue 1 item 4"),
-    ("sampling", "uniform", "items 8 and 10"),
-    ("aux_dot", True, "items 8 and 10"),
-    ("clip_bounds", (np.zeros(U), np.ones(U)), "items 8 and 10"),
+BOX = (np.zeros(U), np.ones(U))
+
+
+@pytest.mark.parametrize("flags,match", [
+    (dict(clip_bounds=BOX, extra_slots=2), "mutually exclusive"),
+    (dict(colored_noise_beta=2.0, sampling="uniform"), "normal sampling only"),
+    (dict(extra_slots=16), "fresh candidate"),
+    (dict(streamed=True, colored_noise_beta=2.0), "streamed"),
+    (dict(streamed=True, extra_slots=2), "streamed"),
+    (dict(streamed=True, sampling="uniform"), "streamed"),
+    (dict(streamed=True, aux_dot=True), "streamed"),
+    (dict(streamed=True, clip_bounds=BOX), "streamed"),
+    # 14e6 rows of 50 steps x 6 dims: 4.2e9 white counters, but 4.37e9 (>= 2**32) colored ones
+    (dict(colored_noise_beta=2.0, population=14_000_000, horizon=50, agents=1), "2\\^32"),
 ])
-def test_kernels_unported_flags_raise(flag, value, match):
-    _, _, tcfg, _ = bridged("mean", hidden=(8,))
-    with pytest.raises(NotImplementedError, match=match):
-        tc.make_fused_cem_kernels(tcfg, t_reward, horizon=4, agents=1, population=16,
-                                  **{flag: value})
+def test_kernels_flag_errors_kept_from_jax(flags, match):
+    """The option combinations that the JAX package refuses raise its ValueErrors here."""
+    jcfg, _, tcfg, _ = bridged("mean", hidden=(8,))
+    kw = {**dict(horizon=4, agents=1, population=16), **flags}
+    if kw["horizon"] == 50:  # the flagship's action width, for the counter bound
+        jcfg, tcfg = (dataclasses.replace(c, dim_u=6) for c in (jcfg, tcfg))
+        tc.make_fused_cem_kernels(tcfg, t_reward, **{**kw, "colored_noise_beta": 0.0})
+    with pytest.raises(ValueError, match=match):
+        jc.make_fused_cem_kernels(jcfg, j_reward, **kw)
+    with pytest.raises(ValueError, match=match):
+        tc.make_fused_cem_kernels(tcfg, t_reward, **kw)
 
 
 def test_kernels_errors_kept_from_jax():
@@ -391,9 +404,11 @@ def test_kernels_errors_kept_from_jax():
     with pytest.raises(ValueError, match="num_elite"):
         tc.make_fused_cem(TCEMConfig(population=10, num_elite=20), TBounds.of(-1.0, 1.0, dim=U),
                           tcfg, None, t_reward)
-    for option, value in (("keep_elites", 2), ("colored_noise_beta", 2.0),
-                          ("execute_best", True), ("population_decay", 0.5)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        tc.make_fused_cem(TCEMConfig(time_major=True), TBounds.of(-1.0, 1.0, dim=U), tcfg, None,
+                          t_reward)
+    for option, value in (("keep_elites", 51), ("population_decay", 0.0)):
+        with pytest.raises(ValueError, match=option):
             tc.make_fused_cem(dataclasses.replace(TCEMConfig(), **{option: value}),
                               TBounds.of(-1.0, 1.0, dim=U), tcfg, None, t_reward)
     bad = dataclasses.replace(tcfg, activation="swish")

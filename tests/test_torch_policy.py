@@ -106,8 +106,9 @@ def test_constructor_errors(monkeypatch):
         build(true, rollout_backend="kernel")
     with pytest.raises(KeyError, match="available"):
         build(solver_name="bogus")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build(solver_name="CMA-ES")
+    for name in ("PSO", "SPSA", "Gradient", "CEM-GD"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            build(solver_name=name)
     with pytest.raises(TypeError, match="population_size"):
         build(population_size=10)
     with pytest.raises(ValueError, match="num_elite"):
@@ -116,8 +117,10 @@ def test_constructor_errors(monkeypatch):
         build(action_smoothness_weight=-1.0)
     with pytest.raises(ValueError, match="time_major"):
         build(rollout_backend="kernel", time_major=True)
-    with pytest.raises(NotImplementedError, match="iCEM"):
-        build(keep_elites=2)
+    with pytest.raises(NotImplementedError, match="time-major"):
+        build(time_major=True)
+    with pytest.raises(ValueError, match="keep_elites"):
+        build(keep_elites=5, **SOLVER)  # more than num_elite
     with pytest.raises(ValueError, match="num_agents"):
         build(num_agents=2, **SOLVER).act(np.zeros((3, S), np.float32))
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
