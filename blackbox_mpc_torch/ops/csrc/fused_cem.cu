@@ -23,10 +23,14 @@
 //   division by std + 1e-8 and the clip at +/-2. The contraction is a chain of fmaf in k order
 //   and the row sums are lane-strided with a butterfly, all in explicit round-to-nearest
 //   intrinsics, so K4 and K6 get the same bits from it whatever their block sizes.
-// * K4/K5: one CTA per row tile of 4, as in K2 (rollout.cu), running mlp_step.cuh for every
-//   horizon step. K4 generates the tile's whole z block [T, H*U] into shared memory before the
-//   H loop (4.8 KB at the flagship) and forms the actions per row from its agent's mean/std;
-//   K5 is the same CTA body (one template flag) that generates step h's [T, U] inside step h.
+// * K4/K5: a tile of T rows per cluster (mean: one member per CTA) or per CTA (ts1), as in K2
+//   (rollout.cu), running mlp_step.cuh for every horizon step. K4 draws the tile's actions for
+//   all H steps before the H loop, in sub-tiles of 8 rows that the CTAs of the cluster share
+//   out, straight into actions_out; the H loop reads step t's [T, U] back from there (L2), so
+//   no action stays in shared memory and the prologue's scratch lies over the step's buffers.
+//   K5 is the same CTA body (one template flag) that draws step h's [T, U] where step h builds
+//   the network's input, every CTA of the cluster for itself (same counters, same bits), and
+//   rank 0 stores them. Rank 0 alone stores the states.
 //   For ts1 a CTA runs member tile_member[row0 / member_tile], where member_tile is the JAX
 //   kernel's logical tile (256 by default), so the member of every row is the JAX one.
 //   The options live in a second instantiation of K4 (template flag kFlagged), whose prologue
@@ -46,21 +50,22 @@
 //   CEM, or any weights (PI2's softmax, CMA's log-rank). For plain white noise pass 1 gives
 //   each thread one (agent, column) pair and draws its own z. A colored z depends on its whole
 //   row, so with any option pass 1 is `elite_partial_rows_kernel`: a CTA per (chunk, agent)
-//   generates whole rows, four at a time, through `gen_z_tile`, and each thread accumulates
-//   its columns over the rows in order; centered = clip(mean + std*z) - mean with the bounds
-//   clip, and extra - mean on injected rows.
+//   generates whole rows, four at a time (kMomentTile), through `gen_z_tile`, and each thread
+//   accumulates its columns over the rows in order; centered = clip(mean + std*z) - mean with
+//   the bounds clip, and extra - mean on injected rows.
 //
-// What bounds them on the H100: K4/K5 by the same L2 weight streaming as K2 (every CTA reads
-// every member's weights from L2 at every step; the RNG adds about 1e-4 of the MLP's work, the
-// colored contraction 2F multiply-adds per element). K6 moves a few KB and draws H*U*rows
-// normals: it is bound by launch latency and the RNG arithmetic (two fmix32, logf, cosf, sqrtf
-// per element).
+// What bounds them on the H100: K4/K5 as K2 (rollout.cu's note): in float32 a CTA's own FMA
+// and load issue and the clusters one wave holds, in bfloat16 the weight fragments' way from
+// L2. The RNG adds about 1e-4 of the MLP's work, the colored contraction 2F multiply-adds per
+// element. K6 moves a few KB and draws H*U*rows normals: it is bound by launch latency and the RNG
+// arithmetic (two fmix32, logf, cosf, sqrtf per element).
 
 #include "mlp_step.cuh"
 
 namespace {
 
 constexpr int kMomentThreads = 128;
+constexpr int kMomentTile = 4;  // rows K6's pass with options regenerates at a time
 constexpr float kTwoPi = 6.283185307179586f;  // f32(2 pi), as JAX's weak-typed product rounds it
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
@@ -199,8 +204,7 @@ template <int T>
 __device__ __forceinline__ void form_actions(float* acts, int row0, int agents, int hu,
                                              const float* __restrict__ mean,
                                              const float* __restrict__ std, const Features& f,
-                                             float* __restrict__ actions_out,
-                                             const Problem& p) {
+                                             float* actions_out, const Problem& p) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, n_warps = blockDim.x / 32;
   const int U = p.dim_u;
   const int fresh = f.population - f.extra_slots;
@@ -241,86 +245,118 @@ __device__ __forceinline__ void form_actions(float* acts, int row0, int agents, 
   }
 }
 
-// K4's prologue with options: the tile's z through gen_z_tile, then form_actions. `acts` is
-// [T][H*U], followed by the colored draw's [T][n_cols] normals and, if it is kept in shared
-// memory, the [2F][H] basis.
-template <int T>
-__device__ __forceinline__ void sample_with_options(float* acts, int row0, int agents,
-                                                 const float* __restrict__ mean,
-                                                 const float* __restrict__ std,
-                                                 const Keys& keys, const Features& f,
-                                                 float* __restrict__ actions_out,
-                                                 const Problem& p) {
-  const int hu = p.horizon * p.dim_u;
-  float* g = acts + T * hu;
-  const float* basis = f.basis;
-  if (f.basis_in_smem) {
-    float* b = g + T * f.n_cols;
-    for (int i = threadIdx.x; i < f.two_f * p.horizon; i += blockDim.x) b[i] = f.basis[i];
-    basis = b;
-  }
-  gen_z_tile<T>(acts, g, basis, f, p.horizon, p.dim_u, static_cast<uint32_t>(row0), 1u, T, keys);
-  form_actions<T>(acts, row0, agents, hu, mean, std, f, actions_out, p);
-}
+// Rows of K4's prologue at a time: the tile is drawn in sub-tiles of this many rows, so that its
+// scratch (z, the colored draw's normals, the basis) does not grow with the tile.
+__host__ __device__ constexpr int draw_rows(int tile) { return tile % 8 == 0 ? 8 : 4; }
 
-// The action of row `row`, flat column c = h*U + u, from its agent's mean/std. Also stored to
-// actions_out [H, rows, U].
+// The action of row `row`, flat column c = h*U + u, from its agent's mean/std. Where `store`,
+// also written to actions_out [H, rows, U].
 __device__ __forceinline__ float draw_action(int row, int c, int hu, int agents,
                                              const float* __restrict__ mean,
                                              const float* __restrict__ std, const Keys& keys,
-                                             float* __restrict__ actions_out, const Problem& p) {
+                                             bool store, float* actions_out, const Problem& p) {
   const int a = row % agents;
   const float z = normal_z(static_cast<uint32_t>(row) * static_cast<uint32_t>(hu) +
                                static_cast<uint32_t>(c),
                            keys);
   const float v = __fadd_rn(mean[a * hu + c], __fmul_rn(std[a * hu + c], z));
   const int h = c / p.dim_u, u = c % p.dim_u;
-  actions_out[((long long)h * p.rows + row) * p.dim_u + u] = v;
+  if (store) actions_out[((long long)h * p.rows + row) * p.dim_u + u] = v;
   return v;
 }
 
+// K4's prologue: the tile's actions, all H steps of them, into actions_out [H, rows, U] (and
+// with options the penalty and the dot). The tile is drawn in sub-tiles of draw_rows(T) rows,
+// which the CTAs of the cluster share out; nothing of it stays in shared memory, and the H
+// loop reads step t's [T, U] back from actions_out (they are in L2). `scratch` is the CTA's
+// whole shared memory, free before the H loop: z [TS][H*U], then with the colored draw its
+// normals [TS][n_cols] and, if kept in shared memory, the [2F][H] basis.
+template <int T, bool kFlagged>
+__device__ __forceinline__ void sample_tile(float* scratch, int row0, int rank, int n_ctas,
+                                            int agents, const float* __restrict__ mean,
+                                            const float* __restrict__ std, const Keys& keys,
+                                            const Features& f, float* actions_out,
+                                            const Problem& p) {
+  constexpr int TS = draw_rows(T);
+  static_assert(T % TS == 0, "the tile is a whole number of draw sub-tiles");
+  const int hu = p.horizon * p.dim_u;
+  if constexpr (kFlagged) {
+    float* g = scratch + TS * hu;
+    const float* basis = f.basis;
+    if (f.basis_in_smem) {
+      float* b = g + TS * f.n_cols;
+      for (int i = threadIdx.x; i < f.two_f * p.horizon; i += blockDim.x) b[i] = f.basis[i];
+      basis = b;
+    }
+    for (int sub = rank; sub < T / TS; sub += n_ctas) {
+      const int sub0 = row0 + sub * TS;
+      gen_z_tile<TS>(scratch, g, basis, f, p.horizon, p.dim_u, static_cast<uint32_t>(sub0), 1u,
+                     TS, keys);
+      form_actions<TS>(scratch, sub0, agents, hu, mean, std, f, actions_out, p);
+      __syncthreads();
+    }
+  } else {
+    for (int sub = rank; sub < T / TS; sub += n_ctas) {
+      const int sub0 = row0 + sub * TS;
+      for (int i = threadIdx.x; i < TS * hu; i += blockDim.x) {
+        draw_action(sub0 + i / hu, i % hu, hu, agents, mean, std, keys, true, actions_out, p);
+      }
+    }
+  }
+}
+
 template <int T, typename W, bool kStreamed, bool kFlagged>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(Cfg<T, W>::kThreads, Cfg<T, W>::kMinBlocks)
 fused_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ mean,
                      const float* __restrict__ std, const int* __restrict__ seed,
                      const int* __restrict__ tile_member, int member_tile, int agents,
                      const float* __restrict__ stats, const W* __restrict__ weights,
                      const float* __restrict__ biases, float* __restrict__ states_out,
-                     float* __restrict__ actions_out, Problem p, NetShape net, Features f) {
+                     float* actions_out, Problem p, NetShape net, Features f) {
   extern __shared__ float4 smem4[];
-  const StepSmem sm = carve<T>(reinterpret_cast<float*>(smem4), net, p.dim_s);
-  // K4: [T][H*U], then with options [T][n_cols] normals and the [2F][H] basis; K5: [T][U]
-  float* acts = sm.tail;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_ctas = cluster.num_blocks(), rank = cluster.block_rank();
   const int S = p.dim_s, U = p.dim_u, hu = p.horizon * p.dim_u;
-  const int row0 = blockIdx.x * T;
-  const int member = tile_member ? tile_member[row0 / member_tile] : -1;
+  const int row0 = (blockIdx.x / n_ctas) * T;
+  const Members mb = tile_members(tile_member ? tile_member[row0 / member_tile] : -1,
+                                  p.ensemble, rank, n_ctas);
+  const StepSmem<W> sm = carve<T, W>(smem4, net, S, head_slots(mb.count, mb.stride));
   const Keys keys = make_keys(seed);
 
-  for (int i = threadIdx.x; i < T * S; i += kThreads) {
+  if (!kStreamed) {
+    sample_tile<T, kFlagged>(reinterpret_cast<float*>(smem4), row0, rank, n_ctas, agents, mean,
+                             std, keys, f, actions_out, p);
+    // The peers' actions are in global memory, and the scratch is free, past this barrier.
+    if (n_ctas > 1) cluster.sync(); else __syncthreads();
+  }
+  for (int i = threadIdx.x; i < T * S; i += blockDim.x) {
     const int r = i / S, j = i % S;
     sm.st[i] = s0[((row0 + r) % agents) * S + j];
-  }
-  if constexpr (kFlagged) {
-    sample_with_options<T>(acts, row0, agents, mean, std, keys, f, actions_out, p);
-  } else if (!kStreamed) {
-    for (int i = threadIdx.x; i < T * hu; i += kThreads) {
-      acts[i] = draw_action(row0 + i / hu, i % hu, hu, agents, mean, std, keys, actions_out, p);
-    }
   }
   __syncthreads();
 
   for (int t = 0; t < p.horizon; ++t) {
+    float* out_t = rank == 0 ? states_out + ((long long)t * p.rows + row0) * S : nullptr;
     if (kStreamed) {
-      for (int i = threadIdx.x; i < T * U; i += kThreads) {
-        acts[i] =
-            draw_action(row0 + i / U, t * U + i % U, hu, agents, mean, std, keys, actions_out, p);
-      }
-      __syncthreads();
+      // The step draws its own [T, U] where it builds the network's input, every CTA of the
+      // cluster for itself: same counters, same bits. Rank 0 stores them.
+      mlp_step<T, W>(
+          sm,
+          [&](int r, int j) {
+            return draw_action(row0 + r, t * U + j, hu, agents, mean, std, keys, rank == 0,
+                               actions_out, p);
+          },
+          stats, weights, biases, mb, t & 1, out_t, p, net);
+    } else {
+      // Written in this launch by another thread, maybe of another CTA: read from L2.
+      const float* a_t = actions_out + ((long long)t * p.rows + row0) * U;
+      mlp_step<T, W>(
+          sm, [=](int r, int j) { return __ldcg(a_t + r * U + j); }, stats, weights, biases, mb,
+          t & 1, out_t, p, net);
     }
-    const float* a_t = kStreamed ? acts : acts + t * U;
-    mlp_step<T, W>(sm, a_t, kStreamed ? U : hu, stats, weights, biases, member,
-                   states_out + ((long long)t * p.rows + row0) * S, p, net);
   }
+  // No CTA leaves while a peer may still read its heads.
+  if (n_ctas > 1) cluster.sync();
 }
 
 // Pass 1 of K6: partial[chunk][0|1][a*hu + c] = sum over p in the chunk of w * x and w * x^2,
@@ -428,8 +464,8 @@ elite_final_kernel(const float* __restrict__ partial, int n_chunks, int n,
   sumsq_out[idx] = sumsq;
 }
 
-// Shared memory above which the kernels read the colored basis from global memory instead of a
-// copy of their own: two CTAs of K4 still fit an SM below it.
+// Scratch above which the kernels read the colored basis from global memory instead of a copy
+// of their own.
 constexpr size_t kBasisSmemLimit = 110 * 1024;
 
 bool flagged(const Features& f) {
@@ -463,94 +499,104 @@ size_t option_floats(Features* f, size_t base_bytes, int tile, int horizon) {
   return floats + (f->basis_in_smem ? basis : 0);
 }
 
+// The arguments of K4/K5's entry points.
+struct RolloutArgs {
+  const float *s0, *mean, *std;
+  const int *seed, *tile_member;
+  int member_tile, agents;
+  const float* stats;
+  const void* weights;
+  const float* biases;
+  float *states_out, *actions_out;
+  Problem p;
+  int n_layers;
+  const int* widths;
+  int bf16, tile;
+  cudaStream_t stream;
+};
+
 template <int T, typename W, bool kStreamed, bool kFlagged>
-cudaError_t launch(const float* s0, const float* mean, const float* std, const int* seed,
-                   const int* tile_member, int member_tile, int agents, const float* stats,
-                   const void* weights, const float* biases, float* states_out,
-                   float* actions_out, const Problem& p, const NetShape& net, Features f,
-                   cudaStream_t stream) {
-  const int tail = kStreamed ? T * p.dim_u : T * p.horizon * p.dim_u;
-  size_t smem = smem_bytes(net, p.dim_s, T) + (size_t)tail * sizeof(float);
-  if (kFlagged) smem += option_floats(&f, smem, T, p.horizon) * sizeof(float);
-  auto kern = fused_rollout_kernel<T, W, kStreamed, kFlagged>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kern<<<p.rows / T, kThreads, smem, stream>>>(s0, mean, std, seed, tile_member, member_tile,
-                                               agents, stats, static_cast<const W*>(weights),
-                                               biases, states_out, actions_out, p, net, f);
-  return cudaGetLastError();
+cudaError_t launch(const RolloutArgs& a, Features f, Occupancy* occ) {
+  NetShape net;
+  if (!make_shape<T>(a.n_layers, a.widths, a.p.ensemble, kIsBf16<W>, &net) || a.p.rows % T ||
+      a.agents < 1 || (a.tile_member && (a.member_tile <= 0 || a.member_tile % T))) {
+    return cudaErrorInvalidValue;
+  }
+  const int n_ctas = a.tile_member ? 1 : min(a.p.ensemble, kMaxCluster);
+  const int slots = head_slots(a.tile_member ? 1 : a.p.ensemble, n_ctas);
+  size_t smem = step_bytes<T, W>(net, a.p.dim_s, slots).tail;
+  if (!kStreamed) {
+    // The prologue's scratch lies over the step's buffers.
+    size_t scratch = sizeof(float) * draw_rows(T) * a.p.horizon * a.p.dim_u;
+    if (kFlagged) scratch += option_floats(&f, scratch, draw_rows(T), a.p.horizon) * sizeof(float);
+    if (scratch > smem) smem = scratch;
+  }
+  return launch_clusters(fused_rollout_kernel<T, W, kStreamed, kFlagged>, a.p.rows / T, n_ctas,
+                         Cfg<T, W>::kThreads, smem, a.stream, occ, a.s0, a.mean, a.std, a.seed,
+                         a.tile_member, a.member_tile, a.agents, a.stats,
+                         static_cast<const W*>(a.weights), a.biases, a.states_out,
+                         a.actions_out, a.p, net, f);
 }
 
 template <bool kStreamed, bool kFlagged>
-int fused_rollout(const float* s0, const float* mean, const float* std, const int* seed,
-                  const int* tile_member, int member_tile, const float* stats,
-                  const void* weights, const float* biases, float* states_out,
-                  float* actions_out, int horizon, int rows, int agents, int dim_s, int dim_u,
-                  int stats_width, int ensemble, int n_layers, const int* widths,
-                  int activation, int normalized, int predict_delta, int bf16,
-                  const Features& f, void* stream) {
-  NetShape net;
-  if (!make_shape(n_layers, widths, ensemble, &net) || rows % kTile || agents < 1 ||
-      (tile_member && (member_tile <= 0 || member_tile % kTile))) {
-    return cudaErrorInvalidValue;
+cudaError_t fused_rollout(const RolloutArgs& a, const Features& f, Occupancy* occ) {
+  // One tile per propagation, as in rollout.cu.
+  if (a.tile_member != nullptr) {
+    if (a.tile != kTileTs1) return cudaErrorInvalidValue;
+    if (a.bf16) return launch<kTileTs1, __nv_bfloat16, kStreamed, kFlagged>(a, f, occ);
+    return launch<kTileTs1, float, kStreamed, kFlagged>(a, f, occ);
   }
-  const Problem p{horizon, rows, dim_s, dim_u, stats_width, ensemble,
-                  activation, normalized, predict_delta};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    return launch<kTile, __nv_bfloat16, kStreamed, kFlagged>(
-        s0, mean, std, seed, tile_member, member_tile, agents, stats, weights, biases,
-        states_out, actions_out, p, net, f, s);
-  }
-  return launch<kTile, float, kStreamed, kFlagged>(s0, mean, std, seed, tile_member,
-                                                   member_tile, agents, stats, weights, biases,
-                                                   states_out, actions_out, p, net, f, s);
+  if (a.tile != kTileMean) return cudaErrorInvalidValue;
+  if (a.bf16) return launch<kTileMean, __nv_bfloat16, kStreamed, kFlagged>(a, f, occ);
+  return launch<kTileMean, float, kStreamed, kFlagged>(a, f, occ);
+}
+
+cudaError_t fused_rollout_any(const RolloutArgs& a, const Features& f, bool streamed,
+                              Occupancy* occ) {
+  if (streamed) return fused_rollout<true, false>(a, f, occ);
+  if (flagged(f)) return fused_rollout<false, true>(a, f, occ);
+  return fused_rollout<false, false>(a, f, occ);
 }
 
 }  // namespace
 
 extern "C" {
 
-// K4. Draws the actions of `rows` rows (a multiple of 4; row = p * agents + a, agent-minor)
-// from the counter RNG under `seed` [1] (int32, on the device) and the per-agent mean/std
-// [agents, H*U], rolls them out from s0 [agents, S] for `horizon` steps, and writes the visited
-// states [H, rows, S] and the actions it rolled out [H, rows, U]. `tile_member` [ceil(rows /
-// member_tile)] gives each logical tile of `member_tile` rows (a multiple of 4) its member
-// (ts1), or is NULL (mean). Weights, biases, stats and widths are as in bbmpc_rollout_states.
+// K4. Draws the actions of `rows` rows (a multiple of `tile`; row = p * agents + a,
+// agent-minor) from the counter RNG under `seed` [1] (int32, on the device) and the per-agent
+// mean/std [agents, H*U], rolls them out from s0 [agents, S] for `horizon` steps, and writes the
+// visited states [H, rows, S] and the actions it rolled out [H, rows, U]. `tile_member`
+// [ceil(rows / member_tile)] gives each logical tile of `member_tile` rows (a multiple of
+// `tile`) its member (ts1), or is NULL (mean). Weights, biases, stats, widths and `tile` are as
+// in bbmpc_rollout_states.
 // The options (each off at 0 / NULL): `sampling` 0 white normal, 1 uniform in (-1, 1), 2 colored
 // through `basis` [two_f, H] with n_cols = U * two_f counters per row (otherwise n_cols = H*U);
 // `extra` [extra_slots * agents, H*U] replaces the draws of population indices >= population -
 // extra_slots; `clip` [2, U] clips the actions and writes the squared violation per row to
 // `penalty_out` [rows]; `gvec` [agents, H*U] writes <gvec, action - mean> per row (std * z
-// where nothing clipped or injected) to `dot_out` [rows]. Returns cudaGetLastError().
+// where nothing clipped or injected) to `dot_out` [rows]. Returns the launch's error, 0 for none.
 int bbmpc_fused_rollout(const float* s0, const float* mean, const float* std, const int* seed,
                         const int* tile_member, int member_tile, const float* stats,
                         const void* weights, const float* biases, float* states_out,
                         float* actions_out, int horizon, int rows, int agents, int dim_s,
                         int dim_u, int stats_width, int ensemble, int n_layers,
                         const int* widths, int activation, int normalized, int predict_delta,
-                        int bf16, int sampling, int n_cols, int two_f, const float* basis,
-                        const float* extra, int extra_slots, int population, const float* clip,
-                        const float* gvec, float* penalty_out, float* dot_out, void* stream) {
+                        int bf16, int tile, int sampling, int n_cols, int two_f,
+                        const float* basis, const float* extra, int extra_slots, int population,
+                        const float* clip, const float* gvec, float* penalty_out, float* dot_out,
+                        void* stream) {
   const Features f{sampling, n_cols,     two_f, 0,    basis,       extra,
                    extra_slots, population, clip,  gvec, penalty_out, dot_out};
   if (!valid(f, horizon, dim_u, population) || (clip != nullptr && penalty_out == nullptr) ||
       (gvec != nullptr && dot_out == nullptr)) {
     return cudaErrorInvalidValue;
   }
-  if (flagged(f)) {
-    return fused_rollout<false, true>(s0, mean, std, seed, tile_member, member_tile, stats,
-                                      weights, biases, states_out, actions_out, horizon, rows,
-                                      agents, dim_s, dim_u, stats_width, ensemble, n_layers,
-                                      widths, activation, normalized, predict_delta, bf16, f,
-                                      stream);
-  }
-  return fused_rollout<false, false>(s0, mean, std, seed, tile_member, member_tile, stats,
-                                     weights, biases, states_out, actions_out, horizon, rows,
-                                     agents, dim_s, dim_u, stats_width, ensemble, n_layers,
-                                     widths, activation, normalized, predict_delta, bf16, f,
-                                     stream);
+  const RolloutArgs a{s0, mean, std, seed, tile_member, member_tile, agents, stats, weights,
+                      biases, states_out, actions_out,
+                      Problem{horizon, rows, dim_s, dim_u, stats_width, ensemble, activation,
+                              normalized, predict_delta},
+                      n_layers, widths, bf16, tile, static_cast<cudaStream_t>(stream)};
+  return fused_rollout_any(a, f, false, nullptr);
 }
 
 // K5: the same function as K4 without options, generating step h's actions inside step h.
@@ -560,14 +606,46 @@ int bbmpc_fused_rollout_streamed(const float* s0, const float* mean, const float
                                  float* states_out, float* actions_out, int horizon, int rows,
                                  int agents, int dim_s, int dim_u, int stats_width,
                                  int ensemble, int n_layers, const int* widths, int activation,
-                                 int normalized, int predict_delta, int bf16, void* stream) {
+                                 int normalized, int predict_delta, int bf16, int tile,
+                                 void* stream) {
   Features f{};
   f.n_cols = horizon * dim_u;
-  return fused_rollout<true, false>(s0, mean, std, seed, tile_member, member_tile, stats,
-                                    weights, biases, states_out, actions_out, horizon, rows,
-                                    agents, dim_s, dim_u, stats_width, ensemble, n_layers,
-                                    widths, activation, normalized, predict_delta, bf16, f,
-                                    stream);
+  const RolloutArgs a{s0, mean, std, seed, tile_member, member_tile, agents, stats, weights,
+                      biases, states_out, actions_out,
+                      Problem{horizon, rows, dim_s, dim_u, stats_width, ensemble, activation,
+                              normalized, predict_delta},
+                      n_layers, widths, bf16, tile, static_cast<cudaStream_t>(stream)};
+  return fused_rollout_any(a, f, true, nullptr);
+}
+
+// What a launch of K4 (K5 with `streamed`) on `rows` rows would occupy, without launching;
+// `out` is as in bbmpc_rollout_occupancy. `options` picks K4's instantiation with options, and
+// `sampling`, `n_cols` and `two_f` size its scratch.
+int bbmpc_fused_occupancy(int rows, int horizon, int dim_s, int dim_u, int ensemble,
+                          int n_layers, const int* widths, int bf16, int ts1, int tile,
+                          int streamed, int options, int sampling, int n_cols, int two_f,
+                          int* out) {
+  const int some_member = 0;
+  const float some_bounds = 0.f;
+  Features f{};
+  f.sampling = sampling;
+  f.n_cols = n_cols;
+  f.two_f = two_f;
+  if (options) f.clip = &some_bounds;  // any option: only tested against null here
+  const RolloutArgs a{nullptr, nullptr, nullptr, nullptr, ts1 ? &some_member : nullptr, tile, 1,
+                      nullptr, nullptr, nullptr, nullptr, nullptr,
+                      Problem{horizon, rows, dim_s, dim_u, 1, ensemble, 0, 0, 0},
+                      n_layers, widths, bf16, tile, nullptr};
+  Occupancy occ{};
+  const cudaError_t err = fused_rollout_any(a, f, streamed != 0, &occ);
+  out[0] = occ.smem_bytes;
+  out[1] = occ.blocks_per_sm;
+  out[2] = occ.cluster;
+  out[3] = occ.max_active_clusters;
+  out[4] = occ.registers;
+  out[5] = occ.local_bytes;
+  out[6] = occ.threads;
+  return err;
 }
 
 // K6. sum_out/sumsq_out [agents, H*U] = sum over the population of weight[row] * x and
@@ -598,9 +676,9 @@ int bbmpc_elite_moments(const float* mean, const float* std, const float* weight
   cudaError_t err;
   if (flagged(f)) {
     if (agents > 65535) return cudaErrorInvalidValue;
-    size_t smem = (size_t)(kTile + 2) * hu * sizeof(float);
-    smem += option_floats(&f, smem, kTile, horizon) * sizeof(float);
-    auto kern = elite_partial_rows_kernel<kTile>;
+    size_t smem = (size_t)(kMomentTile + 2) * hu * sizeof(float);
+    smem += option_floats(&f, smem, kMomentTile, horizon) * sizeof(float);
+    auto kern = elite_partial_rows_kernel<kMomentTile>;
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     kern<<<dim3(n_chunks, agents), kMomentThreads, smem, s>>>(

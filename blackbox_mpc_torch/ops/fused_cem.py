@@ -50,12 +50,11 @@ from blackbox_mpc_torch.solvers.pi2 import check_config as check_pi2_config
 from blackbox_mpc_torch.solvers.random_search import RandomSearchConfig, RandomSearchState
 
 __all__ = [
-    "Features", "draw_seed", "elite_moments", "elite_moments_plain", "fused_rollout",
-    "fused_rollout_plain", "fused_rollout_streamed", "make_fused_cem", "make_fused_cem_kernels",
-    "make_fused_pi2", "make_fused_random_search", "make_fused_sep_cma",
+    "Features", "draw_seed", "elite_moments", "elite_moments_plain", "fused_occupancy",
+    "fused_rollout", "fused_rollout_plain", "fused_rollout_streamed", "make_fused_cem",
+    "make_fused_cem_kernels", "make_fused_pi2", "make_fused_random_search", "make_fused_sep_cma",
 ]
 
-TILE = rk.TILE  # rows per CTA, as in the rollout kernel
 _M32 = 0xFFFFFFFF
 _PHI = 0x9E3779B1
 _SEED2_OFFSET = 0x632BE5AB  # Box-Muller's second uniform
@@ -236,8 +235,8 @@ def _roll(step, s: torch.Tensor, actions: torch.Tensor) -> torch.Tensor:
 def fused_rollout_plain(
     config: LearnedDynamicsConfig, ops: rk.KernelOperands, s0: torch.Tensor,
     mean: torch.Tensor, std: torch.Tensor, seed, rows: int,
-    tile_member: torch.Tensor | None = None, member_tile: int = TILE, streamed: bool = False,
-    features: Features | None = None,
+    tile_member: torch.Tensor | None = None, member_tile: int = rk.TILE_TS1,
+    streamed: bool = False, features: Features | None = None,
 ):
     """Plain version of K4 (and of K5 with ``streamed=True``, which draws step h's actions at
     step h): the same inputs and the same ``(states [H, rows, S], actions [H, rows, U])``, at
@@ -291,12 +290,14 @@ def _lib():
     lib = load_library("fused_cem")
     if not getattr(lib, "_bbmpc_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        rollout_args = [p] * 5 + [i] + [p] * 5 + [i] * 8 + [p] + [i] * 4
+        rollout_args = [p] * 5 + [i] + [p] * 5 + [i] * 8 + [p] + [i] * 5
         options = [i, i, i, p, p, i, i, p, p, p, p]
         lib.bbmpc_fused_rollout.argtypes = rollout_args + options + [p]
         lib.bbmpc_fused_rollout.restype = i
         lib.bbmpc_fused_rollout_streamed.argtypes = rollout_args + [p]
         lib.bbmpc_fused_rollout_streamed.restype = i
+        lib.bbmpc_fused_occupancy.argtypes = [i] * 6 + [p] + [i] * 8 + [p]
+        lib.bbmpc_fused_occupancy.restype = i
         lib.bbmpc_elite_moments.argtypes = [p] * 7 + [i] * 8 + [p, p, i, p, p]
         lib.bbmpc_elite_moments.restype = i
         lib._bbmpc_typed = True
@@ -348,9 +349,10 @@ def _launch_rollout(
     kc.check_kernel_support(config, what)
     agents, hu = mean.shape
     dim_s, dim_u = config.dim_s, config.dim_u
-    if hu % dim_u or rows % TILE or rows < 1:
+    tile = rk.tile_rows(tile_member is not None)
+    if hu % dim_u or rows % tile or rows < 1:
         raise ValueError(f"{what}: mean width {hu} must be H * U (U={dim_u}) and rows ({rows}) "
-                         f"a positive multiple of the tile ({TILE})")
+                         f"a positive multiple of the tile ({tile})")
     horizon = hu // dim_u
     rk.check_tensor(mean, "mean", torch.float32, (agents, hu), device)
     rk.check_tensor(std, "std", torch.float32, (agents, hu), device)
@@ -358,8 +360,8 @@ def _launch_rollout(
     rk.check_tensor(seed, "seed", torch.int32, (1,), device)
     widths = rk.check_operands(config, ops, device)
     if tile_member is not None:
-        if member_tile <= 0 or member_tile % TILE:
-            raise ValueError(f"member_tile ({member_tile}) must be a multiple of {TILE}")
+        if member_tile <= 0 or member_tile % tile:
+            raise ValueError(f"member_tile ({member_tile}) must be a multiple of {tile}")
         rk.check_tensor(tile_member, "tile_member", torch.int32,
                         (-(-rows // member_tile),), device)
     f = features or _NO_FEATURES
@@ -378,7 +380,7 @@ def _launch_rollout(
         states.data_ptr(), actions.data_ptr(), horizon, rows, agents, dim_s, dim_u,
         ops.stats.shape[1], config.ensemble_size, len(widths) - 1, rk.int_array(widths),
         kc.KERNEL_ACTIVATIONS[config.activation], int(config.normalized),
-        int(config.predict_delta), int(config.compute_dtype == torch.bfloat16),
+        int(config.predict_delta), int(config.compute_dtype == torch.bfloat16), tile,
     ]
     if streamed:
         entry = lib.bbmpc_fused_rollout_streamed
@@ -398,14 +400,15 @@ def _launch_rollout(
 def fused_rollout(
     config: LearnedDynamicsConfig, ops: rk.KernelOperands, s0: torch.Tensor,
     mean: torch.Tensor, std: torch.Tensor, seed: torch.Tensor, rows: int,
-    tile_member: torch.Tensor | None = None, member_tile: int = TILE,
+    tile_member: torch.Tensor | None = None, member_tile: int = rk.TILE_TS1,
     features: Features | None = None,
 ):
     """K4's wrapper: ``s0 [A, S]``, ``mean``/``std [A, H*U]``, ``seed [1]`` int32 ->
-    ``(states [H, rows, S], actions [H, rows, U])`` for rows ``p * A + a`` (``rows`` a multiple
-    of 4 on the card). With ``features`` it returns ``(states, actions, penalty, dots)``:
-    the actions are the ones rolled out (clipped, or injected), ``penalty [rows]`` is the
-    squared bound violation (None without ``clip``) and ``dots [rows]`` is ``<gvec, centered>``
+    ``(states [H, rows, S], actions [H, rows, U])`` for rows ``p * A + a`` (on the card ``rows``
+    is a multiple of the tile: ``rk.TILE_TS1`` with ``tile_member``, which ``member_tile`` must
+    be a multiple of, else ``rk.TILE_MEAN``). With ``features`` it returns
+    ``(states, actions, penalty, dots)``: the actions are the ones rolled out (clipped, or
+    injected), ``penalty [rows]`` is the squared bound violation (None without ``clip``) and ``dots [rows]`` is ``<gvec, centered>``
     (None without ``gvec``). CPU tensors take :func:`fused_rollout_plain`."""
     if mean.device.type == "cpu":
         return fused_rollout_plain(config, ops, s0, mean, std, seed, rows, tile_member,
@@ -419,7 +422,7 @@ def fused_rollout(
 def fused_rollout_streamed(
     config: LearnedDynamicsConfig, ops: rk.KernelOperands, s0: torch.Tensor,
     mean: torch.Tensor, std: torch.Tensor, seed: torch.Tensor, rows: int,
-    tile_member: torch.Tensor | None = None, member_tile: int = TILE,
+    tile_member: torch.Tensor | None = None, member_tile: int = rk.TILE_TS1,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K5's wrapper: the same function as :func:`fused_rollout` without options, by the kernel
     that draws step h's actions inside step h."""
@@ -434,6 +437,30 @@ def fused_rollout_streamed(
 
 fused_rollout.launches = 0
 fused_rollout_streamed.launches = 0
+
+
+def fused_occupancy(config: LearnedDynamicsConfig, rows: int, horizon: int,
+                    streamed: bool = False, features: Features | None = None) -> dict:
+    """What one launch of K4 (K5 with ``streamed``) on ``rows`` rows occupies at ``config``;
+    the fields of :func:`rk.kernel_occupancy`. ``features`` picks K4's build with options."""
+    widths = rk.padded_widths(config)
+    ts1 = config.ensemble_size > 1 and config.propagation == "ts1"
+    tile = rk.tile_rows(ts1)
+    code, n_cols, two_f = 0, horizon * config.dim_u, 0
+    if features is not None:
+        code = _SAMPLING_CODES[features.sampling]
+        if features.basis is not None:
+            two_f = features.basis.shape[0]
+            code, n_cols = _COLORED_CODE, config.dim_u * two_f
+    out = (ctypes.c_int * len(rk.OCCUPANCY_FIELDS))()
+    err = _lib().bbmpc_fused_occupancy(
+        rows, horizon, config.dim_s, config.dim_u, config.ensemble_size, len(widths) - 1,
+        rk.int_array(widths), int(config.compute_dtype == torch.bfloat16), int(ts1), tile,
+        int(streamed), int(features is not None), code, n_cols, two_f, out,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused rollout occupancy query failed: CUDA error {err}")
+    return rk.occupancy_report(list(out), rows, tile)
 
 
 # ---------------------------------------------------------------- K6: elite moments
@@ -559,7 +586,8 @@ def make_fused_cem_kernels(
     log-rank). ``seed`` is an int or an int32 tensor on the inputs' device. Rows are
     population-major (row = p * A + a). ts1 runs one member per logical ``tile`` of rows, by
     the JAX package's seeded shuffle, exposed as ``rollout_rewards.tile_member_ids`` /
-    ``.tile_rows``; ``tile`` must be a multiple of the CUDA row tile (4).
+    ``.tile_rows``; ``tile`` must be a multiple of the CUDA kernels' ts1 row tile
+    (``rk.TILE_TS1``).
 
     ``colored_noise_beta > 0`` draws iCEM colored candidates (z still clipped at +/-2);
     ``rollout_rewards.basis2`` is the matrix they are colored with (None if white), for
@@ -600,8 +628,10 @@ def make_fused_cem_kernels(
             f"fused CEM candidate stream has {rows * n_cols} elements (>= 2^32); "
             "the int32 RNG counters would collide — reduce population/horizon"
         )
-    if tile <= 0 or tile % TILE:
-        raise ValueError(f"tile ({tile}) must be a positive multiple of the CUDA row tile ({TILE})")
+    if tile <= 0 or tile % rk.TILE_TS1:
+        raise ValueError(f"tile ({tile}) must be a positive multiple of the CUDA row tile of "
+                         f"ts1 ({rk.TILE_TS1})")
+    cuda_tile = rk.tile_rows(ts1)
     n_tiles = kc.round_up(rows, tile) // tile
     if ts1:
         if n_tiles < ensemble:
@@ -611,7 +641,7 @@ def make_fused_cem_kernels(
             )
         tile_members = np.resize(np.arange(ensemble, dtype=np.int32), n_tiles)
         np.random.default_rng(0x75B007).shuffle(tile_members)
-    rows_pad = kc.round_up(rows, TILE)  # the CUDA grid's padding; those rows are dropped
+    rows_pad = kc.round_up(rows, cuda_tile)  # the CUDA grid's padding; those rows are dropped
     operands = rk.operand_cache(config)
     launch = fused_rollout_streamed if streamed else fused_rollout
     flagged = colored or extra_slots or aux_dot or sampling != "normal" or clip_bounds is not None

@@ -2,12 +2,14 @@
 
 Replaces ``blackbox_mpc_tpu/ops/pallas_rollout.py::make_pallas_rollout_evaluator`` and, inside
 it, ``ops/_kernel_common.py::build_step_fn``. The kernel (``ops/csrc/rollout.cu``) rolls a
-tile of rows through all H steps per CTA and writes the visited states ``[H, rows, S]``;
+tile of rows through all H steps (mean: a cluster of CTAs per tile, one ensemble member each;
+ts1: one CTA) and writes the visited states ``[H, rows, S]``;
 :func:`make_rollout_kernel_evaluator` then applies the user's torch ``reward_fn`` to all
 transitions at once, sums the discounted returns and applies the NaN guard.
 
-What bounds it on the H100: every CTA re-reads every member's weights from L2 at every step
-(``tiles x H x weight bytes``); the design and its trade-offs are in the CUDA source's note.
+What bounds it on the H100: a CTA streams one member's weights from L2 at every step and
+feeds each element to the tile's rows; float32 is then bound by the SM's FMA issue, bfloat16
+(tensor cores) by that stream. The design and its trade-offs are in the CUDA sources' notes.
 
 :func:`rollout_states` is the wrapper: on a CPU tensor it runs :func:`rollout_states_plain`;
 on a CUDA tensor it launches the kernel or raises, and adds one to ``rollout_states.launches``
@@ -30,14 +32,28 @@ from blackbox_mpc_torch.ops import _kernel_common as kc
 from blackbox_mpc_torch.rollout.evaluator import NAN_REWARD
 
 __all__ = [
-    "TILE", "KernelOperands", "check_operands", "check_tensor", "int_array", "kernel_occupancy",
-    "make_operands", "make_rollout_kernel_evaluator", "operand_cache", "padded_widths",
-    "rollout_states", "rollout_states_plain",
+    "OCCUPANCY_FIELDS", "TILE_MEAN", "TILE_TS1", "KernelOperands", "check_operands",
+    "check_tensor", "fragment_pack", "int_array", "kernel_occupancy", "make_operands",
+    "make_rollout_kernel_evaluator", "occupancy_report", "operand_cache", "padded_widths",
+    "rollout_states", "rollout_states_plain", "tile_rows",
 ]
 
-# Rows per CTA (kTile in ops/csrc/rollout.cu). At the flagship's 1000 rows, tile 4 (250 CTAs,
-# 2 per SM) measured faster than tile 8 on the H100 (PERF.md); no larger batch is measured.
-TILE = 4
+# Rows per tile, one per propagation (kTileMean and kTileTs1 in ops/csrc/mlp_step.cuh; the
+# kernels' entry points refuse another). Measured at the flagship (1000 rows, H=50, E=5, 3x500,
+# f32) on an H100 80GB HBM3 at 700 W by `ops/measure.py sweep`, K2's ms per launch:
+# mean 24: 11.07 (42 clusters of 5 CTAs, 2 CTAs per SM), 32: 13.28 and 40: 17.42 (32 and 25
+# clusters where the card holds 22 at once: two waves), 48: 8.95 (21 clusters, one wave; the
+# largest tile whose two f32 activation buffers fit 227 KB). ts1 4: 3.36, 8: 3.04, 16: 4.90
+# (65 CTAs for 132 SMs), 32: 6.46. The fused CEM's logical ts1 tile must be a multiple of
+# TILE_TS1.
+TILE_MEAN = 48
+TILE_TS1 = 8
+
+
+def tile_rows(ts1: bool) -> int:
+    """Rows per tile of the rollout kernels: ``TILE_TS1`` where each tile runs one member,
+    else ``TILE_MEAN``."""
+    return TILE_TS1 if ts1 else TILE_MEAN
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,8 +61,9 @@ class KernelOperands:
     """The kernel's inputs derived from one ``DynamicsParams``.
 
     ``weights`` is the per-layer ``[w, b, ...]`` list of :func:`kc.weight_operands` (used by
-    the plain version); ``packed_w``/``packed_b`` are the same, zero-padded to widths that
-    are multiples of 4 and laid back to back, as the CUDA kernel reads them.
+    the plain version); ``packed_w``/``packed_b`` are the same, zero-padded and laid back to
+    back, as the CUDA kernel reads them: float32 weights as ``[E, K, N]`` blocks at widths that
+    are multiples of 4, bfloat16 weights through :func:`fragment_pack`, biases ``[E, N]``.
     """
 
     stats: torch.Tensor  # [6, max(S, U)] float32
@@ -62,15 +79,35 @@ def padded_widths(config: LearnedDynamicsConfig) -> tuple:
     return tuple(kc.round_up(n, 4) for n in sizes)
 
 
+def fragment_pack(w: torch.Tensor) -> torch.Tensor:
+    """``w [E, K, N]`` -> flat ``[E, N16/16, K16/16, 32, 8]``, K and N zero-padded to 16: the A
+    fragments of ``mma.sync.m16n8k16`` for ``W^T`` (m = n, the output feature), tile by tile.
+
+    Lane ``g*4 + t`` of tile ``(mt, kt)`` holds, in register order, ``W[k, n]`` at
+    ``n = 16*mt + g + 8*mh`` and ``k = 16*kt + 2*t + 8*kh + j`` for ``(kh, mh, j)`` running
+    over ``{0, 1}`` each, ``j`` fastest: one 16-byte load per lane is a whole fragment."""
+    e, k, n = w.shape
+    kp, np_ = kc.round_up(k, 16), kc.round_up(n, 16)
+    w = torch.nn.functional.pad(w, (0, np_ - n, 0, kp - k))
+    w = w.reshape(e, kp // 16, 2, 4, 2, np_ // 16, 2, 8)  # [E, kt, kh, t, j, mt, mh, g]
+    return w.permute(0, 5, 1, 7, 3, 2, 6, 4).reshape(-1)  # [E, mt, kt, g, t, kh, mh, j]
+
+
+def _packed_elements(widths: tuple, bf16: bool) -> int:
+    """Elements of one member's packed weights."""
+    pad = (lambda v: kc.round_up(v, 16)) if bf16 else (lambda v: v)
+    return sum(pad(k) * pad(n) for k, n in zip(widths[:-1], widths[1:]))
+
+
 def make_operands(dp: DynamicsParams, config: LearnedDynamicsConfig) -> KernelOperands:
     weights = kc.weight_operands(dp, config.compute_dtype)
     widths = padded_widths(config)
+    bf16 = config.compute_dtype == torch.bfloat16
     packed_w, packed_b = [], []
     for layer, (w, b) in enumerate(zip(weights[0::2], weights[1::2])):
         k, n = widths[layer], widths[layer + 1]
-        packed_w.append(
-            torch.nn.functional.pad(w, (0, n - w.shape[2], 0, k - w.shape[1])).reshape(-1)
-        )
+        padded = torch.nn.functional.pad(w, (0, n - w.shape[2], 0, k - w.shape[1]))
+        packed_w.append(fragment_pack(padded) if bf16 else padded.reshape(-1))
         packed_b.append(torch.nn.functional.pad(b, (0, n - b.shape[1])).reshape(-1))
     return KernelOperands(
         stats=kc.stats_matrix(dp, config.dim_s, config.dim_u),
@@ -96,7 +133,7 @@ def rollout_states_plain(
     s = s0
     if grouped:
         ensemble = config.ensemble_size
-        members = torch.repeat_interleave(tile_member.long(), TILE)
+        members = torch.repeat_interleave(tile_member.long(), TILE_TS1)
         expected = torch.arange(ensemble, device=members.device).repeat_interleave(rows // ensemble)
         if rows % ensemble or not torch.equal(members, expected):
             raise ValueError("ts1 rows must be member-major blocks of equal size")
@@ -115,9 +152,9 @@ def _lib():
     lib = load_library("rollout")
     if not getattr(lib, "_bbmpc_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.bbmpc_rollout_states.argtypes = [p] * 7 + [i] * 7 + [p] + [i] * 4 + [p]
+        lib.bbmpc_rollout_states.argtypes = [p] * 7 + [i] * 7 + [p] + [i] * 5 + [p]
         lib.bbmpc_rollout_states.restype = i
-        lib.bbmpc_rollout_occupancy.argtypes = [i, i, i, p, i, p, p]
+        lib.bbmpc_rollout_occupancy.argtypes = [i, i, i, i, p, i, i, i, p]
         lib.bbmpc_rollout_occupancy.restype = i
         lib._bbmpc_typed = True
     return lib
@@ -145,12 +182,11 @@ def check_operands(config: LearnedDynamicsConfig, ops: KernelOperands, device) -
     widths = padded_widths(config)
     if tuple(ops.widths) != widths:
         raise ValueError(f"operands have widths {ops.widths}, config needs {widths}")
-    pairs = list(zip(widths[:-1], widths[1:]))
     ensemble = config.ensemble_size
+    bf16 = config.compute_dtype == torch.bfloat16
     check_tensor(ops.packed_w, "packed_w", config.compute_dtype,
-                 (ensemble * sum(k * n for k, n in pairs),), device)
-    check_tensor(ops.packed_b, "packed_b", torch.float32,
-                 (ensemble * sum(n for _, n in pairs),), device)
+                 (ensemble * _packed_elements(widths, bf16),), device)
+    check_tensor(ops.packed_b, "packed_b", torch.float32, (ensemble * sum(widths[1:]),), device)
     return widths
 
 
@@ -160,8 +196,10 @@ def rollout_states(
 ) -> torch.Tensor:
     """The kernel's wrapper: ``actions [H, rows, U]``, ``s0 [rows, S]`` -> ``[H, rows, S]``.
 
-    CPU tensors take :func:`rollout_states_plain`. CUDA tensors launch the kernel on the
-    current stream or raise; there is no fallback.
+    ``rows`` is a multiple of the tile: ``TILE_TS1`` with ``tile_member [rows / TILE_TS1]``
+    (ts1), else ``TILE_MEAN``. CPU tensors take :func:`rollout_states_plain`. CUDA tensors
+    launch the kernel on the current stream or raise (a shape whose tile does not fit the
+    CTA's shared memory, a cluster the card refuses); there is no fallback.
     """
     if actions.device.type == "cpu":
         return rollout_states_plain(config, ops, actions, s0, tile_member)
@@ -171,14 +209,15 @@ def rollout_states(
     device = actions.device
     horizon, rows, dim_u = actions.shape
     dim_s = config.dim_s
-    if rows % TILE or dim_u != config.dim_u:
-        raise ValueError(f"rows ({rows}) must be a multiple of tile ({TILE}) and U={config.dim_u}")
+    tile = tile_rows(tile_member is not None)
+    if rows % tile or dim_u != config.dim_u:
+        raise ValueError(f"rows ({rows}) must be a multiple of tile ({tile}) and U={config.dim_u}")
     check_tensor(actions, "actions", torch.float32, (horizon, rows, dim_u), device)
     check_tensor(s0, "s0", torch.float32, (rows, dim_s), device)
     widths = check_operands(config, ops, device)
     ensemble = config.ensemble_size
     if tile_member is not None:
-        check_tensor(tile_member, "tile_member", torch.int32, (rows // TILE,), device)
+        check_tensor(tile_member, "tile_member", torch.int32, (rows // tile,), device)
     out = torch.empty((horizon, rows, dim_s), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -188,7 +227,7 @@ def rollout_states(
             out.data_ptr(), horizon, rows, dim_s, dim_u, ops.stats.shape[1],
             ensemble, len(widths) - 1, int_array(widths),
             kc.KERNEL_ACTIVATIONS[config.activation], int(config.normalized),
-            int(config.predict_delta), int(config.compute_dtype == torch.bfloat16), stream,
+            int(config.predict_delta), int(config.compute_dtype == torch.bfloat16), tile, stream,
         )
     if err != 0:
         raise RuntimeError(f"rollout kernel launch failed: CUDA error {err}")
@@ -199,17 +238,34 @@ def rollout_states(
 rollout_states.launches = 0
 
 
-def kernel_occupancy(config: LearnedDynamicsConfig) -> dict:
-    """Shared memory per CTA and resident CTAs per SM of the kernel at ``config``."""
+OCCUPANCY_FIELDS = ("smem_bytes", "blocks_per_sm", "cluster", "max_active_clusters",
+                    "registers", "local_bytes", "threads")
+
+
+def occupancy_report(values, rows: int, tile: int) -> dict:
+    """The kernels' occupancy array as a dict, with the tile, the clusters the grid has and
+    the waves it needs (``max_active_clusters`` is ``cudaOccupancyMaxActiveClusters``)."""
+    out = dict(zip(OCCUPANCY_FIELDS, values), tile=tile)
+    out["grid_clusters"] = rows // tile
+    out["waves"] = -(-out["grid_clusters"] // max(out["max_active_clusters"], 1))
+    return out
+
+
+def kernel_occupancy(config: LearnedDynamicsConfig, rows: int) -> dict:
+    """What one launch of the kernel on ``rows`` rows (a multiple of the tile) occupies at
+    ``config``: shared memory per CTA, resident CTAs per SM, CTAs per cluster, the clusters the
+    card holds at once, the clusters and waves of the grid, registers and local bytes."""
     widths = padded_widths(config)
-    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    ts1 = config.ensemble_size > 1 and config.propagation == "ts1"
+    tile = tile_rows(ts1)
+    out = (ctypes.c_int * len(OCCUPANCY_FIELDS))()
     err = _lib().bbmpc_rollout_occupancy(
-        config.dim_s, config.ensemble_size, len(widths) - 1, int_array(widths),
-        int(config.compute_dtype == torch.bfloat16), ctypes.byref(smem), ctypes.byref(blocks),
+        rows, config.dim_s, config.ensemble_size, len(widths) - 1, int_array(widths),
+        int(config.compute_dtype == torch.bfloat16), int(ts1), tile, out,
     )
     if err != 0:
         raise RuntimeError(f"rollout kernel occupancy query failed: CUDA error {err}")
-    return {"smem_bytes": smem.value, "blocks_per_sm": blocks.value, "threads": 512}
+    return occupancy_report(list(out), rows, tile)
 
 
 def _versions(dp: DynamicsParams) -> tuple:
@@ -253,6 +309,7 @@ def make_rollout_kernel_evaluator(
     device = resolve_device(device)
     ensemble = config.ensemble_size
     ts1 = ensemble > 1 and config.propagation == "ts1"
+    tile = tile_rows(ts1)
     operands = operand_cache(config)
 
     @functools.lru_cache(maxsize=8)
@@ -286,9 +343,9 @@ def make_rollout_kernel_evaluator(
                 )
             per_member = rows // ensemble
             perm = member_major(rows)
-            block = kc.round_up(per_member, TILE)
+            block = kc.round_up(per_member, tile)
             tile_member = torch.arange(ensemble, dtype=torch.int32, device=device)
-            tile_member = tile_member.repeat_interleave(block // TILE)
+            tile_member = tile_member.repeat_interleave(block // tile)
 
             def pad_blocks(x):
                 grouped = x.reshape(ensemble, per_member, -1)
@@ -298,7 +355,7 @@ def make_rollout_kernel_evaluator(
             flat = pad_blocks(flat[perm].reshape(rows, -1)).reshape(-1, horizon, dim_u)
             s0 = pad_blocks(s0[perm])
         else:
-            padded_rows = kc.round_up(rows, TILE)
+            padded_rows = kc.round_up(rows, tile)
             if padded_rows != rows:
                 flat = torch.nn.functional.pad(flat, (0, 0, 0, 0, 0, padded_rows - rows))
                 s0 = torch.nn.functional.pad(s0, (0, 0, 0, padded_rows - rows))

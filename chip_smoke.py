@@ -13,6 +13,10 @@ It imports nothing of JAX and nothing of the JAX package. Phases, each fatal on 
    - the fused sample + rollout kernel (K4, with the counter RNG K3) for mean/f32, mean/bf16
      and ts1/f32 (logical tile 128, so 8 tiles for 5 members), and its streamed form (K5)
      for mean/f32: the drawn actions, the visited states and the rewards;
+   - K2 and K4 (mean/f32) again on rows=3000, three agents at population 1000;
+   each of these launches on the rows padded to the kernel's tile, as the evaluators pad
+   them, and prints its cluster size, tile, cudaOccupancyMaxActiveClusters, the waves the
+   grid needs, shared memory, registers and local bytes;
    - K4 with its options (mean/f32): the iCEM set (colored noise beta 2, 6 injected
      candidates), the MPPI set (bounds clip with its penalty, the dot) and uniform sampling;
    - the elite-moment kernel (K6) with a 50-elite 0/1 mask and with softmax weights, and with
@@ -40,6 +44,7 @@ import time
 
 FLAGSHIP = dict(dim_s=17, dim_u=6, hidden=(500, 500, 500), ensemble_size=5)
 ROWS, HORIZON, STEPS, ITERS = 1000, 50, 3, 5
+BIG_AGENTS = 3  # the larger batch: three agents at population ROWS
 # Max |kernel - plain| over the visited states and over the rewards, each relative to
 # max(1, max |plain|). f32: the kernel's FMA order differs from cuBLAS's (measured ~1e-7
 # relative); bf16: one rounded activation may land 1 ulp (2^-8) apart and propagate through
@@ -205,7 +210,15 @@ def moments_bound(population: int, agents: int, hu: int, features=None,
                     bytes_moved + more_bytes, "float32")
 
 
-def kernel_vs_plain(device, propagation: str, dtype: str) -> dict:
+def pad_rows(x, rows: int, dim: int):
+    """``x`` zero-padded along ``dim`` to ``rows`` rows, as the evaluators pad to whole tiles."""
+    import torch
+
+    pad = [0, 0] * (x.dim() - 1 - dim) + [0, rows - x.shape[dim]]
+    return torch.nn.functional.pad(x, pad).contiguous()
+
+
+def kernel_vs_plain(device, propagation: str, dtype: str, rows: int = ROWS) -> dict:
     import numpy as np
     import torch
 
@@ -216,25 +229,30 @@ def kernel_vs_plain(device, propagation: str, dtype: str) -> dict:
                                    compute_dtype=getattr(torch, dtype))
     ops = rk.make_operands(flagship_params(config, device), config)
     g = np.random.default_rng(2)
-    acts = torch.as_tensor(g.uniform(-1, 1, (HORIZON, ROWS, config.dim_u)), dtype=torch.float32,
+    acts = torch.as_tensor(g.uniform(-1, 1, (HORIZON, rows, config.dim_u)), dtype=torch.float32,
                            device=device)
-    s0 = torch.as_tensor(g.normal(0, 1, (ROWS, config.dim_s)), dtype=torch.float32,
+    s0 = torch.as_tensor(g.normal(0, 1, (rows, config.dim_s)), dtype=torch.float32,
                          device=device)
     member = None
     members = config.ensemble_size
+    tile = rk.tile_rows(propagation == "ts1")
     if propagation == "ts1":
-        # 200 rows per member: whole tiles, so the member-major blocks need no padding.
+        # rows / E rows per member: whole tiles, so the member-major blocks need no padding.
+        if rows % (config.ensemble_size * tile):
+            raise AssertionError(f"ts1 case needs rows a multiple of {config.ensemble_size * tile}")
         member = torch.arange(config.ensemble_size, dtype=torch.int32, device=device)
-        member = member.repeat_interleave(ROWS // config.ensemble_size // rk.TILE)
+        member = member.repeat_interleave(rows // config.ensemble_size // tile)
         members = 1
+    rows_pad = -(-rows // tile) * tile
+    acts_pad, s0_pad = pad_rows(acts, rows_pad, 1), pad_rows(s0, rows_pad, 0)
 
     def kernel():
-        return rk.rollout_states(config, ops, acts, s0, member)
+        return rk.rollout_states(config, ops, acts_pad, s0_pad, member)
 
     def plain():
         return rk.rollout_states_plain(config, ops, acts, s0, member)
 
-    states, ref_states = kernel(), plain()
+    states, ref_states = kernel()[:, :rows], plain()
     torch.cuda.synchronize()
     if not bool(torch.isfinite(states).all()):
         raise AssertionError(f"{propagation}/{dtype}: kernel states not finite")
@@ -243,10 +261,10 @@ def kernel_vs_plain(device, propagation: str, dtype: str) -> dict:
     scale = max(1.0, float(ref.abs().max()))
     state_err = float((states - ref_states).abs().max())
     state_scale = max(1.0, float(ref_states.abs().max()))
-    bound_ms, bound_by = bound(config, ROWS, HORIZON, members)
+    bound_ms, bound_by = bound(config, rows, HORIZON, members)
     res = {
-        "case": f"{propagation}/{dtype}", "tile": rk.TILE, "grid": ROWS // rk.TILE,
-        **rk.kernel_occupancy(config),
+        "case": f"{propagation}/{dtype}" + ("" if rows == ROWS else f" rows={rows}"),
+        "rows": rows, "rows_launched": rows_pad, **rk.kernel_occupancy(config, rows_pad),
         "max_abs_err": err, "max_rel_err": err / scale, "tolerance_rel": TOLERANCE[dtype],
         "state_max_abs_err": state_err, "state_max_rel_err": state_err / state_scale,
         "ms": cuda_ms(kernel, 5), "plain_ms": cuda_ms(plain, 3),
@@ -289,9 +307,10 @@ def flagship_features(device, options: str, mean=None, std=None):
 
 
 def fused_closures(device, propagation: str, dtype: str, streamed: bool = False,
-                   options: str | None = None) -> dict:
-    """The flagship inputs of K4 (or K5) and the closures that run its kernel and its plain
-    version on them."""
+                   options: str | None = None, agents: int = 1) -> dict:
+    """The flagship inputs of K4 (or K5), for ``agents`` agents at population ROWS, and the
+    closures that run its kernel (on the rows padded to its tile, cut back to the rows asked
+    for) and its plain version on them."""
     import numpy as np
     import torch
 
@@ -304,12 +323,17 @@ def fused_closures(device, propagation: str, dtype: str, streamed: bool = False,
     ops = rk.make_operands(flagship_params(config, device), config)
     g = np.random.default_rng(4)
     hu = HORIZON * config.dim_u
-    s0 = torch.as_tensor(g.normal(0, 1, (1, config.dim_s)), dtype=torch.float32, device=device)
+    rows = ROWS * agents
+    s0 = torch.as_tensor(g.normal(0, 1, (agents, config.dim_s)), dtype=torch.float32,
+                         device=device)
     # The flagship's first CEM iteration samples around the midpoint with std 0.5.
-    mean = torch.as_tensor(g.uniform(-0.3, 0.3, (1, hu)), dtype=torch.float32, device=device)
-    std = torch.as_tensor(g.uniform(0.2, 0.5, (1, hu)), dtype=torch.float32, device=device)
+    mean = torch.as_tensor(g.uniform(-0.3, 0.3, (agents, hu)), dtype=torch.float32,
+                           device=device)
+    std = torch.as_tensor(g.uniform(0.2, 0.5, (agents, hu)), dtype=torch.float32, device=device)
     seed = torch.tensor([1234567891], dtype=torch.int32, device=device)
-    member, member_tile, members = None, fc.TILE, config.ensemble_size
+    tile = rk.tile_rows(propagation == "ts1")
+    rows_pad = -(-rows // tile) * tile
+    member, member_tile, members = None, tile, config.ensemble_size
     if propagation == "ts1":
         rr, _ = fc.make_fused_cem_kernels(config, reward_fn, horizon=HORIZON, agents=1,
                                           population=ROWS, tile=FUSED_TILE)
@@ -318,22 +342,33 @@ def fused_closures(device, propagation: str, dtype: str, streamed: bool = False,
     features = flagship_features(device, options, mean, std) if options else None
     more = {} if streamed else {"features": features}
 
-    def kernel():
+    def launch():
         if streamed:
-            return fc.fused_rollout_streamed(config, ops, s0, mean, std, seed, ROWS, member,
+            return fc.fused_rollout_streamed(config, ops, s0, mean, std, seed, rows_pad, member,
                                              member_tile)
-        return fc.fused_rollout(config, ops, s0, mean, std, seed, ROWS, member, member_tile,
+        return fc.fused_rollout(config, ops, s0, mean, std, seed, rows_pad, member, member_tile,
                                 **more)
 
+    def kernel():
+        # states, actions [H, rows, .], then with options penalty and dots [rows] or None
+        out = launch()
+        return tuple(None if o is None else (o[:, :rows] if o.dim() == 3 else o[:rows])
+                     for o in out)
+
     def plain():
-        return fc.fused_rollout_plain(config, ops, s0, mean, std, seed, ROWS, member,
+        return fc.fused_rollout_plain(config, ops, s0, mean, std, seed, rows, member,
                                       member_tile, streamed=streamed, **more)
 
     case = f"{'K5' if streamed else 'K4'} {propagation}/{dtype}"
     if options:
         case += f" {options}"
-    return dict(case=case, kernel=kernel, plain=plain, config=config, s0=s0, features=features,
-                member_tile=member_tile, members=members)
+    if agents > 1:
+        case += f" rows={rows}"
+    occupancy = fc.fused_occupancy(config, rows_pad, HORIZON, streamed=streamed,
+                                   features=features)
+    return dict(case=case, kernel=kernel, launch=launch, plain=plain, config=config, s0=s0,
+                features=features, member_tile=member_tile, members=members, rows=rows,
+                rows_pad=rows_pad, agents=agents, occupancy=occupancy)
 
 
 def retime_in_turns(device, rounds: int = 3) -> None:
@@ -347,29 +382,29 @@ def retime_in_turns(device, rounds: int = 3) -> None:
     times = {c["case"]: [] for c in cases}
     for _ in range(rounds):
         for c in cases:
-            times[c["case"]].append(cuda_ms(c["kernel"], 5))
+            times[c["case"]].append(cuda_ms(c["launch"], 5))
     print(json.dumps({"retimed_in_turns_ms": {
         case: {"median": float(np.median(t)), "min": min(t), "max": max(t)}
         for case, t in times.items()}}), flush=True)
 
 
 def fused_vs_plain(device, propagation: str, dtype: str, streamed: bool = False,
-                   options: str | None = None) -> dict:
+                   options: str | None = None, agents: int = 1) -> dict:
     """K4 (or K5) against its plain version: the actions rolled out, the visited states and
     the rewards; with ``options`` (see :func:`flagship_features`) also the penalty, which the
     rewards then include, and the dots."""
     import torch
 
-    closures = fused_closures(device, propagation, dtype, streamed, options)
-    case, kernel, plain, config, s0, features, member_tile, members = (
+    closures = fused_closures(device, propagation, dtype, streamed, options, agents)
+    case, kernel, plain, config, s0, features, member_tile, members, rows = (
         closures[k] for k in ("case", "kernel", "plain", "config", "s0", "features",
-                              "member_tile", "members"))
+                              "member_tile", "members", "rows"))
     out, ref_out = kernel(), plain()
     (states, actions), (ref_states, ref_actions) = out[:2], ref_out[:2]
     torch.cuda.synchronize()
     if not bool(torch.isfinite(states).all() and torch.isfinite(actions).all()):
         raise AssertionError(f"{case}: kernel states or actions not finite")
-    s0_rows = s0.expand(ROWS, -1)
+    s0_rows = s0.repeat(ROWS, 1)  # row r starts at s0[r % agents]
     got = rewards_from_states(s0_rows, actions, states)
     ref = rewards_from_states(s0_rows, ref_actions, ref_states)
     compared = [("actions", actions, ref_actions, TOLERANCE["float32"]),
@@ -386,7 +421,7 @@ def fused_vs_plain(device, propagation: str, dtype: str, streamed: bool = False,
     if features is not None and features.gvec is not None:
         compared.append(("dots", out[3], ref_out[3], ROW_SUM_TOLERANCE))
     if features is not None and features.extra is not None:
-        injected = actions[:, ROWS - EXTRA_SLOTS:].transpose(0, 1).reshape(EXTRA_SLOTS, -1)
+        injected = actions[:, rows - EXTRA_SLOTS:].transpose(0, 1).reshape(EXTRA_SLOTS, -1)
         if not torch.equal(injected, features.extra):
             raise AssertionError(f"{case}: the injected rows did not roll out `extra`")
     compared.append(("rewards", got, ref, TOLERANCE[dtype]))
@@ -394,14 +429,15 @@ def fused_vs_plain(device, propagation: str, dtype: str, streamed: bool = False,
     for what, a, b, tol in compared:
         err, scale = float((a - b).abs().max()), max(1.0, float(b.abs().max()))
         errs[what] = (err, scale, tol)
-    bound_ms, bound_by = fused_bound(config, ROWS, HORIZON, members, 1, features)
+    bound_ms, bound_by = fused_bound(config, rows, HORIZON, members, agents, features)
     res = {
-        "case": case, "member_tile": member_tile,
+        "case": case, "member_tile": member_tile, "rows": rows,
+        "rows_launched": closures["rows_pad"], **closures["occupancy"],
         **({} if clipped_share is None else {"clipped_share": clipped_share}),
         **{f"{what}_max_abs_err": e for what, (e, _, _) in errs.items()},
         **{f"{what}_max_rel_err": e / sc for what, (e, sc, _) in errs.items()},
         "max_abs_err": errs["rewards"][0], "tolerance_rel": TOLERANCE[dtype],
-        "ms": cuda_ms(kernel, 5), "plain_ms": cuda_ms(plain, 3),
+        "ms": cuda_ms(closures["launch"], 5), "plain_ms": cuda_ms(plain, 3),
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
     print(json.dumps(res), flush=True)
@@ -640,6 +676,8 @@ def main() -> int:
     fused = [fused_vs_plain(device, p, d)
              for p, d in (("mean", "float32"), ("mean", "bfloat16"), ("ts1", "float32"))]
     streamed = fused_vs_plain(device, "mean", "float32", streamed=True)
+    kernel_vs_plain(device, "mean", "float32", rows=ROWS * BIG_AGENTS)
+    fused_vs_plain(device, "mean", "float32", agents=BIG_AGENTS)
     for options in ("icem", "mppi", "uniform"):
         fused_vs_plain(device, "mean", "float32", options=options)
     retime_in_turns(device)

@@ -32,6 +32,34 @@ def reward(s, a, ns):
     return -torch.sum(torch.square(ns), dim=-1) - 0.01 * torch.sum(torch.square(a), dim=-1)
 
 
+def padded(rows, ts1):
+    """``rows`` rounded up to the kernels' tile for that propagation."""
+    tile = rk.tile_rows(ts1)
+    return -(-rows // tile) * tile
+
+
+def pad_to(x, rows, dim):
+    pad = [0, 0] * (x.dim() - 1 - dim) + [0, rows - x.shape[dim]]
+    return torch.nn.functional.pad(x, pad).contiguous()
+
+
+def rollout(config, ops, acts, s0, member):
+    """K2 on the rows padded to whole tiles (mean; a ts1 caller passes whole tiles), cut back."""
+    rows = acts.shape[1]
+    launch = padded(rows, member is not None)
+    return rk.rollout_states(config, ops, pad_to(acts, launch, 1), pad_to(s0, launch, 0),
+                             member)[:, :rows]
+
+
+def fused(wrapper, config, ops, s0, mean, std, seed, rows, member=None, member_tile=None,
+          **kw):
+    """K4/K5 on the rows padded to whole tiles, every output cut back to ``rows``."""
+    launch = padded(rows, member is not None)
+    out = wrapper(config, ops, s0, mean, std, seed, launch, member,
+                  member_tile or rk.tile_rows(member is not None), **kw)
+    return tuple(None if o is None else (o[:, :rows] if o.dim() == 3 else o[:rows]) for o in out)
+
+
 def model(propagation, dtype, device, hidden=(64, 64), ensemble=2):
     config = LearnedDynamicsConfig(dim_s=3, dim_u=2, hidden=hidden, ensemble_size=ensemble,
                                    propagation=propagation, compute_dtype=getattr(torch, dtype))
@@ -40,11 +68,13 @@ def model(propagation, dtype, device, hidden=(64, 64), ensemble=2):
 
 
 @pytest.mark.parametrize("propagation,dtype,rows", [
-    ("mean", "float32", 48), ("mean", "float32", 96), ("mean", "bfloat16", 48),
+    ("mean", "float32", 48), ("mean", "float32", 100), ("mean", "bfloat16", 52),
     ("ts1", "float32", 48), ("ts1", "bfloat16", 96),
 ])
 def test_kernel_matches_plain(propagation, dtype, rows, device):
-    config, dp, _ = model(propagation, dtype, device, hidden=(61, 30))  # unaligned widths
+    """Unaligned widths (61, 30; the 5-wide input pads to 8, and to 16 for the tensor cores);
+    mean rows that are no multiple of the tile."""
+    config, dp, _ = model(propagation, dtype, device, hidden=(61, 30))
     ops = rk.make_operands(dp, config)
     g = np.random.default_rng(0)
     horizon = 6
@@ -54,9 +84,9 @@ def test_kernel_matches_plain(propagation, dtype, rows, device):
     member = None
     if propagation == "ts1":
         member = torch.arange(2, dtype=torch.int32, device=device)
-        member = member.repeat_interleave(rows // 2 // rk.TILE)
+        member = member.repeat_interleave(rows // 2 // rk.TILE_TS1)
     before = rk.rollout_states.launches
-    out = rk.rollout_states(config, ops, acts, s0, member)
+    out = rollout(config, ops, acts, s0, member)
     torch.cuda.synchronize()
     assert rk.rollout_states.launches == before + 1
     ref = rk.rollout_states_plain(config, ops, acts, s0, member)
@@ -84,8 +114,8 @@ def test_kernel_evaluator_matches_eager_evaluator(propagation, device):
 def test_wrapper_rejects_bad_inputs(device):
     config, dp, _ = model("mean", "float32", device)
     ops = rk.make_operands(dp, config)
-    acts = torch.zeros(4, 16, 2, device=device)
-    s0 = torch.zeros(16, 3, device=device)
+    acts = torch.zeros(4, 96, 2, device=device)
+    s0 = torch.zeros(96, 3, device=device)
     with pytest.raises(ValueError, match="contiguous"):
         rk.rollout_states(config, ops, acts.transpose(0, 1).contiguous().transpose(0, 1), s0,
                           None)
@@ -94,7 +124,106 @@ def test_wrapper_rejects_bad_inputs(device):
     with pytest.raises(ValueError, match="shape"):
         rk.rollout_states(config, ops, acts, s0[:8], None)
     with pytest.raises(ValueError, match="multiple"):
-        rk.rollout_states(config, ops, acts[:, :14], s0[:14], None)
+        rk.rollout_states(config, ops, acts[:, :50].contiguous(), s0[:50], None)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ensemble", [1, 5, 7, 9])
+def test_rollout_kernels_for_any_ensemble_size(ensemble, dtype, device):
+    """K2 and K4 with mean propagation at E members: a cluster of min(E, 8) CTAs per tile, one
+    member each, and at E = 9 a CTA that runs two. 100 rows are no multiple of the tile. Two
+    runs give the same bits: the members are summed in member order, not in arrival order."""
+    config, dp, _ = model("mean", dtype, device, hidden=(61, 30), ensemble=ensemble)
+    ops = rk.make_operands(dp, config)
+    g = np.random.default_rng(5)
+    rows, horizon = 100, 6
+    acts = torch.as_tensor(g.uniform(-2, 2, (horizon, rows, 2)), dtype=torch.float32,
+                           device=device)
+    s0 = torch.as_tensor(g.uniform(-1, 1, (rows, 3)), dtype=torch.float32, device=device)
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    first, second = rollout(config, ops, acts, s0, None), rollout(config, ops, acts, s0, None)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first, rk.rollout_states_plain(config, ops, acts, s0, None),
+                               rtol=tol, atol=tol)
+    a0, mean, std, seed = fused_inputs(device)
+    for features in (None, make_features(device, "clip+dot")):
+        kw = {} if features is None else {"features": features}
+        got = fused(fc.fused_rollout, config, ops, a0, mean, std, seed, rows, **kw)
+        again = fused(fc.fused_rollout, config, ops, a0, mean, std, seed, rows, **kw)
+        torch.cuda.synchronize()
+        ref = fc.fused_rollout_plain(config, ops, a0, mean, std, seed, rows, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-6)
+        torch.testing.assert_close(got[0], ref[0], rtol=tol, atol=tol)
+        for a, b in zip(got[2:], ref[2:]):  # penalty, dots
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("ensemble", [5, 7])
+def test_ts1_kernels_for_any_ensemble_size(ensemble, device):
+    """ts1 at E members: K2 on member-major blocks of two tiles each, K4 on logical tiles of two
+    CTAs whose members cycle through all E, with rows that end inside a logical tile."""
+    config, dp, _ = model("ts1", "float32", device, hidden=(61, 30), ensemble=ensemble)
+    ops = rk.make_operands(dp, config)
+    g = np.random.default_rng(6)
+    rows, horizon = ensemble * 2 * rk.TILE_TS1, 6
+    acts = torch.as_tensor(g.uniform(-2, 2, (horizon, rows, 2)), dtype=torch.float32,
+                           device=device)
+    s0 = torch.as_tensor(g.uniform(-1, 1, (rows, 3)), dtype=torch.float32, device=device)
+    member = torch.arange(ensemble, dtype=torch.int32, device=device).repeat_interleave(2)
+    torch.testing.assert_close(rollout(config, ops, acts, s0, member),
+                               rk.rollout_states_plain(config, ops, acts, s0, member),
+                               rtol=1e-4, atol=1e-4)
+    a0, mean, std, seed = fused_inputs(device)
+    member_tile, rows = 2 * rk.TILE_TS1, 100
+    member = torch.arange(-(-rows // member_tile), device=device).remainder(ensemble).int()
+    got = fused(fc.fused_rollout, config, ops, a0, mean, std, seed, rows, member, member_tile)
+    ref = fc.fused_rollout_plain(config, ops, a0, mean, std, seed, rows, member, member_tile)
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-6)
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("propagation", ["mean", "ts1"])
+@pytest.mark.parametrize("hidden,activation,more", [
+    ((), "relu", {}),  # the head alone: no hidden layer, so no free buffer for partial sums
+    ((40, 24, 12), "gelu", dict(normalized=False, predict_delta=False)),
+])
+def test_kernel_on_other_network_shapes(hidden, activation, more, propagation, dtype, device):
+    """No hidden layer, three narrow ones (every layer splits K in float32), relu and gelu,
+    no normalizer, absolute next-state prediction."""
+    config = LearnedDynamicsConfig(dim_s=3, dim_u=2, hidden=hidden, ensemble_size=3,
+                                   propagation=propagation, activation=activation,
+                                   compute_dtype=getattr(torch, dtype), **more)
+    dp = make_learned_dynamics(config)[0](torch.Generator().manual_seed(0)).to(device)
+    ops = rk.make_operands(dp, config)
+    g = np.random.default_rng(7)
+    ts1 = propagation == "ts1"
+    rows, horizon = (3 * 2 * rk.TILE_TS1 if ts1 else 70), 5
+    acts = torch.as_tensor(g.uniform(-2, 2, (horizon, rows, 2)), dtype=torch.float32,
+                           device=device)
+    s0 = torch.as_tensor(g.uniform(-1, 1, (rows, 3)), dtype=torch.float32, device=device)
+    member = None
+    if ts1:
+        member = torch.arange(3, dtype=torch.int32, device=device).repeat_interleave(2)
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(rollout(config, ops, acts, s0, member),
+                               rk.rollout_states_plain(config, ops, acts, s0, member),
+                               rtol=tol, atol=tol)
+
+
+def test_shapes_beyond_shared_memory_are_refused(device):
+    """A tile whose buffers exceed the CTA's 227 KB raises; nothing falls back."""
+    config, dp, _ = model("mean", "float32", device, hidden=(640, 640), ensemble=1)
+    ops = rk.make_operands(dp, config)
+    rows = rk.TILE_MEAN
+    acts = torch.zeros(2, rows, 2, device=device)
+    s0 = torch.zeros(rows, 3, device=device)
+    before = rk.rollout_states.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        rk.rollout_states(config, ops, acts, s0, None)
+    assert rk.rollout_states.launches == before
 
 
 # ---------------------------------------------------------------- K4-K6: the fused CEM kernels
@@ -120,17 +249,18 @@ def test_fused_rollout_matches_plain(propagation, dtype, rows, streamed, device)
     config, dp, _ = model(propagation, dtype, device, hidden=(61, 30))
     ops = rk.make_operands(dp, config)
     s0, mean, std, seed = fused_inputs(device)
-    member, member_tile = None, fc.TILE
+    member, member_tile = None, None
     if propagation == "ts1":
-        member_tile = 8  # a logical tile of two CTAs; its members alternate 0, 1, 0, ...
+        member_tile = 2 * rk.TILE_TS1  # a logical tile of two CTAs; its members alternate
         member = torch.arange(-(-rows // member_tile), device=device).remainder(2).int()
     wrapper = fc.fused_rollout_streamed if streamed else fc.fused_rollout
     before = wrapper.launches
-    states, actions = wrapper(config, ops, s0, mean, std, seed, rows, member, member_tile)
+    states, actions = fused(wrapper, config, ops, s0, mean, std, seed, rows, member, member_tile)
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
-    ref_states, ref_actions = fc.fused_rollout_plain(config, ops, s0, mean, std, seed, rows,
-                                                     member, member_tile, streamed=streamed)
+    ref_states, ref_actions = fc.fused_rollout_plain(
+        config, ops, s0, mean, std, seed, rows, member, member_tile or rk.TILE_TS1,
+        streamed=streamed)
     # the drawn actions: logf/cosf of the kernel and of torch's CUDA ops may differ in an ulp
     torch.testing.assert_close(actions, ref_actions, rtol=0, atol=1e-6)
     tol = 1e-4 if dtype == "float32" else 1e-2
@@ -151,8 +281,8 @@ def test_fused_rollout_block_and_streamed_give_the_same_rewards(device):
     assert (fc.fused_rollout.launches, fc.fused_rollout_streamed.launches) == (
         before[0] + 1, before[1] + 1)
     ops = rk.make_operands(dp, config)
-    a = fc.fused_rollout(config, ops, s0, mean, std, seed, 272)
-    b = fc.fused_rollout_streamed(config, ops, s0, mean, std, seed, 272)
+    a = fused(fc.fused_rollout, config, ops, s0, mean, std, seed, 272)
+    b = fused(fc.fused_rollout_streamed, config, ops, s0, mean, std, seed, 272)
     torch.testing.assert_close(b[1], a[1], rtol=0, atol=0)
     torch.testing.assert_close(b[0], a[0], rtol=1e-6, atol=1e-6)
 
@@ -259,19 +389,19 @@ def make_features(device, flags, agents=AGENTS, horizon=HORIZON, population=POPU
     ("colored+extra", "ts1", "float32"),
 ])
 def test_fused_rollout_options_match_plain(flags, propagation, dtype, device):
-    """Every option of K4 at 272 rows (270 real ones for 3 agents: the two padding rows lie
-    past the injected slots and must not read ``extra``), also under ts1."""
+    """Every option of K4 at 272 rows (270 real ones for 3 agents: the rows above them, and the
+    grid's padding to whole tiles, lie past the injected slots and must not read ``extra``),
+    also under ts1."""
     config, dp, _ = model(propagation, dtype, device, hidden=(61, 30))
     ops = rk.make_operands(dp, config)
     s0, mean, std, seed = fused_inputs(device)
     features = make_features(device, flags)
-    member, member_tile = None, fc.TILE
+    member, member_tile = None, rk.TILE_TS1
     if propagation == "ts1":
-        member_tile = 8
         member = torch.arange(272 // member_tile, device=device).remainder(2).int()
     before = fc.fused_rollout.launches
-    got = fc.fused_rollout(config, ops, s0, mean, std, seed, 272, member, member_tile,
-                           features=features)
+    got = fused(fc.fused_rollout, config, ops, s0, mean, std, seed, 272, member, member_tile,
+                features=features)
     torch.cuda.synchronize()
     assert fc.fused_rollout.launches == before + 1
     ref = fc.fused_rollout_plain(config, ops, s0, mean, std, seed, 272, member, member_tile,
@@ -322,8 +452,8 @@ def test_elite_moments_regenerates_the_rows_of_fused_rollout(device):
     ops = rk.make_operands(dp, config)
     s0, mean, std, seed = fused_inputs(device)
     features = make_features(device, "colored+clip")
-    _, actions, _, _ = fc.fused_rollout(config, ops, s0, mean, std, seed, 272,
-                                        features=features)
+    _, actions, _, _ = fused(fc.fused_rollout, config, ops, s0, mean, std, seed, 272,
+                             features=features)
     for row in (0, 131, 269):
         w = torch.zeros(POPULATION * AGENTS, device=device)
         w[row] = 1.0
@@ -373,7 +503,7 @@ def test_fused_option_inputs_are_checked(device):
     good = make_features(device, "colored+extra+dot")
 
     def roll(**changes):
-        return fc.fused_rollout(config, ops, s0, mean, std, seed, 272,
+        return fc.fused_rollout(config, ops, s0, mean, std, seed, padded(272, False),
                                 features=dataclasses.replace(good, **changes))
 
     with pytest.raises(ValueError, match="basis has shape"):
