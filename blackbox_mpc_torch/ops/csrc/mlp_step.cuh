@@ -26,8 +26,9 @@
 // addresses. Only a layer with fewer such blocks than half the threads (the 17-wide head;
 // every layer of a tile below 16 rows) splits K across threads and adds the partials in a
 // second pass, in slice order. The weights come through plain register loads, 8 k's unrolled:
-// a cp.async ring of weight slabs in shared memory (3 stages of 4 k rows, one barrier per
-// slab) and an explicit register double buffer both measured slower on the H100 (PERF.md).
+// rings of weight slabs in shared memory (cp.async with a barrier per slab, and cp.async.bulk
+// on mbarriers; the tile leaves 24 KB for them) and an explicit register double buffer all
+// measured slower on the H100 (PERF.md).
 //
 // bfloat16 (dense_mma): tensor cores, mma.sync.m16n8k16 with float32 accumulation. With few
 // rows the weights take the 16-row m side, out^T[N, T] = W^T[N, K] . X^T[K, T], and the rows
