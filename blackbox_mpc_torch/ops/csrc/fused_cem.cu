@@ -15,14 +15,15 @@
 //   and z = clip(sqrt(-2 log u1) * cos(f32(2 pi) * u2), -2, 2) with logf/cosf/sqrtf at full
 //   precision (no --use_fast_math). __fadd_rn/__fmul_rn keep the compiler from contracting
 //   mean + std * z into an FMA, so the drawn actions round as the plain version's do.
-//   `gen_z_tile` yields a tile's z [T, H*U] for K4 and K6 alike. White (n_cols = H*U) and
+//   `gen_z_tile` yields a tile's z [T, H*U] for K4, `draw_z_rows` that of any T rows for K6
+//   and `draw_rows_kernel`, with the same bits. White (n_cols = H*U) and
 //   uniform (2u - 1 from the first key) are per element. Colored is per row: n_cols = U*2F
 //   unclipped normals, each action dim's 2F normals contracted with the [2F, H] spectral basis
 //   (the block that the JAX kernel's dense [U*2F, H*U] matrix repeats per action dim; 10.4 KB at
 //   the flagship, in shared memory when it fits), then the row's mean and population std, the
 //   division by std + 1e-8 and the clip at +/-2. The contraction is a chain of fmaf in k order
 //   and the row sums are lane-strided with a butterfly, all in explicit round-to-nearest
-//   intrinsics, so K4 and K6 get the same bits from it whatever their block sizes.
+//   intrinsics, so K4, K6 and K3 alone get the same bits whatever their block sizes.
 // * K4/K5: a tile of T rows per cluster (mean: one member per CTA) or per CTA (ts1), as in K2
 //   (rollout.cu), running mlp_step.cuh for every horizon step. K4 draws the tile's actions for
 //   all H steps before the H loop, in sub-tiles of 8 rows that the CTAs of the cluster share
@@ -44,28 +45,49 @@
 //   at once, sums them undiscounted and subtracts the penalty. The JAX kernel never stores the
 //   candidates; this is the one deliberate divergence (1.2 MB of actions at the flagship).
 //   Fusing a fixed reward form is later work.
-// * K6: a two-pass deterministic reduction. Pass 1 writes, per chunk of population indices,
-//   the chunk's sum of w*centered and of w*centered^2; pass 2 adds the chunks in a fixed order.
-//   No atomics, so repeated runs give the same bits. The weights w are a 0/1 elite mask for
-//   CEM, or any weights (PI2's softmax, CMA's log-rank). For plain white noise pass 1 gives
-//   each thread one (agent, column) pair and draws its own z. A colored z depends on its whole
-//   row, so with any option pass 1 is `elite_partial_rows_kernel`: a CTA per (chunk, agent)
-//   generates whole rows, four at a time (kMomentTile), through `gen_z_tile`, and each thread
-//   accumulates its columns over the rows in order; centered = clip(mean + std*z) - mean with
-//   the bounds clip, and extra - mean on injected rows.
+// * K6: sum_w w*centered and sum_w w*centered^2 per (agent, column), in one launch of
+//   thread-block clusters of kMomentCluster CTAs, with no scratch in device memory and no
+//   atomics, so two runs give the same bits. The weights w are a 0/1 elite mask (CEM),
+//   softmax weights (PI2, MPPI) or log-rank weights (sep-CMA); a row of weight 0 (+0 or -0)
+//   adds nothing to a finite sum, so it is not drawn. CTA `rank` of a cluster takes the
+//   rank-th contiguous span of the population and walks it in chunks of one index per thread:
+//   a warp ballot over 32 weights and a prefix over the warps compact the chunk's rows of
+//   weight into shared memory, in increasing order, and only those are drawn. Where z is per
+//   element (white or uniform, with or without the clip and injected rows),
+//   `moments_cols_kernel` runs a cluster per (agent, block of 32 columns): lane l takes column
+//   l, warp w the compacted rows w, w + 8, ..., and the warps' sums are added in warp order. A
+//   colored z needs its whole row, so `moments_rows_kernel` runs a cluster per agent that draws
+//   the compacted rows kMomentTile at a time through `draw_z_rows`, each thread adding its
+//   columns over them in order. centered = std*z, clip(mean + std*z) - mean with the bounds
+//   clip, and extra - mean on injected rows (drawn by no one in the per-element kernel). Last,
+//   rank 0 adds the CTAs' sums over distributed shared memory in rank order and writes them.
+// * K3 on its own, `draw_rows_kernel`: z of a list of rows, kDrawTile rows per CTA, through
+//   `draw_z_rows`, so a row's z has K4's bits. The solvers read carried elites, the
+//   execute-best plan and RandomSearch's argmax row with it.
 //
 // What bounds them on the H100: K4/K5 as K2 (rollout.cu's note): in float32 a CTA's own FMA
 // and load issue and the clusters one wave holds, in bfloat16 the weight fragments' way from
 // L2. The RNG adds about 1e-4 of the MLP's work, the colored contraction 2F multiply-adds per
-// element. K6 moves a few KB and draws H*U*rows normals: it is bound by launch latency and the RNG
-// arithmetic (two fmix32, logf, cosf, sqrtf per element).
+// element. K6 moves a few KB: the weights, std and mean in, two [A, H*U] sums out. What is
+// left is launch latency (one launch where there were two, and no allocation) and the draws
+// of the rows of weight, each two fmix32, a logf, a cosf and a sqrtf per element: 50 x H*U at
+// CEM's and sep-CMA's flagship in place of 1000 x H*U, all of them for MPPI and PI2, whose
+// weights are nowhere 0. The per-element kernel spreads them over agents x ceil(H*U / 32)
+// clusters of 8 CTAs (80 SMs at the flagship); the colored one has only 8 CTAs per agent, so
+// with dense weights its draws, not the launch, set its time. draw_rows draws a few rows: it
+// is launch latency alone.
 
 #include "mlp_step.cuh"
 
 namespace {
 
-constexpr int kMomentThreads = 128;
-constexpr int kMomentTile = 4;  // rows K6's pass with options regenerates at a time
+constexpr int kMomentThreads = 256;  // K6: 8 warps, and a chunk of 256 population indices
+constexpr int kMomentWarps = kMomentThreads / 32;
+constexpr int kMomentCluster = 8;    // K6: CTAs that split a population, the portable size
+constexpr int kMomentCols = 32;      // K6 per element: columns of a cluster, one per lane
+constexpr int kMomentTile = 8;       // K6 colored: rows drawn at a time, a warp each
+constexpr int kDrawThreads = 256;    // draw_rows_kernel
+constexpr int kDrawTile = 4;         // draw_rows_kernel: rows per CTA
 constexpr float kTwoPi = 6.283185307179586f;  // f32(2 pi), as JAX's weak-typed product rounds it
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
@@ -197,6 +219,96 @@ __device__ __forceinline__ void gen_z_tile(float* z, float* g, const float* basi
   __syncthreads();
 }
 
+// Copies n floats from global to shared memory, eight loads in flight a thread.
+__device__ __forceinline__ void copy_to_shared(float* dst, const float* __restrict__ src, int n) {
+  constexpr int kBatch = 8;
+  for (int i0 = threadIdx.x; i0 < n; i0 += kBatch * blockDim.x) {
+    float v[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int i = i0 + j * blockDim.x;
+      v[j] = i < n ? src[i] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int i = i0 + j * blockDim.x;
+      if (i < n) dst[i] = v[j];
+    }
+  }
+}
+
+// K3 for K6 and draw_rows_kernel: z [T][H*U] of the rows row_of(r) (uint32), r < n_rows (the
+// rest are not written), with gen_z_tile's bits. K4 keeps gen_z_tile for itself: a change to
+// its prologue moves the register allocation of its H loop (1 % slower with options, measured).
+// Here the loops keep more in flight: four draws a thread, the colored contraction by column
+// over all T rows with each basis element loaded once and k unrolled by four, and the row
+// statistics' loads ahead of their adds. Every element is still the same chain of fmaf in k
+// order, and every row sum gen_z_tile's. Ends with a barrier.
+template <int T, class RowOf>
+__device__ __forceinline__ void draw_z_rows(float* z, float* g, const float* basis,
+                                            const Features& f, int horizon, int dim_u,
+                                            RowOf row_of, int n_rows, const Keys& keys) {
+  const int hu = horizon * dim_u;
+  const int nt = blockDim.x;
+  if (f.sampling != kColored) {
+#pragma unroll 4
+    for (int i = threadIdx.x; i < n_rows * hu; i += nt) {
+      const uint32_t counter =
+          row_of(i / hu) * static_cast<uint32_t>(hu) + static_cast<uint32_t>(i % hu);
+      z[i] = f.sampling == kUniform
+                 ? __fadd_rn(__fmul_rn(2.0f, uniform01(counter, keys.k1)), -1.0f)
+                 : normal_z(counter, keys);
+    }
+    __syncthreads();
+    return;
+  }
+  const int nc = f.n_cols, two_f = f.two_f;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < n_rows * nc; i += nt) {
+    g[i] = normal_raw(row_of(i / nc) * static_cast<uint32_t>(nc) + static_cast<uint32_t>(i % nc),
+                      keys);
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < hu; c += nt) {
+    const int h = c / dim_u, u = c % dim_u;
+    const float* gc = g + u * two_f;
+    float acc[T];
+#pragma unroll
+    for (int r = 0; r < T; ++r) acc[r] = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < two_f; ++k) {
+      const float b = basis[k * horizon + h];
+#pragma unroll
+      for (int r = 0; r < T; ++r) acc[r] = fmaf(gc[r * nc + k], b, acc[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < T; ++r) {
+      if (r < n_rows) z[r * hu + c] = acc[r];
+    }
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, n_warps = nt / 32;
+  const float n = static_cast<float>(hu);
+  for (int r = warp; r < n_rows; r += n_warps) {
+    float* zr = z + r * hu;
+    float s = 0.f;
+#pragma unroll 4
+    for (int c = lane; c < hu; c += 32) s = __fadd_rn(s, zr[c]);
+    const float mu = __fdiv_rn(warp_sum(s), n);
+    float q = 0.f;
+#pragma unroll 4
+    for (int c = lane; c < hu; c += 32) {
+      const float d = __fsub_rn(zr[c], mu);
+      q = fmaf(d, d, q);
+    }
+    const float sd = sqrtf(fmaxf(__fdiv_rn(warp_sum(q), n), 0.f));
+    const float denom = __fadd_rn(sd, 1e-8f);
+#pragma unroll 4
+    for (int c = lane; c < hu; c += 32) zr[c] = clip2(__fdiv_rn(zr[c], denom));
+  }
+  __syncthreads();
+}
+
 // K4's options, one warp per row of the tile: turns the z block in `acts` [T][H*U] into the
 // actions the rollout takes (clipped to the bounds, or the injected candidate), stores them to
 // actions_out [H, rows, U], and writes the row's penalty and dot.
@@ -247,7 +359,7 @@ __device__ __forceinline__ void form_actions(float* acts, int row0, int agents, 
 
 // Rows of K4's prologue at a time: the tile is drawn in sub-tiles of this many rows, so that its
 // scratch (z, the colored draw's normals, the basis) does not grow with the tile.
-__host__ __device__ constexpr int draw_rows(int tile) { return tile % 8 == 0 ? 8 : 4; }
+__host__ __device__ constexpr int draw_sub_tile(int tile) { return tile % 8 == 0 ? 8 : 4; }
 
 // The action of row `row`, flat column c = h*U + u, from its agent's mean/std. Where `store`,
 // also written to actions_out [H, rows, U].
@@ -266,8 +378,8 @@ __device__ __forceinline__ float draw_action(int row, int c, int hu, int agents,
 }
 
 // K4's prologue: the tile's actions, all H steps of them, into actions_out [H, rows, U] (and
-// with options the penalty and the dot). The tile is drawn in sub-tiles of draw_rows(T) rows,
-// which the CTAs of the cluster share out; nothing of it stays in shared memory, and the H
+// with options the penalty and the dot). The tile is drawn in sub-tiles of draw_sub_tile(T)
+// rows, which the CTAs of the cluster share out; nothing of it stays in shared memory, and the H
 // loop reads step t's [T, U] back from actions_out (they are in L2). `scratch` is the CTA's
 // whole shared memory, free before the H loop: z [TS][H*U], then with the colored draw its
 // normals [TS][n_cols] and, if kept in shared memory, the [2F][H] basis.
@@ -277,7 +389,7 @@ __device__ __forceinline__ void sample_tile(float* scratch, int row0, int rank, 
                                             const float* __restrict__ std, const Keys& keys,
                                             const Features& f, float* actions_out,
                                             const Problem& p) {
-  constexpr int TS = draw_rows(T);
+  constexpr int TS = draw_sub_tile(T);
   static_assert(T % TS == 0, "the tile is a whole number of draw sub-tiles");
   const int hu = p.horizon * p.dim_u;
   if constexpr (kFlagged) {
@@ -359,109 +471,221 @@ fused_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ mea
   if (n_ctas > 1) cluster.sync();
 }
 
-// Pass 1 of K6: partial[chunk][0|1][a*hu + c] = sum over p in the chunk of w * x and w * x^2,
-// x = std[a, c] * z(row = p*A + a, c).
-__global__ void __launch_bounds__(kMomentThreads)
-elite_partial_kernel(const float* __restrict__ std, const float* __restrict__ weight,
-                     const int* __restrict__ seed, int population, int agents, int hu, int chunk,
-                     float* __restrict__ partial) {
-  const int n = agents * hu;
-  const int idx = blockIdx.y * kMomentThreads + threadIdx.x;
-  if (idx >= n) return;
-  const int a = idx / hu, c = idx % hu;
-  const Keys keys = make_keys(seed);
-  const float sd = std[idx];
-  const int p0 = blockIdx.x * chunk;
-  const int p1 = min(population, p0 + chunk);
-  float sum = 0.f, sumsq = 0.f;
-  for (int p = p0; p < p1; ++p) {
-    const int row = p * agents + a;
-    const float w = weight[row];
-    const float x = sd * normal_z(static_cast<uint32_t>(row) * static_cast<uint32_t>(hu) +
-                                      static_cast<uint32_t>(c),
-                                  keys);
-    sum += w * x;
-    sumsq += w * (x * x);
-  }
-  float* out = partial + (long long)blockIdx.x * 2 * n;
-  out[idx] = sum;
-  out[n + idx] = sumsq;
+// K6: the rank-th of kMomentCluster contiguous spans of the population, [p0, p1). The K6
+// kernels are launched in clusters of kMomentCluster CTAs.
+struct Span {
+  int p0, p1;
+};
+
+__device__ __forceinline__ Span population_span(int population, int rank) {
+  return Span{static_cast<int>((long long)population * rank / kMomentCluster),
+              static_cast<int>((long long)population * (rank + 1) / kMomentCluster)};
 }
 
-// Pass 1 of K6 with any option: one CTA per (chunk, agent) regenerates the agent's rows of the
-// chunk, T at a time, through gen_z_tile; thread t owns the columns t, t + blockDim, ... and
-// adds the rows to them in order. Writes the same partial layout as elite_partial_kernel.
+// K6: the CTAs' values at `x` in their shared memory, added in rank order. All loads are
+// issued before the first add.
+__device__ __forceinline__ float sum_over_ranks(cg::cluster_group& cluster, float* x) {
+  float v[kMomentCluster];
+#pragma unroll
+  for (int r = 0; r < kMomentCluster; ++r) v[r] = *cluster.map_shared_rank(x, r);
+  float sum = 0.f;
+#pragma unroll
+  for (int r = 0; r < kMomentCluster; ++r) sum = __fadd_rn(sum, v[r]);
+  return sum;
+}
+
+// K6: compacts the population indices p of [c0, min(c0 + blockDim, p1)) whose weight (of row
+// p * agents + a) is not 0, +0 or -0, into sel/selw, in increasing order: a ballot per warp,
+// then a prefix over the warps' counts. Returns their count. Starts and ends with a barrier.
+__device__ __forceinline__ int compact_weighted(int c0, int p1, const float* __restrict__ weight,
+                                                int agents, int a, int* sel, float* selw,
+                                                int* counts) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, n_warps = blockDim.x / 32;
+  const int p = c0 + static_cast<int>(threadIdx.x);
+  const float w = p < p1 ? weight[(long long)p * agents + a] : 0.f;
+  const bool keep = w != 0.f;
+  const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+  __syncthreads();  // the previous chunk's sel and counts are read
+  if (lane == 0) counts[warp] = __popc(ballot);
+  __syncthreads();
+  int before = 0, total = 0;
+  for (int k = 0; k < n_warps; ++k) {
+    before += k < warp ? counts[k] : 0;
+    total += counts[k];
+  }
+  if (keep) {
+    const int i = before + __popc(ballot & ((1u << lane) - 1u));
+    sel[i] = p;
+    selw[i] = w;
+  }
+  __syncthreads();
+  return total;
+}
+
+// K6 where z is drawn per element (white or uniform; with or without the clip and injected
+// rows): a cluster per (agent, block of kMomentCols columns), see the note at the top.
+__global__ void __launch_bounds__(kMomentThreads)
+moments_cols_kernel(const float* __restrict__ mean, const float* __restrict__ std,
+                    const float* __restrict__ weight, const int* __restrict__ seed,
+                    int population, int agents, int horizon, int dim_u, Features f,
+                    float* __restrict__ sum_out, float* __restrict__ sumsq_out) {
+  __shared__ int sel[kMomentThreads];
+  __shared__ float selw[kMomentThreads];
+  __shared__ int counts[kMomentWarps];
+  __shared__ float part[kMomentWarps][2][kMomentCols];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = cluster.block_rank();
+  const int hu = horizon * dim_u;
+  const int col_blocks = (hu + kMomentCols - 1) / kMomentCols;
+  const int id = blockIdx.x / kMomentCluster;
+  const int a = id / col_blocks;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int col = (id % col_blocks) * kMomentCols + lane;
+  const int c = min(col, hu - 1);  // a lane past the last column draws it again, unused
+  const float sd = std[a * hu + c];
+  const float m = mean != nullptr ? mean[a * hu + c] : 0.f;
+  const float lo = f.clip != nullptr ? f.clip[c % dim_u] : 0.f;
+  const float hi = f.clip != nullptr ? f.clip[dim_u + c % dim_u] : 0.f;
+  const int fresh = population - f.extra_slots;
+  const Keys keys = make_keys(seed);
+  const Span span = population_span(population, rank);
+  float sum = 0.f, sumsq = 0.f;
+  for (int c0 = span.p0; c0 < span.p1; c0 += kMomentThreads) {
+    const int n = compact_weighted(c0, span.p1, weight, agents, a, sel, selw, counts);
+#pragma unroll 4
+    for (int i = warp; i < n; i += kMomentWarps) {
+      const int p = sel[i];
+      float x;
+      if (f.extra != nullptr && p >= fresh) {
+        x = __fsub_rn(f.extra[((long long)(p - fresh) * agents + a) * hu + c], m);
+      } else {
+        const uint32_t row =
+            static_cast<uint32_t>(p) * static_cast<uint32_t>(agents) + static_cast<uint32_t>(a);
+        const uint32_t counter = row * static_cast<uint32_t>(hu) + static_cast<uint32_t>(c);
+        const float z = f.sampling == kUniform
+                            ? __fadd_rn(__fmul_rn(2.0f, uniform01(counter, keys.k1)), -1.0f)
+                            : normal_z(counter, keys);
+        x = __fmul_rn(sd, z);
+        if (f.clip != nullptr) x = __fsub_rn(fminf(fmaxf(__fadd_rn(m, x), lo), hi), m);
+      }
+      const float w = selw[i];
+      sum = fmaf(w, x, sum);
+      sumsq = fmaf(w, __fmul_rn(x, x), sumsq);
+    }
+  }
+  part[warp][0][lane] = sum;
+  part[warp][1][lane] = sumsq;
+  __syncthreads();
+  const int k = threadIdx.x / kMomentCols, l = threadIdx.x % kMomentCols;
+  if (threadIdx.x < 2 * kMomentCols) {
+    float v = 0.f;
+    for (int w = 0; w < kMomentWarps; ++w) v = __fadd_rn(v, part[w][k][l]);
+    part[0][k][l] = v;
+  }
+  cluster.sync();
+  if (rank == 0 && threadIdx.x < 2 * kMomentCols) {
+    const float v = sum_over_ranks(cluster, &part[0][k][l]);
+    const int out_col = (id % col_blocks) * kMomentCols + l;
+    if (out_col < hu) (k == 0 ? sum_out : sumsq_out)[a * hu + out_col] = v;
+  }
+  cluster.sync();  // no CTA leaves while rank 0 reads its sums
+}
+
+// K6 with the colored draw: a cluster per agent; each CTA draws its span's rows of weight T at
+// a time through draw_z_rows and adds each column over them in order, see the note at the top.
 template <int T>
 __global__ void __launch_bounds__(kMomentThreads)
-elite_partial_rows_kernel(const float* __restrict__ mean, const float* __restrict__ std,
-                          const float* __restrict__ weight, const int* __restrict__ seed,
-                          int population, int agents, int horizon, int dim_u, int chunk,
-                          Features f, float* __restrict__ partial) {
+moments_rows_kernel(const float* __restrict__ mean, const float* __restrict__ std,
+                    const float* __restrict__ weight, const int* __restrict__ seed,
+                    int population, int agents, int horizon, int dim_u, Features f,
+                    float* __restrict__ sum_out, float* __restrict__ sumsq_out) {
   extern __shared__ float4 smem4[];
+  __shared__ int sel[kMomentThreads];
+  __shared__ float selw[kMomentThreads];
+  __shared__ int counts[kMomentWarps];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = cluster.block_rank();
   const int hu = horizon * dim_u;
   float* z = reinterpret_cast<float*>(smem4);  // [T][H*U]
   float* acc = z + T * hu;                     // [2][H*U]
-  float* g = acc + 2 * hu;                     // [T][n_cols] (colored)
+  float* g = acc + 2 * hu;                     // [T][n_cols]
   const float* basis = f.basis;
   if (f.basis_in_smem) {
     float* b = g + T * f.n_cols;
-    for (int i = threadIdx.x; i < f.two_f * horizon; i += kMomentThreads) b[i] = f.basis[i];
+    copy_to_shared(b, f.basis, f.two_f * horizon);
     basis = b;
   }
-  for (int c = threadIdx.x; c < 2 * hu; c += kMomentThreads) acc[c] = 0.f;
-  const int a = blockIdx.y;
-  const int p0 = blockIdx.x * chunk;
-  const int p1 = min(population, p0 + chunk);
+  for (int c = threadIdx.x; c < 2 * hu; c += blockDim.x) acc[c] = 0.f;
+  const int a = blockIdx.x / kMomentCluster;
   const int fresh = population - f.extra_slots;
   const Keys keys = make_keys(seed);
-  for (int pt = p0; pt < p1; pt += T) {
-    const int n_rows = min(T, p1 - pt);
-    gen_z_tile<T>(z, g, basis, f, horizon, dim_u, static_cast<uint32_t>(pt * agents + a),
-                  static_cast<uint32_t>(agents), n_rows, keys);
-    for (int c = threadIdx.x; c < hu; c += kMomentThreads) {
-      const float m = mean != nullptr ? mean[a * hu + c] : 0.f;
-      const float sd = std[a * hu + c];
-      float sum = acc[c], sumsq = acc[hu + c];
-      for (int r = 0; r < n_rows; ++r) {
-        const int pi = pt + r;
-        const float w = weight[pi * agents + a];
-        float x = __fmul_rn(sd, z[r * hu + c]);
-        if (f.clip != nullptr) {
-          const int u = c % dim_u;
-          x = __fsub_rn(fminf(fmaxf(__fadd_rn(m, x), f.clip[u]), f.clip[dim_u + u]), m);
+  const Span span = population_span(population, rank);
+  const int* rows = sel;
+  for (int c0 = span.p0; c0 < span.p1; c0 += kMomentThreads) {
+    const int n = compact_weighted(c0, span.p1, weight, agents, a, sel, selw, counts);
+    for (int t0 = 0; t0 < n; t0 += T) {
+      const int n_rows = min(T, n - t0);
+      draw_z_rows<T>(
+          z, g, basis, f, horizon, dim_u,
+          [=](int r) {
+            return static_cast<uint32_t>(rows[t0 + r]) * static_cast<uint32_t>(agents) +
+                   static_cast<uint32_t>(a);
+          },
+          n_rows, keys);
+      for (int c = threadIdx.x; c < hu; c += blockDim.x) {
+        const float m = mean != nullptr ? mean[a * hu + c] : 0.f;
+        const float sd = std[a * hu + c];
+        float sum = acc[c], sumsq = acc[hu + c];
+        for (int r = 0; r < n_rows; ++r) {
+          const int p = sel[t0 + r];
+          float x = __fmul_rn(sd, z[r * hu + c]);
+          if (f.clip != nullptr) {
+            const int u = c % dim_u;
+            x = __fsub_rn(fminf(fmaxf(__fadd_rn(m, x), f.clip[u]), f.clip[dim_u + u]), m);
+          }
+          if (f.extra != nullptr && p >= fresh) {
+            x = __fsub_rn(f.extra[((long long)(p - fresh) * agents + a) * hu + c], m);
+          }
+          sum = fmaf(selw[t0 + r], x, sum);
+          sumsq = fmaf(selw[t0 + r], __fmul_rn(x, x), sumsq);
         }
-        if (f.extra != nullptr && pi >= fresh) {
-          x = __fsub_rn(f.extra[((long long)(pi - fresh) * agents + a) * hu + c], m);
-        }
-        sum += w * x;
-        sumsq += w * (x * x);
+        acc[c] = sum;
+        acc[hu + c] = sumsq;
       }
-      acc[c] = sum;
-      acc[hu + c] = sumsq;
+      __syncthreads();  // z is free for the next rows
     }
-    __syncthreads();
   }
-  const int n = agents * hu;
-  float* out = partial + (long long)blockIdx.x * 2 * n;
-  for (int c = threadIdx.x; c < hu; c += kMomentThreads) {
-    out[a * hu + c] = acc[c];
-    out[n + a * hu + c] = acc[hu + c];
+  cluster.sync();
+  if (rank == 0) {
+    for (int i = threadIdx.x; i < 2 * hu; i += blockDim.x) {
+      (i < hu ? sum_out : sumsq_out)[a * hu + i % hu] = sum_over_ranks(cluster, acc + i);
+    }
   }
+  cluster.sync();  // no CTA leaves while rank 0 reads its sums
 }
 
-// Pass 2 of K6: the chunks in order.
-__global__ void __launch_bounds__(kMomentThreads)
-elite_final_kernel(const float* __restrict__ partial, int n_chunks, int n,
-                   float* __restrict__ sum_out, float* __restrict__ sumsq_out) {
-  const int idx = blockIdx.x * kMomentThreads + threadIdx.x;
-  if (idx >= n) return;
-  float sum = 0.f, sumsq = 0.f;
-  for (int k = 0; k < n_chunks; ++k) {
-    sum += partial[(long long)k * 2 * n + idx];
-    sumsq += partial[(long long)k * 2 * n + n + idx];
+// K3 alone: z_out [n, H*U] of the rows row_ids[0..n), kDrawTile rows per CTA, with K4's bits.
+__global__ void __launch_bounds__(kDrawThreads)
+draw_rows_kernel(const int* __restrict__ seed, const int* __restrict__ row_ids, int n,
+                 int horizon, int dim_u, Features f, float* __restrict__ z_out) {
+  extern __shared__ float4 smem4[];
+  const int hu = horizon * dim_u;
+  float* z = reinterpret_cast<float*>(smem4);  // [kDrawTile][H*U]
+  float* g = z + kDrawTile * hu;               // [kDrawTile][n_cols] (colored)
+  const float* basis = f.basis;
+  if (f.basis_in_smem) {
+    float* b = g + kDrawTile * f.n_cols;
+    copy_to_shared(b, f.basis, f.two_f * horizon);
+    basis = b;
   }
-  sum_out[idx] = sum;
-  sumsq_out[idx] = sumsq;
+  const int i0 = blockIdx.x * kDrawTile;
+  const int n_rows = min(kDrawTile, n - i0);
+  draw_z_rows<kDrawTile>(
+      z, g, basis, f, horizon, dim_u,
+      [=](int r) { return static_cast<uint32_t>(row_ids[i0 + r]); }, n_rows, make_keys(seed));
+  for (int i = threadIdx.x; i < n_rows * hu; i += blockDim.x) {
+    z_out[(long long)i0 * hu + i] = z[i];
+  }
 }
 
 // Scratch above which the kernels read the colored basis from global memory instead of a copy
@@ -527,8 +751,10 @@ cudaError_t launch(const RolloutArgs& a, Features f, Occupancy* occ) {
   size_t smem = step_bytes<T, W>(net, a.p.dim_s, slots).tail;
   if (!kStreamed) {
     // The prologue's scratch lies over the step's buffers.
-    size_t scratch = sizeof(float) * draw_rows(T) * a.p.horizon * a.p.dim_u;
-    if (kFlagged) scratch += option_floats(&f, scratch, draw_rows(T), a.p.horizon) * sizeof(float);
+    size_t scratch = sizeof(float) * draw_sub_tile(T) * a.p.horizon * a.p.dim_u;
+    if (kFlagged) {
+      scratch += option_floats(&f, scratch, draw_sub_tile(T), a.p.horizon) * sizeof(float);
+    }
     if (scratch > smem) smem = scratch;
   }
   return launch_clusters(fused_rollout_kernel<T, W, kStreamed, kFlagged>, a.p.rows / T, n_ctas,
@@ -652,16 +878,14 @@ int bbmpc_fused_occupancy(int rows, int horizon, int dim_s, int dim_u, int ensem
 // weight[row] * x^2, row = p * agents + a, weight [population * agents], where x is the
 // centered sample: std[a] * z(row); with `clip` [2, U], clip(mean[a] + std[a] * z) - mean[a];
 // on the last `extra_slots` population indices, extra - mean[a]. `sampling`, `n_cols`, `two_f`
-// and `basis` are as in bbmpc_fused_rollout; `mean` may be NULL without clip and extra.
-// `partial` is scratch of ceil(population / chunk) * 2 * agents * H*U floats.
+// and `basis` are as in bbmpc_fused_rollout; `mean` may be NULL without clip and extra. One
+// launch; rows of weight 0 are not drawn.
 int bbmpc_elite_moments(const float* mean, const float* std, const float* weight,
-                        const int* seed, float* partial, float* sum_out, float* sumsq_out,
-                        int population, int agents, int horizon, int dim_u, int chunk,
-                        int sampling, int n_cols, int two_f, const float* basis,
-                        const float* extra, int extra_slots, const float* clip, void* stream) {
-  if (population < 1 || agents < 1 || horizon < 1 || dim_u < 1 || chunk < 1) {
-    return cudaErrorInvalidValue;
-  }
+                        const int* seed, float* sum_out, float* sumsq_out, int population,
+                        int agents, int horizon, int dim_u, int sampling, int n_cols, int two_f,
+                        const float* basis, const float* extra, int extra_slots,
+                        const float* clip, void* stream) {
+  if (population < 1 || agents < 1 || horizon < 1 || dim_u < 1) return cudaErrorInvalidValue;
   Features f{sampling, n_cols,     two_f, 0,       basis,   extra,
              extra_slots, population, clip,  nullptr, nullptr, nullptr};
   if (!valid(f, horizon, dim_u, population) ||
@@ -670,27 +894,41 @@ int bbmpc_elite_moments(const float* mean, const float* std, const float* weight
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int hu = horizon * dim_u;
-  const int n = agents * hu;
-  const int n_chunks = (population + chunk - 1) / chunk;
-  const int col_blocks = (n + kMomentThreads - 1) / kMomentThreads;
-  cudaError_t err;
-  if (flagged(f)) {
-    if (agents > 65535) return cudaErrorInvalidValue;
-    size_t smem = (size_t)(kMomentTile + 2) * hu * sizeof(float);
+  if (f.sampling == kColored) {
+    size_t smem = sizeof(float) * (kMomentTile + 2) * hu;
     smem += option_floats(&f, smem, kMomentTile, horizon) * sizeof(float);
-    auto kern = elite_partial_rows_kernel<kMomentTile>;
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    kern<<<dim3(n_chunks, agents), kMomentThreads, smem, s>>>(
-        mean, std, weight, seed, population, agents, horizon, dim_u, chunk, f, partial);
-  } else {
-    elite_partial_kernel<<<dim3(n_chunks, col_blocks), kMomentThreads, 0, s>>>(
-        std, weight, seed, population, agents, hu, chunk, partial);
+    return launch_clusters(moments_rows_kernel<kMomentTile>, agents, kMomentCluster,
+                           kMomentThreads, smem, s, nullptr, mean, std, weight, seed, population,
+                           agents, horizon, dim_u, f, sum_out, sumsq_out);
   }
-  err = cudaGetLastError();
+  const int col_blocks = (hu + kMomentCols - 1) / kMomentCols;
+  return launch_clusters(moments_cols_kernel, agents * col_blocks, kMomentCluster,
+                         kMomentThreads, 0, s, nullptr, mean, std, weight, seed, population,
+                         agents, horizon, dim_u, f, sum_out, sumsq_out);
+}
+
+// K3 alone. z_out [n, H*U] = the draws of the rows row_ids [n] (int32, row = p * agents + a)
+// under `seed` [1], as K4 draws them: `sampling`, `n_cols`, `two_f` and `basis` as in
+// bbmpc_fused_rollout.
+int bbmpc_draw_rows(const int* seed, const int* row_ids, float* z_out, int n, int horizon,
+                    int dim_u, int sampling, int n_cols, int two_f, const float* basis,
+                    void* stream) {
+  Features f{};
+  f.sampling = sampling;
+  f.n_cols = n_cols;
+  f.two_f = two_f;
+  f.basis = basis;
+  if (n < 1 || horizon < 1 || dim_u < 1 || !valid(f, horizon, dim_u, 0)) {
+    return cudaErrorInvalidValue;
+  }
+  size_t smem = sizeof(float) * kDrawTile * horizon * dim_u;
+  smem += option_floats(&f, smem, kDrawTile, horizon) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(draw_rows_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  elite_final_kernel<<<col_blocks, kMomentThreads, 0, s>>>(partial, n_chunks, n, sum_out,
-                                                           sumsq_out);
+  draw_rows_kernel<<<(n + kDrawTile - 1) / kDrawTile, kDrawThreads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(seed, row_ids, n, horizon, dim_u, f,
+                                                          z_out);
   return cudaGetLastError();
 }
 

@@ -9,7 +9,8 @@ regenerates the same draws to reduce the weighted moments.
   ``_mirror_z``, ``_colored_basis2``): here in torch, in int64 masked to 32 bits, the same
   integers as the JAX package's uint32 stream bit for bit; in ``ops/csrc/fused_cem.cu`` as
   device functions. Three samplings: white clipped normal, iCEM colored noise (normals pushed
-  through a spectral basis, unit std per row, clipped) and uniform in (-1, 1).
+  through a spectral basis, unit std per row, clipped) and uniform in (-1, 1). On its own,
+  :func:`draw_rows` draws a list of rows (the JAX package's ``_mirror_z``), with K4's bits.
 * K4 :func:`fused_rollout` and K5 :func:`fused_rollout_streamed` (``kernel_a``,
   ``kernel_a_streamed``): sample + roll out, returning the visited states and the actions
   rolled out, time-major. The caller applies its torch ``reward_fn`` to them (a CUDA library
@@ -17,7 +18,8 @@ regenerates the same draws to reduce the weighted moments.
   sampling, a bounds clip with its squared-violation penalty, injected candidates in the last
   population slots, and the MPPI dot ``<gvec, centered>``.
 * K6 :func:`elite_moments` (``kernel_b``): regenerate + weighted centered moments, with the
-  same :class:`Features` (centered after the clip; injected rows contribute ``extra - mean``).
+  same :class:`Features` (centered after the clip; injected rows contribute ``extra - mean``);
+  the kernel draws only the rows whose weight is not 0.
 
 Each wrapper takes its plain version for a tensor on the CPU; for a CUDA tensor it launches its
 kernel or raises, and adds one to its ``launches`` where it launches. What bounds each kernel
@@ -50,9 +52,10 @@ from blackbox_mpc_torch.solvers.pi2 import check_config as check_pi2_config
 from blackbox_mpc_torch.solvers.random_search import RandomSearchConfig, RandomSearchState
 
 __all__ = [
-    "Features", "draw_seed", "elite_moments", "elite_moments_plain", "fused_occupancy",
-    "fused_rollout", "fused_rollout_plain", "fused_rollout_streamed", "make_fused_cem",
-    "make_fused_cem_kernels", "make_fused_pi2", "make_fused_random_search", "make_fused_sep_cma",
+    "Features", "draw_rows", "draw_seed", "elite_moments", "elite_moments_plain",
+    "fused_occupancy", "fused_rollout", "fused_rollout_plain", "fused_rollout_streamed",
+    "make_fused_cem", "make_fused_cem_kernels", "make_fused_pi2", "make_fused_random_search",
+    "make_fused_sep_cma",
 ]
 
 _M32 = 0xFFFFFFFF
@@ -61,9 +64,6 @@ _SEED2_OFFSET = 0x632BE5AB  # Box-Muller's second uniform
 # 2 pi rounded to float32: JAX multiplies a float32 by the weak-typed Python float, which rounds
 # the constant to float32 first.
 _TWO_PI = float(np.float32(2.0 * np.pi))
-# K6 reduces chunks of at least this many population indices, and at most this many chunks.
-MOMENT_CHUNK = 8
-MAX_MOMENT_CHUNKS = 256
 # E[clip(z, -2, 2)^2] for z ~ N(0, 1): the fused family samples clipped (not resampled) normals,
 # so raw second moments are deflated by this factor against the N(0, 1) that the Hansen
 # constants assume.
@@ -122,12 +122,23 @@ def _colored_basis2(horizon: int, dim_u: int, beta: float) -> np.ndarray:
     ``solvers.base.colored_noise``: the ``[2F, H]`` basis of
     :func:`base.colored_synthesis_basis`, once per action dim (rows ``u*2F + k``, columns
     ``h*U + u``). The plain version multiplies by it; the kernels contract the block."""
-    nfreq = horizon // 2 + 1
-    basis = base.colored_synthesis_basis(horizon, beta)
-    big = np.zeros((dim_u * 2 * nfreq, horizon * dim_u), np.float32)
+    block = base.colored_synthesis_basis(horizon, beta).astype(np.float32)
+    return _dense_basis(torch.as_tensor(block), dim_u).numpy()
+
+
+def _basis_block(basis2: torch.Tensor, dim_u: int) -> torch.Tensor:
+    """The ``[2F, H]`` block of the dense ``[U*2F, H*U]`` basis, what the kernels contract."""
+    return basis2[:basis2.shape[0] // dim_u, ::dim_u].contiguous()
+
+
+def _dense_basis(basis: torch.Tensor, dim_u: int) -> torch.Tensor:
+    """The dense ``[U*2F, H*U]`` basis of a ``[2F, H]`` block, laid out as
+    :func:`_colored_basis2` lays it out: what the plain versions multiply by."""
+    two_f, horizon = basis.shape
+    dense = basis.new_zeros((dim_u * two_f, horizon * dim_u))
     for u in range(dim_u):
-        big[u * 2 * nfreq:(u + 1) * 2 * nfreq, u::dim_u] = basis
-    return big
+        dense[u * two_f:(u + 1) * two_f, u::dim_u] = basis
+    return dense
 
 
 def _gen_z(counter: torch.Tensor, seed, basis2=None, sampling: str = "normal") -> torch.Tensor:
@@ -158,10 +169,9 @@ def _tile_counter(row0: int, t_rows: int, n_cols: int, device=None) -> torch.Ten
 def _mirror_z(seed, row_ids: torch.Tensor, n_flat: int, basis2=None,
               sampling: str = "normal") -> torch.Tensor:
     """The draws ``[N, n_flat]`` of arbitrary rows ``row_ids [N]``, from the kernels' counters
-    (``row * n_cols + col``, ``n_cols = U*2F`` when colored). The solvers use it to read
-    candidate values (carried elites, execute-best and argmax plans) without the population.
-    White and uniform draws equal the kernels' bit for bit; colored ones differ in the last
-    bits (another summation order), which only perturbs re-injected values."""
+    (``row * n_cols + col``, ``n_cols = U*2F`` when colored): the plain version of
+    :func:`draw_rows` and of the kernels' draws. White and uniform draws equal the kernels'
+    bit for bit; colored ones differ in the last bits (another summation order)."""
     n_cols = n_flat if basis2 is None else basis2.shape[0]
     cols = torch.arange(n_cols, dtype=torch.int64, device=row_ids.device)
     return _gen_z(row_ids.to(torch.int64)[:, None] * n_cols + cols, seed, basis2, sampling)
@@ -298,8 +308,10 @@ def _lib():
         lib.bbmpc_fused_rollout_streamed.restype = i
         lib.bbmpc_fused_occupancy.argtypes = [i] * 6 + [p] + [i] * 8 + [p]
         lib.bbmpc_fused_occupancy.restype = i
-        lib.bbmpc_elite_moments.argtypes = [p] * 7 + [i] * 8 + [p, p, i, p, p]
+        lib.bbmpc_elite_moments.argtypes = [p] * 6 + [i] * 7 + [p, p, i, p, p]
         lib.bbmpc_elite_moments.restype = i
+        lib.bbmpc_draw_rows.argtypes = [p] * 3 + [i] * 6 + [p, p]
+        lib.bbmpc_draw_rows.restype = i
         lib._bbmpc_typed = True
     return lib
 
@@ -487,8 +499,8 @@ def elite_moments(std: torch.Tensor, weights: torch.Tensor, seed: torch.Tensor,
                   mean: torch.Tensor | None = None, features: Features | None = None):
     """K6's wrapper: ``std [A, H*U]``, ``weights [P * A]`` (row ``p * A + a``; a 0/1 elite mask
     or any weights), ``seed [1]`` int32 -> ``(sum, sumsq)``, each ``[A, H*U]``. ``features``
-    with a clip or injected candidates need the sampling ``mean [A, H*U]``. CPU tensors take
-    :func:`elite_moments_plain`."""
+    with a clip or injected candidates need the sampling ``mean [A, H*U]``. One launch, which
+    draws only the rows whose weight is not 0. CPU tensors take :func:`elite_moments_plain`."""
     f = features or _NO_FEATURES
     if (f.clip is not None or f.extra is not None) and mean is None:
         raise ValueError("elite_moments needs mean with a bounds clip or injected candidates")
@@ -518,17 +530,13 @@ def elite_moments(std: torch.Tensor, weights: torch.Tensor, seed: torch.Tensor,
         raise ValueError(f"features.population ({f.population}) != population ({population})")
     code, n_cols, two_f, slots = _check_features(
         dataclasses.replace(f, gvec=None), agents, horizon, hu // horizon, device)
-    chunk = max(MOMENT_CHUNK, -(-population // MAX_MOMENT_CHUNKS))
-    partial = torch.empty((-(-population // chunk), 2, agents * hu), dtype=torch.float32,
-                          device=device)
     out = torch.empty((2, agents, hu), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = _lib().bbmpc_elite_moments(
-            _ptr(mean), std.data_ptr(), weights.data_ptr(), seed.data_ptr(), partial.data_ptr(),
-            out[0].data_ptr(), out[1].data_ptr(), population, agents, horizon, hu // horizon,
-            chunk, code, n_cols, two_f, _ptr(f.basis), _ptr(f.extra), slots, _ptr(f.clip),
-            stream,
+            _ptr(mean), std.data_ptr(), weights.data_ptr(), seed.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), population, agents, horizon, hu // horizon, code, n_cols, two_f,
+            _ptr(f.basis), _ptr(f.extra), slots, _ptr(f.clip), stream,
         )
     if err != 0:
         raise RuntimeError(f"elite_moments kernel launch failed: CUDA error {err}")
@@ -537,6 +545,52 @@ def elite_moments(std: torch.Tensor, weights: torch.Tensor, seed: torch.Tensor,
 
 
 elite_moments.launches = 0
+
+
+# ---------------------------------------------------------------- K3 on its own: rows by id
+
+
+def draw_rows(seed, row_ids: torch.Tensor, n_flat: int, basis: torch.Tensor | None = None,
+              sampling: str = "normal") -> torch.Tensor:
+    """K3's wrapper: the draws ``z [N, n_flat]`` of the rows ``row_ids [N]`` (row
+    ``p * A + a``) under ``seed``, with the bits K4 drew them with: clipped normals,
+    ``sampling="uniform"``, or colored through the kernels' ``[2F, H]`` basis block ``basis``.
+    The solvers read candidate values with it (carried elites, the execute-best plan,
+    RandomSearch's argmax) without the population. ``seed`` is an int32 ``[1]`` tensor on the
+    rows' device, or an int with CPU rows. CPU tensors take :func:`_mirror_z`; CUDA ones launch
+    the kernel."""
+    on_cpu = not torch.is_tensor(seed) or seed.device.type == "cpu"
+    if on_cpu != (row_ids.device.type == "cpu"):
+        raise ValueError(f"draw_rows: row_ids is on {row_ids.device}, the seed on "
+                         f"{seed.device if torch.is_tensor(seed) else 'cpu'}")
+    if on_cpu:
+        dense = None if basis is None else _dense_basis(basis, n_flat // basis.shape[1])
+        return _mirror_z(seed, row_ids, n_flat, dense, sampling)
+    device = _check_cuda(seed, "draw_rows")
+    rk.check_tensor(seed, "seed", torch.int32, (1,), device)
+    if row_ids.device != device or row_ids.dim() != 1 or row_ids.numel() == 0:
+        raise ValueError(f"row_ids must be [N > 0] on {device}, got {tuple(row_ids.shape)} on "
+                         f"{row_ids.device}")
+    horizon = n_flat if basis is None else basis.shape[1]
+    if n_flat < 1 or n_flat % horizon:
+        raise ValueError(f"n_flat ({n_flat}) is no multiple of the basis' horizon ({horizon})")
+    code, n_cols, two_f, _ = _check_features(Features(sampling=sampling, basis=basis), 1,
+                                             horizon, n_flat // horizon, device)
+    rows = row_ids.to(torch.int32).contiguous()
+    z = torch.empty((rows.numel(), n_flat), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = _lib().bbmpc_draw_rows(
+            seed.data_ptr(), rows.data_ptr(), z.data_ptr(), rows.numel(), horizon,
+            n_flat // horizon, code, n_cols, two_f, _ptr(basis),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"draw_rows kernel launch failed: CUDA error {err}")
+    draw_rows.launches += 1
+    return z
+
+
+draw_rows.launches = 0
 
 
 # ---------------------------------------------------------------- the solver-facing pair
@@ -590,9 +644,9 @@ def make_fused_cem_kernels(
     (``rk.TILE_TS1``).
 
     ``colored_noise_beta > 0`` draws iCEM colored candidates (z still clipped at +/-2);
-    ``rollout_rewards.basis2`` is the matrix they are colored with (None if white), for
-    :func:`_mirror_z`. ``extra_slots > 0`` reserves the last population indices for injected
-    candidates ``extra [extra_slots * A, H*U]`` (slot e, agent a at row ``e * A + a``).
+    ``rollout_rewards.basis2`` is the matrix they are colored with (None if white).
+    ``extra_slots > 0`` reserves the last population indices for injected candidates
+    ``extra [extra_slots * A, H*U]`` (slot e, agent a at row ``e * A + a``).
     ``sampling="uniform"`` draws z ~ U(-1, 1). ``clip_bounds=(lower [U], upper [U])`` clips
     the candidates in both kernels and subtracts the squared violation from the rewards.
     ``aux_dot=True`` makes ``rollout_rewards`` return ``(rewards, dots [P, A])`` with
@@ -654,7 +708,7 @@ def make_fused_cem_kernels(
             clip = torch.as_tensor(np.stack([np.asarray(b, np.float32).reshape(dim_u)
                                              for b in clip_bounds]), device=device)
         on_device = basis2.to(device) if colored else None
-        block = on_device[:n_cols // dim_u, ::dim_u].contiguous() if colored else None
+        block = _basis_block(on_device, dim_u) if colored else None
         return Features(sampling=sampling, basis2=on_device, basis=block, clip=clip,
                         population=population if extra_slots else 0)
 
@@ -758,7 +812,7 @@ def make_fused_cem(
 
     The iCEM options: ``colored_noise_beta`` colors the draws inside the kernels;
     ``mean_as_candidate`` and ``keep_elites`` fill the kernels' injected slots (the clipped
-    mean first, then the carried elites), whose values :func:`_mirror_z` regenerates from the
+    mean first, then the carried elites), whose values :func:`draw_rows` draws again from the
     elite indices; ``population_decay`` builds one kernel pair per distinct population;
     ``execute_best`` acts with the best candidate seen over all iterations.
     """
@@ -785,9 +839,10 @@ def make_fused_cem(
     kernels_by_pop = {pop: build_kernels(pop)}
     for pop_i in set(pops) - {pop}:
         kernels_by_pop[pop_i] = build_kernels(pop_i)
-    # The mirror must color with the matrix the kernels color with.
+    # draw_rows colors with the block of the matrix the kernels color with.
     basis2 = getattr(kernels_by_pop[pop][0], "basis2", None)
-    basis2_on = _per_device(lambda device: None if basis2 is None else basis2.to(device))
+    basis_on = _per_device(
+        lambda device: None if basis2 is None else _basis_block(basis2.to(device), bounds.dim))
     n_extract = max(keep, 1 if execute_best else 0)
     current = _current(dp)
 
@@ -799,11 +854,11 @@ def make_fused_cem(
         )
 
     def extract_values(seed, mean_f, std_f, idx, extra, fresh_i):
-        """Elite values ``[A, n, H*U]`` of the population indices ``idx [A, n]``: the mirror
-        regenerates those rows; injected slots (index >= ``fresh_i``) read ``extra`` back."""
+        """Elite values ``[A, n, H*U]`` of the population indices ``idx [A, n]``: K3 draws
+        those rows again; injected slots (index >= ``fresh_i``) read ``extra`` back."""
         agent_ids = torch.arange(agents, device=idx.device)
         row_ids = (idx * agents + agent_ids[:, None]).reshape(-1)  # row = p * A + a
-        z = _mirror_z(seed, row_ids, n_flat, basis2_on(idx.device)).reshape(agents, -1, n_flat)
+        z = draw_rows(seed, row_ids, n_flat, basis_on(idx.device)).reshape(agents, -1, n_flat)
         vals = mean_f[:, None, :] + std_f[:, None, :] * z
         if extra_slots:
             slot = torch.clamp(idx - fresh_i, 0, extra_slots - 1)
@@ -822,8 +877,9 @@ def make_fused_cem(
         carried = None
         if keep:
             # Placeholders sampled around the incoming plan, through the counter RNG.
-            z0 = _mirror_z(draw_seed(generator), torch.arange(keep * agents, device=device),
-                           n_flat, basis2_on(device))
+            z0 = draw_rows(draw_seed(generator),
+                           torch.arange(keep * agents, dtype=torch.int32, device=device), n_flat,
+                           basis_on(device))
             carried = (mean.reshape(agents, n_flat)[:, None]
                        + torch.sqrt(var).reshape(agents, n_flat)[:, None]
                        * z0.reshape(keep, agents, n_flat).transpose(0, 1))  # [A, keep, n]
@@ -965,7 +1021,7 @@ def make_fused_random_search(
 ) -> Solver:
     """RandomSearch over the fused kernels: K4 draws uniform-in-bounds candidates
     (``sampling="uniform"`` around the midpoint with the half range as std) and only the
-    rewards ``[P, A]`` come back; :func:`_mirror_z` regenerates the per-agent argmax row."""
+    rewards ``[P, A]`` come back; :func:`draw_rows` draws the per-agent argmax row again."""
     if config.time_major:
         raise NotImplementedError(
             "RandomSearchConfig.time_major=True is not ported yet (ROADMAP Queue 1 item 4: "
@@ -997,7 +1053,7 @@ def make_fused_random_search(
         rewards = _nan_guard(rollout_rewards(current(), obs, mid, half, seed))  # [P, A]
         best_idx = torch.argmax(rewards, dim=0)  # [A]
         agent_ids = torch.arange(agents, device=obs.device)
-        z = _mirror_z(seed, best_idx * agents + agent_ids, n_flat, sampling="uniform")
+        z = draw_rows(seed, best_idx * agents + agent_ids, n_flat, sampling="uniform")
         best_plan = (mid.reshape(agents, n_flat) + half.reshape(agents, n_flat) * z).reshape(
             agents, horizon, bounds.dim)
         aux = SolverAux(expected_reward=rewards[best_idx, agent_ids], plan=best_plan)

@@ -1,5 +1,5 @@
-"""Times the rollout kernels (K2, K4, K5) at the flagship shape on one NVIDIA GPU: the tile
-sweep behind ``TILE_MEAN``/``TILE_TS1`` and the comparison of two source trees in turns.
+"""Times the kernels at the flagship shape on one NVIDIA GPU: the tile sweep behind
+``TILE_MEAN``/``TILE_TS1`` and the comparison of two source trees in turns.
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``::
 
@@ -11,6 +11,10 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``::
 the current directory) and prints one JSON line: per case the kernel's ms per launch, its
 occupancy where the tree reports it, and for K2 the error against the plain version. The
 inputs are ``chip_smoke.py``'s flagship inputs of that tree, rows padded to the tree's tile.
+The cases: K2, K4 (white and with the iCEM options) and K5; K6 with a 50-elite mask, softmax
+weights, the mask with the iCEM options and softmax with the clip, each as the host's time
+of a call and the device's (:func:`graph_ms`); and the draw of five carried colored elites
+(``draw_rows``, or in a tree without it the plain ``_mirror_z``), host and device.
 ``--tile-mean``/``--tile-ts1`` build the kernels with other tiles (``-DBBMPC_TILE_MEAN=N``).
 ``sweep`` runs ``cases`` once per tile; ``compare`` runs parent, change, change, parent (times
 ``--rounds``), each in a process of its own, and prints every time and the medians.
@@ -23,6 +27,27 @@ import statistics
 import subprocess
 import sys
 from pathlib import Path
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """The device's ms per call: ``calls`` calls captured in a CUDA graph, the graph replayed
+    ``replays`` times between two events, so that no host work lies between the launches."""
+    import torch
+
+    fn()  # warm up: build and load the library outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
 
 
 def _pad_rows(x, rows: int, dim: int):
@@ -106,19 +131,61 @@ def run_cases(tree: str, tile_mean: int | None, tile_ts1: int | None, reps: int)
                                               population=rows, tile=cs.FUSED_TILE)
             tm = torch.as_tensor(rr.tile_member_ids, device=device)
             member_tile = cs.FUSED_TILE
-        variants = [("K4", fc.fused_rollout)]
+        variants = [("K4", fc.fused_rollout, {})]
         if (propagation, dtype) == ("mean", "float32"):
-            variants.append(("K5", fc.fused_rollout_streamed))
-        for name, fn in variants:
-            def launch(fn=fn):
-                return fn(config, ops, a0, mean, std, seed, padded, tm, member_tile)
+            variants.append(("K5", fc.fused_rollout_streamed, {}))
+            variants.append(("K4 icem", fc.fused_rollout,
+                             {"features": cs.flagship_features(device, "icem")}))
+        for name, fn, more in variants:
+            def launch(fn=fn, more=more):
+                return fn(config, ops, a0, mean, std, seed, padded, tm, member_tile, **more)
 
             case = {"ms": cs.cuda_ms(launch, reps), "rows": padded}
             if hasattr(fc, "fused_occupancy"):
                 case.update(fc.fused_occupancy(config, padded, horizon, streamed=name == "K5"))
             out["cases"][f"{name} {propagation}/{dtype}"] = case
+    out["cases"].update(k3_k6_cases(cs, fc, device, reps))
     torch.cuda.synchronize()
     return out
+
+
+def k3_k6_cases(cs, fc, device, reps: int) -> dict:
+    """K6 at the flagship (one agent, population 1000, H*U = 300) and the draw of five carried
+    elites, each as the host's ms per call (back-to-back calls) and the device's."""
+    import numpy as np
+    import torch
+
+    hu = cs.HORIZON * 6
+    g = np.random.default_rng(5)
+    std = torch.as_tensor(g.uniform(0.2, 0.5, (1, hu)), dtype=torch.float32, device=device)
+    mean = torch.as_tensor(g.uniform(-0.3, 0.3, (1, hu)), dtype=torch.float32, device=device)
+    seed = torch.tensor([987654321], dtype=torch.int32, device=device)
+    mask = np.zeros(cs.ROWS, np.float32)
+    mask[g.choice(cs.ROWS, 50, replace=False)] = 1.0
+    e = np.exp(g.normal(0, 3, cs.ROWS))
+    softmax = (e / e.sum()).astype(np.float32)
+    cases = {}
+    for label, w, options in (("mask", mask, None), ("softmax", softmax, None),
+                              ("mask icem", mask, "icem"), ("softmax clip", softmax, "clip")):
+        w = torch.as_tensor(w, device=device)
+        features = cs.flagship_features(device, options) if options else None
+
+        def k6(w=w, features=features):
+            return fc.elite_moments(std, w, seed, mean, features)
+
+        cases[f"K6 {label} host"] = {"ms": cs.cuda_ms(k6, 10 * reps)}
+        cases[f"K6 {label} device"] = {"ms": graph_ms(k6)}
+    icem = cs.flagship_features(device, "icem")
+    rows = torch.tensor([3, 150, 402, 777, 998], device=device)
+    if hasattr(fc, "draw_rows"):
+        def draw():
+            return fc.draw_rows(seed, rows, hu, icem.basis)
+    else:
+        def draw():
+            return fc._mirror_z(seed, rows, hu, icem.basis2)
+    cases["K3 5 colored rows host"] = {"ms": cs.cuda_ms(draw, 10 * reps)}
+    cases["K3 5 colored rows device"] = {"ms": graph_ms(draw)}
+    return cases
 
 
 def _cases_subprocess(tree: str, more: list) -> dict:

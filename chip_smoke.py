@@ -19,8 +19,16 @@ It imports nothing of JAX and nothing of the JAX package. Phases, each fatal on 
    grid needs, shared memory, registers and local bytes;
    - K4 with its options (mean/f32): the iCEM set (colored noise beta 2, 6 injected
      candidates), the MPPI set (bounds clip with its penalty, the dot) and uniform sampling;
-   - the elite-moment kernel (K6) with a 50-elite 0/1 mask and with softmax weights, and with
-     the options colored + injected and bounds clip; every case must also repeat bit for bit.
+   - the row draw (K3 on its own, ``draw_rows``) against its plain version ``_mirror_z``, bit
+     for bit for white and uniform draws and within 1e-6 for colored ones, and against K4
+     itself: at mean 0 and std 1 the actions K4 rolled out are its draws, and ``draw_rows``
+     must give them bit for bit, white, uniform and colored;
+   - the elite-moment kernel (K6) with a 50-elite 0/1 mask, softmax weights, sep-CMA's
+     log-rank weights, all zeros and one nonzero row, plain and with the options colored +
+     injected and bounds clip; every case must also repeat bit for bit, and K6 must give the
+     centered actions K4 rolled out, bit for bit, for a one-hot weight;
+   K3 and K6 are timed twice: the host's time of a call (back-to-back calls between two
+   events) and the device's (20 calls captured in a CUDA graph, replayed between two events).
 4. reference on a small input: the kernel evaluator against the eager evaluator, and the
    fused kernels, plain and with each solver's option set, against the same closures on CPU
    tensors (the plain versions).
@@ -28,15 +36,20 @@ It imports nothing of JAX and nothing of the JAX package. Phases, each fatal on 
    steps after a warm-up, closing the loop through the model: CEM on the ``"kernel"`` and on
    the ``"fused"`` backend, then on ``"fused"`` CEM with the iCEM options, MPPI, RandomSearch
    and CMA-ES (diagonal). Actions must be finite and in bounds, and each kernel's launch count
-   over exactly that run must be steps x iterations for the kernels of that solver (K4 and
-   K6; RandomSearch: K4 once per step, K6 never) and 0 for the others. The eager backend runs
-   3 steps, timed.
+   over exactly that run must be its count per ``act()`` times the steps: K4 and K6 once per
+   iteration (RandomSearch: K4 once, K6 never), ``draw_rows`` 1 + iterations for iCEM, once
+   for RandomSearch, never elsewhere; the plain RNG (``_mirror_z``, ``_gen_z``) must see no
+   CUDA tensor. One more ``act()`` of fused CEM and of fused iCEM runs under
+   ``torch.profiler``: the ten device operations that take the most time, the count of K6's
+   kernels (one per iteration) and the device's idle share of the ``act()`` window. The eager
+   backend runs 3 steps, timed.
 
 The line before the last two is ``{"kernels": [...]}``; then the card's name and power
 limit; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -53,6 +66,10 @@ TOLERANCE = {"float32": 1e-4, "bfloat16": 1e-2}
 # K6's sums against the plain version's, relative to max(1, max |plain|): both sum 1000
 # float32 terms, in other orders.
 MOMENT_TOLERANCE = 1e-5
+# draw_rows' colored draws against _mirror_z's, relative to max(1, max |plain|): the kernel
+# contracts 52 terms per element with fmaf and reduces the row statistics in its own order,
+# torch multiplies by the dense basis (a few ulp of z <= 2).
+COLORED_DRAW_TOLERANCE = 1e-6
 # K4's per-row penalty and dot against the plain version's, relative to max(1, max |plain|):
 # each sums H*U = 300 float32 terms, the kernel lane-strided with a butterfly, torch otherwise.
 ROW_SUM_TOLERANCE = 1e-4
@@ -94,6 +111,8 @@ def rewards_from_states(s0, acts, states):
 
 
 def cuda_ms(fn, reps: int) -> float:
+    """ms per call of ``reps`` back-to-back calls between two events: for a kernel of a few
+    microseconds, the host's time of a call (the wrapper's Python and the launch)."""
     import torch
 
     fn()  # warm up
@@ -104,6 +123,14 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, calls: int = 20) -> float:
+    """The device's ms per call: ``calls`` calls captured in a CUDA graph and replayed between
+    two events (``ops/measure.py``)."""
+    from blackbox_mpc_torch.ops.measure import graph_ms as measured
+
+    return measured(fn, calls)
 
 
 def flagship_params(config, device):
@@ -196,18 +223,37 @@ def fused_bound(config, rows: int, horizon: int, members: int, agents: int,
                     dtype_name(config))
 
 
-def moments_bound(population: int, agents: int, hu: int, features=None,
+def moments_bound(weights, agents: int, hu: int, features=None,
                   dim_u: int = 1) -> tuple[float, str]:
-    """K6: std (with options also mean), weights and the seed in, two sums out; per (row,
-    column) one draw and six operations (std * z, w * x, x * x, w * x^2 and the two adds),
-    plus the options' work."""
-    bytes_moved = 4 * agents * hu + 4 * population * agents + 4 + 2 * 4 * agents * hu
-    more_flops, more_bytes = option_work(features, population * agents, hu // dim_u, dim_u,
+    """K6: the weights, std (with options also mean) and the seed in, two sums out. The work
+    that these weights need, since no row of weight 0 is drawn: per row of weight and column
+    six operations (std * z, w * x, x * x, w * x^2 and the two adds), and one draw with the
+    options' work where the row is not injected."""
+    import torch
+
+    rows = weights.numel()
+    weighted = (weights != 0).cpu()
+    drawn = weighted
+    if features is not None and features.extra is not None:
+        population = rows // agents
+        fresh_rows = (population - features.extra_slots(agents)) * agents
+        drawn = weighted & (torch.arange(rows) < fresh_rows)
+    n_weighted, n_drawn = int(weighted.sum()), int(drawn.sum())
+    bytes_moved = 4 * agents * hu + 4 * rows + 4 + 2 * 4 * agents * hu
+    more_flops, more_bytes = option_work(features, n_drawn, hu // dim_u, dim_u,
                                          row_outputs=False)
     if features is not None:
         bytes_moved += 4 * agents * hu
-    return least_ms(population * agents * hu * (RNG_OPS + 6) + more_flops,
+    return least_ms(n_weighted * hu * 6 + n_drawn * hu * RNG_OPS + more_flops,
                     bytes_moved + more_bytes, "float32")
+
+
+def draw_bound(rows: int, hu: int, features, dim_u: int) -> tuple[float, str]:
+    """K3 on its own: the row ids and the seed in (with the colored draw the basis), z out;
+    one draw per element and the colored draw's work."""
+    more_flops, more_bytes = option_work(features, rows, hu // dim_u, dim_u, row_outputs=False)
+    return least_ms(rows * hu * RNG_OPS + more_flops, 4 * rows + 4 + 4 * rows * hu + more_bytes,
+                    "float32")
 
 
 def pad_rows(x, rows: int, dim: int):
@@ -366,9 +412,10 @@ def fused_closures(device, propagation: str, dtype: str, streamed: bool = False,
         case += f" rows={rows}"
     occupancy = fc.fused_occupancy(config, rows_pad, HORIZON, streamed=streamed,
                                    features=features)
-    return dict(case=case, kernel=kernel, launch=launch, plain=plain, config=config, s0=s0,
-                features=features, member_tile=member_tile, members=members, rows=rows,
-                rows_pad=rows_pad, agents=agents, occupancy=occupancy)
+    return dict(case=case, kernel=kernel, launch=launch, plain=plain, config=config, ops=ops,
+                s0=s0, mean=mean, std=std, seed=seed, features=features,
+                member_tile=member_tile, members=members, rows=rows, rows_pad=rows_pad,
+                agents=agents, occupancy=occupancy)
 
 
 def retime_in_turns(device, rounds: int = 3) -> None:
@@ -447,9 +494,129 @@ def fused_vs_plain(device, propagation: str, dtype: str, streamed: bool = False,
     return res
 
 
+def draw_features(device, kind: str):
+    """``Features`` of a draw at the flagship: "white", "uniform" or "colored" (beta 2, the
+    dense basis for the plain version and its [2F, H] block for the kernels)."""
+    import torch
+
+    from blackbox_mpc_torch.ops import fused_cem as fc
+
+    if kind == "uniform":
+        return fc.Features(sampling="uniform")
+    if kind == "white":
+        return fc.Features()
+    dim_u = FLAGSHIP["dim_u"]
+    basis2 = torch.as_tensor(fc._colored_basis2(HORIZON, dim_u, COLORED_BETA), device=device)
+    return fc.Features(basis2=basis2, basis=fc._basis_block(basis2, dim_u))
+
+
+def bits(x):
+    import torch
+
+    return x.contiguous().view(torch.int32)
+
+
+def draw_rows_vs_plain(device) -> dict:
+    """K3 on its own (``draw_rows``) against its plain version ``_mirror_z`` on the card, bit
+    for bit (white, uniform) or within COLORED_DRAW_TOLERANCE (colored), at rows far apart; and
+    against K4 itself, bit for bit: at mean 0 and std 1 the actions K4 rolls out are its draws,
+    here at rows of the first, a middle and the last tile (the last holding the grid's padding
+    rows). Times the iCEM shape (5 carried elites, colored) and the RandomSearch shape (one
+    argmax row, uniform): the host's and the device's time of a call. Returns the iCEM case."""
+    import numpy as np
+    import torch
+
+    from blackbox_mpc_torch.models.dynamics import LearnedDynamicsConfig
+    from blackbox_mpc_torch.ops import fused_cem as fc
+    from blackbox_mpc_torch.ops import rollout_kernel as rk
+
+    dim_u = FLAGSHIP["dim_u"]
+    hu = HORIZON * dim_u
+    seed = torch.tensor([1234567891], dtype=torch.int32, device=device)
+    config = LearnedDynamicsConfig(**FLAGSHIP, propagation="mean")
+    ops = rk.make_operands(flagship_params(config, device), config)
+    tile = rk.TILE_MEAN
+    rows_pad = -(-ROWS // tile) * tile
+    s0 = torch.zeros((1, config.dim_s), device=device)
+    mean, std = torch.zeros((1, hu), device=device), torch.ones((1, hu), device=device)
+    at = torch.tensor([0, 1, tile - 1, tile, ROWS // 2 + 17, rows_pad - tile, ROWS - 1,
+                       rows_pad - 1], dtype=torch.int32, device=device)
+    far = torch.as_tensor(np.random.default_rng(8).integers(0, 2_000_000, 64), device=device)
+    cases = {}
+    for kind in ("white", "uniform", "colored"):
+        f = draw_features(device, kind)
+        out = fc.fused_rollout(config, ops, s0, mean, std, seed, rows_pad, None, tile,
+                               features=None if kind == "white" else f)
+        k4 = out[1][:, at.long()].transpose(0, 1).reshape(len(at), hu)
+        got = fc.draw_rows(seed, at, hu, f.basis, f.sampling)
+        torch.cuda.synchronize()
+        if not torch.equal(bits(got), bits(k4)):
+            raise AssertionError(f"draw_rows {kind}: not K4's draws, max abs difference "
+                                 f"{float((got - k4).abs().max())}")
+        got = fc.draw_rows(seed, far, hu, f.basis, f.sampling)
+        ref = fc._mirror_z(seed, far, hu, f.basis2, f.sampling)
+        err = float((got - ref).abs().max())
+        scale = max(1.0, float(ref.abs().max()))
+        if kind == "colored" and err > COLORED_DRAW_TOLERANCE * scale:
+            raise AssertionError(f"draw_rows colored vs plain {err} > "
+                                 f"{COLORED_DRAW_TOLERANCE} * {scale}")
+        if kind != "colored" and not torch.equal(bits(got), bits(ref)):
+            raise AssertionError(f"draw_rows {kind} vs plain: not bit for bit ({err})")
+        cases[kind] = err
+    print(json.dumps({"draw_rows_vs_k4": "bit for bit", "rows": at.tolist(),
+                      "vs_plain_max_abs_err": cases,
+                      "colored_tolerance_rel": COLORED_DRAW_TOLERANCE}), flush=True)
+    shapes = {"iCEM": (torch.tensor([3, 150, 402, 777, 998], device=device), "colored"),
+              "RandomSearch": (torch.tensor([613], device=device), "uniform")}
+    timed = {}
+    for label, (rows, kind) in shapes.items():
+        f = draw_features(device, kind)
+
+        def kernel(rows=rows, f=f):
+            return fc.draw_rows(seed, rows, hu, f.basis, f.sampling)
+
+        def plain(rows=rows, f=f):
+            return fc._mirror_z(seed, rows, hu, f.basis2, f.sampling)
+
+        err = float((kernel() - plain()).abs().max())
+        bound_ms, bound_by = draw_bound(len(rows), hu, f, dim_u)
+        timed[label] = {"case": f"draw_rows {label} ({len(rows)} rows, {kind})",
+                        "max_abs_err": err, "ms": graph_ms(kernel), "host_ms": cuda_ms(kernel, 20),
+                        "plain_ms": cuda_ms(plain, 5), "bound_ms": bound_ms,
+                        "bound_by": bound_by}
+        print(json.dumps(timed[label]), flush=True)
+    return timed["iCEM"]
+
+
+def moment_weights(kind: str, rng):
+    """Weights [ROWS] of one agent: a 50-elite 0/1 mask, softmax weights, sep-CMA's log-rank
+    weights scattered by a random ranking, all zeros, or one nonzero row."""
+    import numpy as np
+
+    from blackbox_mpc_torch.core.types import Bounds
+    from blackbox_mpc_torch.solvers import cma_es as cma
+
+    w = np.zeros(ROWS, np.float32)
+    if kind == "elite_mask":
+        w[rng.choice(ROWS, 50, replace=False)] = 1.0
+    elif kind == "softmax":
+        e = np.exp(rng.normal(0, 3, ROWS))
+        w = (e / e.sum()).astype(np.float32)
+    elif kind == "logrank":
+        constants = cma.cma_constants(cma.CMAESConfig(diagonal=True),
+                                      Bounds.of(-1.0, 1.0, dim=FLAGSHIP["dim_u"]), HORIZON,
+                                      ROWS, 50)
+        w[rng.permutation(ROWS)] = constants.weights
+    elif kind == "single":
+        w[rng.integers(ROWS)] = 0.75
+    elif kind != "zeros":
+        raise ValueError(kind)
+    return w
+
+
 def moments_vs_plain(device, weights: str, options: str | None = None) -> dict:
-    """K6 against its plain version, and against itself: two runs, the same bits. ``options``
-    names a set of :func:`flagship_features`."""
+    """K6 against its plain version, and against itself: two runs, the same bits. ``weights``
+    names a kind of :func:`moment_weights`, ``options`` a set of :func:`flagship_features`."""
     import numpy as np
     import torch
 
@@ -459,13 +626,7 @@ def moments_vs_plain(device, weights: str, options: str | None = None) -> dict:
     hu = HORIZON * FLAGSHIP["dim_u"]
     std = torch.as_tensor(g.uniform(0.2, 0.5, (1, hu)), dtype=torch.float32, device=device)
     seed = torch.tensor([987654321], dtype=torch.int32, device=device)
-    if weights == "elite_mask":
-        w = np.zeros(ROWS, np.float32)
-        w[g.choice(ROWS, 50, replace=False)] = 1.0
-    else:
-        e = np.exp(g.normal(0, 3, ROWS))
-        w = (e / e.sum()).astype(np.float32)
-    w = torch.as_tensor(w, device=device)
+    w = torch.as_tensor(moment_weights(weights, g), device=device)
     mean = torch.as_tensor(g.uniform(-0.3, 0.3, (1, hu)), dtype=torch.float32, device=device)
     features = flagship_features(device, options) if options else None
     if options:
@@ -479,19 +640,47 @@ def moments_vs_plain(device, weights: str, options: str | None = None) -> dict:
 
     first, second, ref = kernel(), kernel(), plain()
     torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+    if not all(torch.equal(bits(a), bits(b)) for a, b in zip(first, second)):
         raise AssertionError(f"K6 {weights}: two runs differ")
     err = max(float((a - b).abs().max()) for a, b in zip(first, ref))
     scale = max(1.0, max(float(b.abs().max()) for b in ref))
-    bound_ms, bound_by = moments_bound(ROWS, 1, hu, features, FLAGSHIP["dim_u"])
-    res = {"case": f"K6 {weights}", "max_abs_err": err, "max_rel_err": err / scale,
-           "tolerance_rel": MOMENT_TOLERANCE, "repeat_bitwise": True,
-           "ms": cuda_ms(kernel, 20), "plain_ms": cuda_ms(plain, 5),
-           "bound_ms": bound_ms, "bound_by": bound_by}
+    bound_ms, bound_by = moments_bound(w, 1, hu, features, FLAGSHIP["dim_u"])
+    res = {"case": f"K6 {weights}", "weighted_rows": int((w != 0).sum()), "max_abs_err": err,
+           "max_rel_err": err / scale, "tolerance_rel": MOMENT_TOLERANCE,
+           "repeat_bitwise": True, "ms": graph_ms(kernel), "host_ms": cuda_ms(kernel, 20),
+           "plain_ms": cuda_ms(plain, 5), "bound_ms": bound_ms, "bound_by": bound_by}
     print(json.dumps(res), flush=True)
     if err > MOMENT_TOLERANCE * scale:
         raise AssertionError(f"K6 {weights}: kernel vs plain {err} > {MOMENT_TOLERANCE} * {scale}")
     return res
+
+
+def moments_see_fused_rollout(device) -> None:
+    """K6 regenerates K4's bits: with one weight of 1, the centered sum is that row's rolled-out
+    action less the mean, to the last bit, for the clip and for colored + clip (with the clip,
+    K4 and K6 both center as clipped - mean)."""
+    import torch
+
+    from blackbox_mpc_torch.ops import fused_cem as fc
+
+    for options in ("clip", "colored+clip"):
+        closures = fused_closures(device, "mean", "float32", options="clip")
+        features = closures["features"]
+        if options == "colored+clip":
+            colored = draw_features(device, "colored")
+            features = fc.Features(basis2=colored.basis2, basis=colored.basis,
+                                   clip=features.clip)
+        mean, std, seed = closures["mean"], closures["std"], closures["seed"]
+        actions = fc.fused_rollout(closures["config"], closures["ops"], closures["s0"], mean,
+                                   std, seed, closures["rows_pad"], features=features)[1]
+        for row in (0, ROWS // 2 + 17, ROWS - 1):
+            w = torch.zeros(ROWS, device=device)
+            w[row] = 1.0
+            csum, _ = fc.elite_moments(std, w, seed, mean, features)
+            if not torch.equal(bits(csum[0]), bits(actions[:, row].reshape(-1) - mean[0])):
+                raise AssertionError(f"K6 {options}: row {row} is not K4's")
+    print(json.dumps({"k6_regenerates_k4": "bit for bit", "options": ["clip", "colored+clip"],
+                      "rows": [0, ROWS // 2 + 17, ROWS - 1]}), flush=True)
 
 
 def small_reference(device) -> None:
@@ -581,37 +770,115 @@ def launch_counters() -> dict:
 
     return {"rollout_states": rk.rollout_states, "fused_rollout": fc.fused_rollout,
             "fused_rollout_streamed": fc.fused_rollout_streamed,
-            "elite_moments": fc.elite_moments}
+            "elite_moments": fc.elite_moments, "draw_rows": fc.draw_rows}
 
 
-# The kernels each backend's act() must launch once per solver iteration; all others, never.
-BACKEND_KERNELS = {"kernel": ("rollout_states",), "fused": ("fused_rollout", "elite_moments"),
-                   "eager": ()}
+@contextlib.contextmanager
+def plain_rng_on_cuda():
+    """Counts the calls of the plain RNG (``_mirror_z``, ``_gen_z``) that get a CUDA tensor,
+    while the context lasts: on the card's main path there must be none."""
+    import torch
+
+    from blackbox_mpc_torch.ops import fused_cem as fc
+
+    calls = {"_mirror_z": 0, "_gen_z": 0}
+    originals = {name: getattr(fc, name) for name in calls}
+
+    def counting(name):
+        def call(*args, **kwargs):
+            if any(torch.is_tensor(a) and a.is_cuda for a in (*args, *kwargs.values())):
+                calls[name] += 1
+            return originals[name](*args, **kwargs)
+        return call
+
+    for name in calls:
+        setattr(fc, name, counting(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in originals.items():
+            setattr(fc, name, fn)
+
+
+# The kernels each backend's act() launches, and how often; all others, never.
+BACKEND_KERNELS = {"kernel": {"rollout_states": ITERS},
+                   "fused": {"fused_rollout": ITERS, "elite_moments": ITERS}, "eager": {}}
 # The fused family at the flagship settings, by the label of its drive: (registry name, solver
-# kwargs, solver iterations per act(), kernels launched once per iteration).
+# kwargs, launches per act() by kernel).
 FUSED_FAMILY = {
     "fused iCEM": ("CEM", dict(num_elite=50, max_iterations=ITERS,
                                colored_noise_beta=COLORED_BETA, keep_elites=EXTRA_SLOTS - 1,
                                mean_as_candidate=True, execute_best=True),
-                   ITERS, BACKEND_KERNELS["fused"]),
-    "fused MPPI": ("MPPI", dict(max_iterations=ITERS), ITERS, BACKEND_KERNELS["fused"]),
-    "fused RandomSearch": ("RandomSearch", dict(), 1, ("fused_rollout",)),
-    "fused CMA-ES": ("CMA-ES", dict(num_elite=50, max_iterations=ITERS, diagonal=True), ITERS,
+                   {**BACKEND_KERNELS["fused"], "draw_rows": 1 + ITERS}),
+    "fused MPPI": ("MPPI", dict(max_iterations=ITERS), BACKEND_KERNELS["fused"]),
+    "fused RandomSearch": ("RandomSearch", dict(), {"fused_rollout": 1, "draw_rows": 1}),
+    "fused CMA-ES": ("CMA-ES", dict(num_elite=50, max_iterations=ITERS, diagonal=True),
                      BACKEND_KERNELS["fused"]),
 }
+# The drives of which one more act() is traced.
+TRACED = ("fused", "fused iCEM")
+
+
+def trace_act(policy, obs, label: str) -> dict:
+    """One ``act()`` under ``torch.profiler``: the ten device operations that take the most
+    time, the launches of K6's and K3's kernels, the share of the ``act()`` window (the host's
+    range around it, which ends in the copy of the action to the host) in which the device ran
+    nothing, and the longest stretches of it, each with its start in the window and the device
+    operation that ended it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("act"):
+            policy.act(obs)
+    events = prof.events()
+    window = next(e.time_range for e in events
+                  if e.name == "act" and e.device_type == DeviceType.CPU)
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    if not spans:
+        raise AssertionError(f"{label}: the profiler saw no device activity in act()")
+    busy, reached = 0.0, window.start
+    by_name: dict = {}
+    gaps = []  # (idle us, its start from the window's, the device operation after it)
+    for start, end, name in spans:
+        lo, hi = min(max(start, reached), window.end), min(end, window.end)
+        if lo > reached:
+            gaps.append((lo - reached, reached - window.start, name[:60]))
+        if hi > lo:
+            busy += hi - lo
+        reached = max(reached, hi)
+        total, count = by_name.get(name, (0.0, 0))
+        by_name[name] = (total + end - start, count + 1)
+    gaps.append((window.end - reached, reached - window.start, "(end of act)"))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    res = {"trace": label, "act_window_us": window.end - window.start, "device_busy_us": busy,
+           "device_idle_share": 1.0 - busy / (window.end - window.start),
+           "idle_gaps_us": [{"us": us, "at_us": at, "before": name}
+                            for us, at, name in sorted(gaps, reverse=True)[:6]],
+           "device_ops": len(spans),
+           "k6_kernels": sum(n for name, (_, n) in by_name.items() if "moments_" in name),
+           "draw_rows_kernels": sum(n for name, (_, n) in by_name.items()
+                                    if "draw_rows_kernel" in name),
+           "top_device_ops_us": [{"name": name[:90], "us": t, "count": n}
+                                 for name, (t, n) in top]}
+    print(json.dumps(res), flush=True)
+    return res
 
 
 def drive_policy(device, backend: str, steps: int, label: str | None = None) -> dict:
     """``steps`` closed-loop ``act()`` calls after a warm-up. ``label`` names a drive of
-    FUSED_FAMILY; without it the solver is the flagship CEM on ``backend``."""
+    FUSED_FAMILY; without it the solver is the flagship CEM on ``backend``. A drive in TRACED
+    then acts once more under the profiler, which must see one K6 kernel per iteration."""
     import numpy as np
 
     from blackbox_mpc_torch import DynamicsHandler, LearnedDynamicsConfig, MPCPolicy
     from blackbox_mpc_torch.core.spaces import BoxSpace
 
-    solver_name, solver_kwargs, iterations, kernels = (
+    solver_name, solver_kwargs, per_act = (
         FUSED_FAMILY[label] if label
-        else ("CEM", dict(num_elite=50, max_iterations=ITERS), ITERS, BACKEND_KERNELS[backend]))
+        else ("CEM", dict(num_elite=50, max_iterations=ITERS), BACKEND_KERNELS[backend]))
     label = label or backend
     config = LearnedDynamicsConfig(**FLAGSHIP, propagation="mean")
     handler = DynamicsHandler(config, seed=0, device=device)
@@ -627,22 +894,35 @@ def drive_policy(device, backend: str, steps: int, label: str | None = None) -> 
     for wrapper in counters.values():
         wrapper.launches = 0
     times = []
-    for t in range(steps):
-        t0 = time.perf_counter()
-        action, obs, reward = policy.act(obs, t)  # returns host arrays: synchronised
-        times.append((time.perf_counter() - t0) * 1e3)
-        if not (np.all(np.isfinite(action)) and np.all(np.abs(action) <= 1.0)):
-            raise AssertionError(f"{label}: action out of bounds or not finite: {action}")
-        if not (np.all(np.isfinite(obs)) and np.isfinite(reward)):
-            raise AssertionError(f"{label}: predicted next obs/reward not finite")
+    with plain_rng_on_cuda() as plain_calls:
+        for t in range(steps):
+            t0 = time.perf_counter()
+            action, obs, reward = policy.act(obs, t)  # returns host arrays: synchronised
+            times.append((time.perf_counter() - t0) * 1e3)
+            if not (np.all(np.isfinite(action)) and np.all(np.abs(action) <= 1.0)):
+                raise AssertionError(f"{label}: action out of bounds or not finite: {action}")
+            if not (np.all(np.isfinite(obs)) and np.isfinite(reward)):
+                raise AssertionError(f"{label}: predicted next obs/reward not finite")
     launches = {name: wrapper.launches for name, wrapper in counters.items()}
-    expected = {name: steps * iterations if name in kernels else 0 for name in counters}
+    expected = {name: steps * per_act.get(name, 0) for name in counters}
     if launches != expected:
         raise AssertionError(f"{label}: kernel launches {launches}, expected {expected}")
+    if any(plain_calls.values()):
+        raise AssertionError(f"{label}: the plain RNG ran on CUDA tensors: {plain_calls}")
     res = {"policy": label, "solver": solver_name, "steps": steps, "launches": launches,
-           "act_ms": times, "act_ms_median": float(np.median(times)),
+           "plain_rng_calls_on_cuda": plain_calls, "act_ms": times,
+           "act_ms_median": float(np.median(times)),
            "last_action": [float(a) for a in action], "last_predicted_reward": float(reward)}
     print(json.dumps(res), flush=True)
+    if label in TRACED:
+        res["trace"] = trace_act(policy, obs, label)
+        iterations = per_act["elite_moments"]
+        if res["trace"]["k6_kernels"] != iterations:
+            raise AssertionError(f"{label}: {res['trace']['k6_kernels']} K6 kernels in one "
+                                 f"act(), expected one per iteration ({iterations})")
+        if res["trace"]["draw_rows_kernels"] != per_act.get("draw_rows", 0):
+            raise AssertionError(f"{label}: {res['trace']['draw_rows_kernels']} draw_rows "
+                                 f"kernels in one act(), expected {per_act.get('draw_rows', 0)}")
     return res
 
 
@@ -681,9 +961,15 @@ def main() -> int:
     for options in ("icem", "mppi", "uniform"):
         fused_vs_plain(device, "mean", "float32", options=options)
     retime_in_turns(device)
-    moments = [moments_vs_plain(device, w) for w in ("elite_mask", "softmax")]
-    moments_vs_plain(device, "elite_mask", "icem")
-    moments_vs_plain(device, "softmax", "clip")
+    tiny = torch.zeros(1, device=device)  # the reference for K3's and K6's device times
+    print(json.dumps({"empty_launch_ms": graph_ms(lambda: tiny.add_(1.0))}), flush=True)
+    draws = draw_rows_vs_plain(device)
+    moments = [moments_vs_plain(device, w)
+               for w in ("elite_mask", "softmax", "logrank", "zeros", "single")]
+    for weights, options in (("elite_mask", "icem"), ("softmax", "icem"), ("single", "icem"),
+                             ("softmax", "clip"), ("logrank", "clip"), ("zeros", "clip")):
+        moments_vs_plain(device, weights, options)
+    moments_see_fused_rollout(device)
     small_reference(device)
     kernel_run = drive_policy(device, "kernel", STEPS)
     fused_run = drive_policy(device, "fused", STEPS)
@@ -693,12 +979,14 @@ def main() -> int:
         "kernel": kernel_run["act_ms_median"], "fused": fused_run["act_ms_median"],
         **{label: run["act_ms_median"] for label, run in family.items()}}}), flush=True)
 
-    # The first case of each kernel is mean/f32 (K6: the 50-elite mask), as the policy ran.
+    # The first case of each kernel is mean/f32 (K6: the 50-elite mask; draw_rows: the iCEM
+    # shape), as the policy ran. K6's and draw_rows' ms is the device's, host_ms the host's.
     entries = [
         ("rollout_states", "rollout.cu", "pallas_rollout.py:73", kernel_run, cases[0]),
         ("fused_rollout", "fused_cem.cu", "pallas_cem.py:338", fused_run, fused[0]),
         ("fused_rollout_streamed", "fused_cem.cu", "pallas_cem.py:404", fused_run, streamed),
         ("elite_moments", "fused_cem.cu", "pallas_cem.py:485", fused_run, moments[0]),
+        ("draw_rows", "fused_cem.cu", "pallas_cem.py:168", family["fused iCEM"], draws),
     ]
     print(json.dumps({"kernels": [{
         "name": name,
@@ -712,6 +1000,7 @@ def main() -> int:
         "bound_ms": case["bound_ms"],
         "bound_by": case["bound_by"],
         "library_ms": None,
+        **({"host_ms": case["host_ms"]} if "host_ms" in case else {}),
     } for name, source, replaces, run, case in entries]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -290,7 +290,7 @@ def test_fused_rollout_block_and_streamed_give_the_same_rewards(device):
 @pytest.mark.parametrize("weights", ["elite_mask", "softmax"])
 def test_elite_moments_matches_plain_and_repeats_bit_for_bit(weights, device):
     _, mean, std, seed = fused_inputs(device, agents=2, horizon=50)
-    population = 1000  # more than 8 per chunk at 256 chunks: the chunked pass and its sum
+    population = 1000  # 125 rows for each CTA of a cluster of 8
     g = np.random.default_rng(3)
     if weights == "elite_mask":
         w = np.zeros((population, 2), np.float32)
@@ -306,7 +306,7 @@ def test_elite_moments_matches_plain_and_repeats_bit_for_bit(weights, device):
     torch.cuda.synchronize()
     assert fc.elite_moments.launches == before + 2
     for a, b in zip(first, second):
-        assert torch.equal(a, b)  # two-pass reduction, no atomics
+        assert torch.equal(a, b)  # sums in a fixed order, no atomics
     for got, ref in zip(first, fc.elite_moments_plain(std, w, seed)):
         torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
 
@@ -440,7 +440,7 @@ def test_elite_moments_options_match_plain_and_repeat_bit_for_bit(flags, device)
     torch.cuda.synchronize()
     assert fc.elite_moments.launches == before + 2
     for a, b in zip(first, second):
-        assert torch.equal(a, b)  # two passes, no atomics, with every option
+        assert torch.equal(a, b)  # sums in a fixed order, no atomics, with every option
     for got, ref in zip(first, fc.elite_moments_plain(std, w, seed, mean, features)):
         torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
 
@@ -523,3 +523,105 @@ def test_fused_option_inputs_are_checked(device):
         fc.elite_moments(std, w, seed, None, make_features(device, "clip"))
     with pytest.raises(ValueError, match="features.population"):
         fc.elite_moments(std, w[:30], seed, mean, make_features(device, "extra"))
+
+
+# ---------------------------------------------------------------- K3 on its own, and K6 by weight
+
+
+@pytest.mark.parametrize("flags", ["white", "uniform", "colored"])
+def test_draw_rows_gives_the_draws_of_fused_rollout(flags, device):
+    """At mean 0 and std 1 the actions K4 rolls out are its draws: draw_rows gives them bit for
+    bit at rows of the first and the last tile (the last holds the grid's padding rows), and
+    its plain version's bits (white, uniform) or within a few ulp of z <= 2 (colored)."""
+    config, dp, _ = model("mean", "float32", device)
+    ops = rk.make_operands(dp, config)
+    s0, mean, std, seed = fused_inputs(device)
+    mean, std = torch.zeros_like(mean), torch.ones_like(std)
+    features = make_features(device, "" if flags == "white" else flags)
+    rows = padded(272, False)
+    out = fc.fused_rollout(config, ops, s0, mean, std, seed, rows, None, rk.TILE_MEAN,
+                           features=None if flags == "white" else features)
+    at = torch.tensor([0, 1, 47, 48, 131, 269, rows - 1], dtype=torch.int32, device=device)
+    before = fc.draw_rows.launches
+    got = fc.draw_rows(seed, at, HORIZON * 2, features.basis, features.sampling)
+    torch.cuda.synchronize()
+    assert fc.draw_rows.launches == before + 1
+    want = out[1][:, at.long()].transpose(0, 1).reshape(len(at), -1)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    far = torch.as_tensor(np.random.default_rng(9).integers(0, 2_000_000, 40), device=device)
+    got = fc.draw_rows(seed, far, HORIZON * 2, features.basis, features.sampling)
+    ref = fc._mirror_z(seed, far, HORIZON * 2, features.basis2, features.sampling)
+    if flags == "colored":
+        torch.testing.assert_close(got, ref, rtol=0, atol=2e-6)
+    else:
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+def test_draw_rows_rejects_rows_on_another_device(device):
+    _, _, _, seed = fused_inputs(device)
+    with pytest.raises(ValueError, match="row_ids is on cpu"):
+        fc.draw_rows(seed, torch.arange(4), 12)
+    with pytest.raises(ValueError, match="row_ids is on"):
+        fc.draw_rows(seed.cpu(), torch.arange(4, device=device), 12)
+    with pytest.raises(ValueError, match="dtype"):
+        fc.draw_rows(seed.long(), torch.arange(4, device=device), 12)
+
+
+def moment_weights(kind, population, agents, g):
+    """[population * agents] weights: "zeros", "single" (one row of weight), "mask" (a 0/1
+    mask of 50 elites per agent), "softmax", or "logrank" (sep-CMA's: log-rank weights of the
+    best 50 by a random ranking, zero after)."""
+    w = np.zeros((population, agents), np.float32)
+    for a in range(agents):
+        if kind == "single":
+            w[g.integers(population), a] = 0.5
+        elif kind == "mask":
+            w[g.choice(population, 50, replace=False), a] = 1.0
+        elif kind == "softmax":
+            e = np.exp(g.normal(0, 2, population))
+            w[:, a] = e / e.sum()
+        elif kind == "logrank":
+            ranks = np.log(50.5) - np.log(np.arange(1, 51))
+            w[g.permutation(population)[:50], a] = ranks / ranks.sum()
+    return w.reshape(-1)
+
+
+@pytest.mark.parametrize("agents", [1, 3])
+@pytest.mark.parametrize("kind", ["zeros", "single", "mask", "softmax", "logrank"])
+def test_elite_moments_for_every_kind_of_weights(kind, agents, device):
+    """K6 draws only the rows of weight: with no such row the sums are 0, and a population
+    (1003) that the cluster of 8 CTAs does not split evenly. Two runs, the same bits."""
+    population, horizon = 1003, 50
+    _, mean, std, seed = fused_inputs(device, agents=agents, horizon=horizon)
+    w = torch.as_tensor(moment_weights(kind, population, agents, np.random.default_rng(11)),
+                        device=device)
+    first = fc.elite_moments(std, w, seed)
+    second = fc.elite_moments(std, w, seed)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    for got, ref in zip(first, fc.elite_moments_plain(std, w, seed)):
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    if kind == "zeros":
+        assert not bool(first[0].any()) and not bool(first[1].any())
+
+
+@pytest.mark.parametrize("kind", ["zeros", "single", "mask", "logrank"])
+@pytest.mark.parametrize("flags", ["uniform", "clip", "extra", "colored+extra", "colored+clip"])
+def test_elite_moments_options_for_sparse_weights(flags, kind, device):
+    """Every option set with weights that leave most rows out: the rows kernel (colored) and
+    the per-element kernel skip them alike, injected rows of weight included."""
+    agents, horizon, population = 3, 50, 1003
+    _, mean, std, seed = fused_inputs(device, agents=agents, horizon=horizon)
+    features = make_features(device, flags, agents, horizon, population, slots=6)
+    w = moment_weights(kind, population, agents, np.random.default_rng(12))
+    if kind == "single" and "extra" in flags:
+        w[-agents:] = 0.25  # the last injected slot carries weight for every agent
+    w = torch.as_tensor(w, device=device)
+    first = fc.elite_moments(std, w, seed, mean, features)
+    second = fc.elite_moments(std, w, seed, mean, features)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    for got, ref in zip(first, fc.elite_moments_plain(std, w, seed, mean, features)):
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)

@@ -137,9 +137,89 @@ def test_mirror_z_colored_matches_jax(horizon, dim_u, beta, rng):
                              jnp.asarray(basis2))), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("sampling", ["normal", "uniform"])
+@pytest.mark.parametrize("seed", [7, 2**31 - 1])
+def test_draw_rows_matches_the_jax_mirror(sampling, seed, rng):
+    """K3 on its own: on CPU tensors draw_rows is the plain ``_mirror_z``. Uniform draws are
+    the JAX mirror's bits; normal ones agree to 1e-6 (torch's and XLA's logf and cosf may
+    differ in an ulp; the integer stage is bit for bit, test_torch_fused_cem.py). A tensor
+    seed and an int seed give the same bits."""
+    rows = rng.integers(0, 2_000_000, 50)
+    launches = tc.draw_rows.launches
+    got = tc.draw_rows(seed, torch.as_tensor(rows), 300, sampling=sampling).numpy()
+    again = tc.draw_rows(torch.tensor([seed], dtype=torch.int32),
+                         torch.as_tensor(rows, dtype=torch.int32), 300, sampling=sampling)
+    assert tc.draw_rows.launches == launches  # CPU tensors take the plain version
+    np.testing.assert_array_equal(again.numpy().view(np.uint32), got.view(np.uint32))
+    ref = np.asarray(jc._mirror_z(seed, jnp.asarray(rows), 300, sampling=sampling))
+    if sampling == "uniform":
+        np.testing.assert_array_equal(got.view(np.uint32), ref.view(np.uint32))
+    else:
+        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("horizon,dim_u,beta", [(50, 6, 2.0), (5, 2, 1.0), (8, 3, 3.0)])
+def test_draw_rows_colored_from_the_basis_block(horizon, dim_u, beta, rng):
+    """draw_rows takes the kernels' [2F, H] block; on the CPU it expands it to the dense matrix
+    the plain version multiplies by, which is the JAX package's to the bit."""
+    basis2 = jc._colored_basis2(horizon, dim_u, beta)
+    block = tc._basis_block(torch.as_tensor(basis2), dim_u)
+    assert block.shape == (2 * (horizon // 2 + 1), horizon)
+    np.testing.assert_array_equal(tc._dense_basis(block, dim_u).numpy(), basis2)
+    rows = rng.integers(0, 1_000_000, 32)
+    got = tc.draw_rows(11, torch.as_tensor(rows), horizon * dim_u, block).numpy()
+    ref = np.asarray(jc._mirror_z(11, jnp.asarray(rows), horizon * dim_u, jnp.asarray(basis2)))
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_draw_rows_rejects_rows_on_another_device():
+    with pytest.raises(ValueError, match="row_ids is on meta"):
+        tc.draw_rows(5, torch.arange(4, device="meta"), 12)
+    with pytest.raises(ValueError, match="row_ids is on cpu"):
+        tc.draw_rows(torch.tensor([5], dtype=torch.int32, device="meta"), torch.arange(4), 12)
+
+
+def counting_draws(monkeypatch):
+    """Replaces draw_rows by a wrapper that records each call's row count."""
+    calls = []
+    draw = tc.draw_rows
+
+    def counted(seed, row_ids, *args, **kwargs):
+        calls.append(row_ids.numel())
+        return draw(seed, row_ids, *args, **kwargs)
+
+    monkeypatch.setattr(tc, "draw_rows", counted)
+    return calls
+
+
+@pytest.mark.parametrize("iterations", [1, 3])
+def test_fused_cem_reads_candidates_through_draw_rows(iterations, monkeypatch):
+    """The carried elites' placeholders (once per solve) and the elite values of each
+    iteration (keep_elites, execute_best) come from draw_rows, K3's wrapper."""
+    _, _, tcfg, tdp = bridged()
+    calls = counting_draws(monkeypatch)
+    cfg = TCEMConfig(planning_horizon=H, num_agents=A, population=32, num_elite=4,
+                     max_iterations=iterations, keep_elites=3, execute_best=True,
+                     colored_noise_beta=2.0)
+    solver = tc.make_fused_cem(cfg, TBounds.of(LOWER, UPPER), tcfg, tdp, t_reward, tile=TILE)
+    solver.solve(solver.init(torch.Generator()), torch.zeros(A, S), 0, torch.Generator())
+    assert calls == [3 * A] + [3 * A] * iterations
+
+
+def test_fused_random_search_reads_its_argmax_through_draw_rows(monkeypatch):
+    _, _, tcfg, tdp = bridged()
+    calls = counting_draws(monkeypatch)
+    cfg = trs.RandomSearchConfig(planning_horizon=H, num_agents=A, population=40)
+    solver = tc.make_fused_random_search(cfg, TBounds.of(LOWER, UPPER), tcfg, tdp, t_reward,
+                                         tile=TILE)
+    for t in range(2):
+        solver.solve(solver.init(torch.Generator()), torch.zeros(A, S), t, torch.Generator())
+    assert calls == [A, A]
+
+
 # ------------------------------------------------------------------------ K4 and K6
 
-BOX = (np.array([-0.4, -0.3], np.float32), np.array([0.5, 0.35], np.float32))  # many draws clip
+BOX =(np.array([-0.4, -0.3], np.float32), np.array([0.5, 0.35], np.float32))  # many draws clip
 FLAGS = {
     "colored": dict(colored_noise_beta=2.0),
     "uniform": dict(sampling="uniform"),
