@@ -1,15 +1,34 @@
 """blackbox_mpc_torch: the PyTorch/CUDA port of blackbox_mpc_tpu for NVIDIA Hopper GPUs.
 
 A second package beside ``blackbox_mpc_tpu`` (the JAX reference it is tested against). It
-imports torch and numpy only, never JAX nor the JAX package. So far it ports the main path:
-CEM-MPC ``act()`` over a learned MLP ensemble, with the rollout as a hand-written CUDA kernel
-(``rollout_backend="kernel"``) or an eager PyTorch loop (``"eager"``), and the
-generate-in-kernel CEM, whose CUDA kernels draw, roll out and reduce the candidates without
-storing them (``"fused"``).
+imports torch and numpy only, never JAX nor the JAX package. It runs CEM-MPC ``act()`` (and
+the fused solver family) over a learned MLP ensemble, with the rollout as a hand-written CUDA
+kernel (``rollout_backend="kernel"``) or an eager PyTorch loop (``"eager"``), and the
+generate-in-kernel solvers, whose CUDA kernels draw, roll out and reduce the candidates without
+storing them (``"fused"``); and the loop around it: vectorized envs, rollouts, the replay, the
+trainer, checkpoints and the MBRL workflows.
 """
 from blackbox_mpc_torch.core.types import Bounds
 from blackbox_mpc_torch.learning.handler import DynamicsHandler
-from blackbox_mpc_torch.models.dynamics import LearnedDynamicsConfig
+from blackbox_mpc_torch.models.dynamics import DynamicsParams, LearnedDynamicsConfig
 from blackbox_mpc_torch.policies.mpc_policy import MPCPolicy
+from blackbox_mpc_torch.policies.random_policy import RandomPolicy
+from blackbox_mpc_torch.utils.metrics import MetricsWriter
+from blackbox_mpc_torch.workflows.dynamics_learning import learn_dynamics_from_policy
+from blackbox_mpc_torch.workflows.iterative_mpc import learn_dynamics_iteratively_w_mpc
+from blackbox_mpc_torch.workflows.recording import record_rollout
+from blackbox_mpc_torch.workflows.rollouts import perform_rollouts
 
-__all__ = ["Bounds", "DynamicsHandler", "LearnedDynamicsConfig", "MPCPolicy"]
+__all__ = [
+    "Bounds",
+    "DynamicsHandler",
+    "DynamicsParams",
+    "LearnedDynamicsConfig",
+    "MPCPolicy",
+    "MetricsWriter",
+    "RandomPolicy",
+    "learn_dynamics_from_policy",
+    "learn_dynamics_iteratively_w_mpc",
+    "perform_rollouts",
+    "record_rollout",
+]

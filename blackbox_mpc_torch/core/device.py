@@ -5,9 +5,11 @@ the CPU on its own: without CUDA the caller must ask for ``device="cpu"`` explic
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["per_device", "resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -26,3 +28,17 @@ def resolve_device(device=None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def per_device(make: Callable):
+    """``get(device)``: ``make(device)``, made once per device. A constant built from host
+    data is copied to the card once, not at every solve: each such copy from pageable memory
+    makes the host wait for the stream."""
+    made = {}
+
+    def get(device):
+        if device not in made:
+            made[device] = make(device)
+        return made[device]
+
+    return get

@@ -38,8 +38,9 @@ TrajectoryEvaluator = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 class Bounds:
     """Per-dimension action bounds (host numpy arrays) and the quantities solvers derive.
 
-    ``on(device)`` returns the bounds as tensors on ``device``, made once per device so the
-    solve loop does no host-to-device copy per iteration.
+    ``on(device)`` returns the bounds, and ``constant(name, device)`` a derived quantity, as
+    tensors on ``device``, made once per device: a solve then makes no copy from the host,
+    which would wait for the stream.
     """
 
     lower: np.ndarray  # [U]
@@ -83,6 +84,15 @@ class Bounds:
                 torch.as_tensor(self.upper, dtype=torch.float32, device=device),
             )
         return self._tensors[device]
+
+    def constant(self, name: str, device) -> torch.Tensor:
+        """``midpoint`` or ``default_variance`` as a float32 tensor on ``device`` (None: the
+        CPU)."""
+        key = (name, torch.device("cpu" if device is None else device))
+        if key not in self._tensors:
+            self._tensors[key] = torch.as_tensor(getattr(self, name), dtype=torch.float32,
+                                                 device=key[1])
+        return self._tensors[key]
 
     def clip(self, x: torch.Tensor) -> torch.Tensor:
         lower, upper = self.on(x.device)

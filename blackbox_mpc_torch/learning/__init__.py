@@ -1,3 +1,5 @@
 from blackbox_mpc_torch.learning.handler import DynamicsHandler
+from blackbox_mpc_torch.learning.replay import ReplayBuffer
+from blackbox_mpc_torch.learning.trainer import TrainState, make_trainer
 
-__all__ = ["DynamicsHandler"]
+__all__ = ["DynamicsHandler", "ReplayBuffer", "TrainState", "make_trainer"]

@@ -1,52 +1,115 @@
-"""DynamicsHandler, planning side: owns the dynamics model the MPC policy plans through.
+"""DynamicsHandler: owns the dynamics model the MPC policy plans through, its replay buffer,
+its normalizer and its training.
 
-Counterpart of the planning half of ``blackbox_mpc_tpu/learning/handler.py`` (``:41-160``):
-the config, the ``DynamicsParams`` and the dynamics functions, for a learned ensemble or a
-true (analytic) model. Parameters are set through :meth:`DynamicsHandler.set_params`, for
-example from JAX weights carried by :func:`blackbox_mpc_torch.models.convert.
-dynamics_params_from_numpy`. Training and checkpoints are not ported yet.
+Counterpart of ``blackbox_mpc_tpu/learning/handler.py``. A learned handler keeps two copies of
+the weights: the trainable ones inside the trainer's :class:`TrainState`, which Adam updates in
+place, and the planning ``DynamicsParams`` (:attr:`dynamics_params`), tensors without grad that
+``train()`` replaces by a new object when it ends. The kernel backends repack their weights
+when that object changes (``ops/rollout_kernel.py::operand_cache``), so the next ``act()``
+plans on the new weights.
+
+Checkpoints: :meth:`save` writes ``config.json`` in the JAX package's format (version stamp,
+replay keys, the config with ``compute_dtype`` by name, the counters) and a ``torch.save``
+payload beside it (params, Adam state, step, stats, the replay with its RNG state). A JAX
+checkpoint (Orbax) is read where JAX is and carried over through
+:func:`~blackbox_mpc_torch.models.convert.handler_from_numpy`.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import logging
+import os
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from blackbox_mpc_torch.core.device import resolve_device
+from blackbox_mpc_torch.learning.replay import ReplayBuffer
+from blackbox_mpc_torch.learning.trainer import make_trainer
 from blackbox_mpc_torch.models.dynamics import (
     DynamicsParams,
     LearnedDynamicsConfig,
     make_learned_dynamics,
 )
+from blackbox_mpc_torch.models.normalizer import STATS_FIELDS, NormalizerStats, fit_normalizer
 
-__all__ = ["DynamicsHandler"]
+logger = logging.getLogger(__name__)
 
-_TRAINING_TODO = "is not ported yet (ROADMAP Queue 1 item 7, learning)"
+__all__ = ["CHECKPOINT_FORMAT_VERSION", "DynamicsHandler", "config_from_json", "config_to_json"]
+
+# The JAX package's training-checkpoint stamp: 1 adds the replay-key manifest.
+CHECKPOINT_FORMAT_VERSION = 1
+_PAYLOAD = "checkpoint.pt"
+
+
+def config_to_json(config: LearnedDynamicsConfig) -> dict:
+    """The config as ``config.json`` holds it: every field, ``compute_dtype`` by name."""
+    cfg = {f.name: getattr(config, f.name) for f in dataclasses.fields(config)}
+    cfg["hidden"] = list(cfg["hidden"])
+    cfg["compute_dtype"] = str(config.compute_dtype).removeprefix("torch.")
+    return cfg
+
+
+def config_from_json(cfg: dict) -> LearnedDynamicsConfig:
+    cfg = dict(cfg)
+    cfg["hidden"] = tuple(cfg["hidden"])
+    cfg["compute_dtype"] = getattr(torch, cfg["compute_dtype"])
+    return LearnedDynamicsConfig(**cfg)
+
+
+def _planning_copy(params) -> list:
+    """Tensors without grad that no optimizer step touches."""
+    return [{k: v.detach().clone() for k, v in layer.items()} for layer in params]
 
 
 class DynamicsHandler:
-    """Owns dynamics params for learned models, or wraps a true model."""
+    """Owns dynamics params, replay and training for learned models, or wraps a true model."""
 
     def __init__(
         self,
         config: Optional[LearnedDynamicsConfig] = None,
         true_model: Optional[Callable] = None,
+        learning_rate: float = 1e-3,
+        validation_fraction: float = 0.2,
+        refit_normalizer: bool = False,
+        replay_max_size: Optional[int] = None,
+        metrics_writer=None,
+        save_dir: Optional[str] = None,
+        save_frequency: int = 1,
         seed: int = 0,
         device=None,
+        mesh=None,
     ):
         """Exactly one of ``config`` (learned) / ``true_model`` (a torch
         ``(state [B,S], action [B,U]) -> next_state`` function) must be given. Learned
-        weights start as a Glorot init drawn from ``seed``."""
+        weights start as a Glorot init drawn from ``seed``; the replay's split and minibatch
+        orders draw from ``default_rng(seed)``, as in the JAX package.
+
+        ``refit_normalizer=False`` fits the normalizer at the first ``train()`` only; ``True``
+        fits it again at every call. ``save_dir`` checkpoints every ``save_frequency``
+        ``train()`` calls. ``mesh`` (data-parallel training) is not ported yet and raises.
+        """
         if (config is None) == (true_model is None):
             raise ValueError("provide exactly one of config= or true_model=")
+        if mesh is not None:
+            raise NotImplementedError(
+                "DynamicsHandler(mesh=...) is not ported yet (ROADMAP Queue 1 item 9)")
         self._device = resolve_device(device)
+        self._writer = metrics_writer
+        self._save_dir = save_dir
+        self._save_frequency = save_frequency
+        self._train_calls = 0
+        self._stats_fitted = False
+        self._refit_normalizer = refit_normalizer
         if true_model is not None:
             self._is_true_model = True
             self._config = None
             self._dynamics_fn = lambda dp, state, action: true_model(state, action)
             self._mean_dynamics_fn = self._dynamics_fn
             self._params = None
+            self._replay = None
             return
         self._is_true_model = False
         self._config = config
@@ -60,6 +123,15 @@ class DynamicsHandler:
                 dataclasses.replace(config, propagation="mean")
             )
         self._params = init(torch.Generator().manual_seed(seed)).to(self._device)
+        self._replay = ReplayBuffer(
+            config.dim_s, config.dim_u, validation_fraction=validation_fraction,
+            max_size=replay_max_size, seed=seed,
+        )
+        self._trainer_init, self._train_step, self._eval_step = make_trainer(
+            config, learning_rate=learning_rate)
+        self._train_state = self._trainer_init(self._params.params)
+
+    # ------------------------------------------------------------------ properties
 
     @property
     def device(self) -> torch.device:
@@ -86,10 +158,22 @@ class DynamicsHandler:
 
     @property
     def dynamics_params(self) -> Optional[DynamicsParams]:
+        """The planning parameters: tensors without grad, replaced as a whole by ``train()``,
+        ``set_params`` and ``load``."""
         return self._params
 
+    @property
+    def replay(self) -> Optional[ReplayBuffer]:
+        return self._replay
+
+    @property
+    def train_state(self):
+        """The trainer's state: trainable params, the Adam optimizer and the step count."""
+        return self._train_state
+
     def set_params(self, dp: DynamicsParams) -> None:
-        """Replaces the learned model's parameters (shapes must match the config)."""
+        """Replaces the learned model's parameters (shapes must match the config), for
+        planning and for further training; the optimizer starts afresh."""
         if self._is_true_model:
             raise RuntimeError("a true-model handler has no parameters")
         old = self._params
@@ -97,14 +181,206 @@ class DynamicsHandler:
             new[k].shape != cur[k].shape for new, cur in zip(dp.params, old.params) for k in cur
         ):
             raise ValueError("parameter shapes do not match the handler's config")
-        self._params = dp.to(self._device)
+        dp = dp.to(self._device)
+        self._params = dp.replace(params=_planning_copy(dp.params))
+        self._train_state = self._trainer_init(dp.params)
 
-    def train(self, *args, **kwargs):
-        raise NotImplementedError(f"DynamicsHandler.train {_TRAINING_TODO}")
+    # ------------------------------------------------------------------ training
+
+    def _batch(self, s, a, ns):
+        """A numpy minibatch ``[E, B, .]`` on the device in one host-to-device copy."""
+        packed = torch.from_numpy(np.concatenate([s, a, ns], axis=-1))
+        if self._device.type == "cuda":
+            packed = packed.pin_memory().to(self._device, non_blocking=True)
+        dim_s, dim_u = self._config.dim_s, self._config.dim_u
+        return torch.split(packed, [dim_s, dim_u, dim_s], dim=-1)
+
+    def validation_losses(self, params, batch_size: int = 128) -> Optional[np.ndarray]:
+        """Per-member validation loss ``[E]`` of ``params`` under the current stats: the
+        size-weighted mean over the deterministic full validation split, read once; None
+        when the split is empty."""
+        total, count = None, 0
+        for s, a, ns in self._replay.minibatches(batch_size, self._config.ensemble_size,
+                                                 validation=True):
+            v = self._eval_step(params, self._params.stats, *self._batch(s, a, ns))
+            b = s.shape[1]
+            total = v * b if total is None else total + v * b
+            count += b
+        return None if total is None else (total / count).cpu().numpy()
+
+    def train(
+        self,
+        observations=None,
+        actions=None,
+        *,
+        epochs: int = 30,
+        batch_size: int = 128,
+        patience: Optional[int] = None,
+    ) -> dict:
+        """Appends rollouts to the replay (if given) and runs ``epochs`` of minibatch Adam.
+
+        ``observations``: sequence of [T+1, S] episode arrays (or [N, T+1, S]); ``actions``:
+        matching [T, U] arrays. Returns ``train_loss`` (the mean member loss of the last
+        epoch), ``val_loss``, ``replay_size``, ``train_calls`` and ``epochs_ran``.
+
+        ``patience``: per-member early stopping. After each epoch the per-member validation
+        loss is evaluated, each member's best weights are kept (any decrease), and training
+        stops once ``patience`` epochs in a row improve no member by 1 % (relative). The
+        planning params become the per-member bests; the optimizer keeps the latest weights.
+
+        The losses of a step stay on the device; they are read once per epoch.
+        """
+        if self._is_true_model:
+            raise RuntimeError("cannot train a true-model handler")
+        if observations is not None:
+            self._replay.add_rollouts(observations, actions)
+        if len(self._replay) == 0:
+            raise RuntimeError("replay buffer is empty; collect rollouts first")
+        if patience is not None and patience < 1:
+            raise ValueError(
+                f"patience must be >= 1 (got {patience}); pass None to disable early stopping")
+
+        if not self._stats_fitted or self._refit_normalizer:
+            s, a, ns = self._replay.arrays(validation=False)
+            targets = ns - s if self._config.predict_delta else ns
+            stats = fit_normalizer(*(torch.as_tensor(x, device=self._device)
+                                     for x in (s, a, targets)))
+            self._params = self._params.replace(stats=stats)
+            self._stats_fitted = True
+
+        ensemble = self._config.ensemble_size
+        stats = self._params.stats
+        last_train = np.nan
+        track = patience is not None
+        best_val = np.full(ensemble, np.inf)
+        # The per-member bests start at the weights this call starts from.
+        best_params = _planning_copy(self._train_state.params) if track else None
+        stall = 0
+        epochs_ran = 0
+        for _ in range(epochs):
+            losses = []
+            for s, a, ns in self._replay.minibatches(batch_size, ensemble):
+                self._train_state, member_losses = self._train_step(
+                    self._train_state, stats, *self._batch(s, a, ns))
+                losses.append(member_losses)
+            if losses:
+                last_train = float(np.mean(torch.stack(losses).cpu().numpy()))
+            epochs_ran += 1
+            if not track:
+                continue
+            member_val = self.validation_losses(self._train_state.params, batch_size)
+            if member_val is None:
+                track = False  # no validation split: fixed epochs
+                continue
+            # Any decrease keeps that member's weights; only a >= 1 % relative decrease
+            # (magnitude-based, the first finite loss always counts) resets the stall count.
+            better = member_val < best_val
+            improved = np.where(
+                np.isinf(best_val),
+                np.isfinite(member_val),
+                (best_val - member_val) > 0.01 * np.maximum(np.abs(best_val), 1e-3),
+            )
+            current = self._train_state.params
+            if better.any():
+                sel = torch.as_tensor(better, device=self._device)
+                # torch.where makes new tensors: the bests never alias what Adam updates.
+                best_params = [
+                    {k: torch.where(sel.reshape((ensemble,) + (1,) * (v.dim() - 1)),
+                                    current[i][k].detach(), v)
+                     for k, v in layer.items()}
+                    for i, layer in enumerate(best_params)
+                ]
+            best_val = np.minimum(best_val, member_val)
+            stall = 0 if improved.any() else stall + 1
+            if stall >= patience:
+                break
+
+        if track:
+            planning = best_params
+        else:
+            planning = _planning_copy(self._train_state.params)
+        self._params = self._params.replace(params=planning)
+        if track and np.isfinite(best_val).all():
+            final_val = best_val  # the planning params are the per-member bests
+        else:
+            final_val = self.validation_losses(self._params.params, batch_size)
+        val_loss = float(np.mean(final_val)) if final_val is not None else float("nan")
+        self._train_calls += 1
+        if self._writer is not None:
+            self._writer.scalar("system_model/train_loss", last_train, self._train_calls)
+            self._writer.scalar("system_model/val_loss", val_loss, self._train_calls)
+        logger.info(
+            "dynamics train call %d: train_loss=%.5f val_loss=%.5f (replay: %d train / %d val)",
+            self._train_calls, last_train, val_loss, self._replay.num_train, self._replay.num_val,
+        )
+        if self._save_dir is not None and self._train_calls % self._save_frequency == 0:
+            self.save(self._save_dir)
+        return {
+            "train_loss": last_train,
+            "val_loss": val_loss,
+            "replay_size": len(self._replay),
+            "train_calls": self._train_calls,
+            "epochs_ran": epochs_ran,
+        }
+
+    # ------------------------------------------------------------------ checkpointing
 
     def save(self, directory: str) -> None:
-        raise NotImplementedError(f"DynamicsHandler.save {_TRAINING_TODO}")
+        """Writes ``config.json`` (the JAX package's format) and a ``torch.save`` payload of
+        params, Adam state, step, stats and replay (with its RNG state)."""
+        if self._is_true_model:
+            raise RuntimeError("true-model handler has nothing to save")
+        directory = os.path.abspath(directory)
+        os.makedirs(directory, exist_ok=True)
+        replay_state = self._replay.state_dict()
+        with open(os.path.join(directory, "config.json"), "w") as f:
+            json.dump({
+                "format_version": CHECKPOINT_FORMAT_VERSION,
+                "replay_keys": sorted(replay_state.keys()),
+                "config": config_to_json(self._config),
+                "train_calls": self._train_calls,
+                "stats_fitted": self._stats_fitted,
+            }, f)
+        ts = self._train_state
+        torch.save({
+            "params": [{k: v.detach() for k, v in layer.items()} for layer in ts.params],
+            "optimizer": ts.optimizer.state_dict(),
+            "step": ts.step,
+            "stats": {f: getattr(self._params.stats, f) for f in STATS_FIELDS},
+            "replay": replay_state,
+        }, os.path.join(directory, _PAYLOAD))
+        logger.info("saved dynamics checkpoint to %s", directory)
 
     @classmethod
     def load(cls, directory: str, **kwargs) -> "DynamicsHandler":
-        raise NotImplementedError(f"DynamicsHandler.load {_TRAINING_TODO}")
+        """Restores a handler saved with :meth:`save`; ``kwargs`` go to the constructor (for
+        example ``device``, ``learning_rate``). The planning params are the saved trainable
+        ones, as in the JAX package."""
+        directory = os.path.abspath(directory)
+        with open(os.path.join(directory, "config.json")) as f:
+            meta = json.load(f)
+        version = int(meta.get("format_version", 0))
+        if version > CHECKPOINT_FORMAT_VERSION:
+            raise ValueError(
+                f"checkpoint {directory} has format_version={version}, newer than this "
+                f"build supports ({CHECKPOINT_FORMAT_VERSION})")
+        handler = cls(config=config_from_json(meta["config"]), **kwargs)
+        payload = torch.load(os.path.join(directory, _PAYLOAD), map_location=handler.device,
+                             weights_only=False)
+        stats = NormalizerStats(*(payload["stats"][f] for f in STATS_FIELDS))
+        handler._restore(payload["params"], stats, payload["replay"], meta)
+        handler._train_state.optimizer.load_state_dict(payload["optimizer"])
+        handler._train_state.step = int(payload["step"])
+        logger.info("restored dynamics checkpoint from %s", directory)
+        return handler
+
+    def _restore(self, params, stats: NormalizerStats, replay_state: dict, meta: dict) -> None:
+        """Sets params (trainable and planning), stats, replay and counters; the optimizer
+        starts afresh (the caller loads its state)."""
+        params = [{k: torch.as_tensor(v, dtype=torch.float32, device=self._device)
+                   for k, v in layer.items()} for layer in params]
+        self._train_state = self._trainer_init(params)
+        self._params = DynamicsParams(params=_planning_copy(params), stats=stats.to(self._device))
+        self._replay.load_state_dict(replay_state)
+        self._train_calls = int(meta["train_calls"])
+        self._stats_fitted = bool(meta["stats_fitted"])

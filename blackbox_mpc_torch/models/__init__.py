@@ -1,3 +1,11 @@
+from blackbox_mpc_torch.models.analytic import (
+    ANALYTIC_MODELS,
+    angle_normalize,
+    cartpole_dynamics,
+    cartpole_reward,
+    pendulum_dynamics,
+    pendulum_reward,
+)
 from blackbox_mpc_torch.models.convert import dynamics_params_from_numpy
 from blackbox_mpc_torch.models.dynamics import (
     DynamicsParams,
@@ -6,10 +14,12 @@ from blackbox_mpc_torch.models.dynamics import (
     ts_member_ids,
 )
 from blackbox_mpc_torch.models.mlp import MLPConfig, ensemble_apply, ensemble_init, mlp_apply
-from blackbox_mpc_torch.models.normalizer import NormalizerStats, identity_stats
+from blackbox_mpc_torch.models.normalizer import NormalizerStats, fit_normalizer, identity_stats
 
 __all__ = [
-    "DynamicsParams", "LearnedDynamicsConfig", "MLPConfig", "NormalizerStats",
-    "dynamics_params_from_numpy", "ensemble_apply", "ensemble_init", "identity_stats",
-    "make_learned_dynamics", "mlp_apply", "ts_member_ids",
+    "ANALYTIC_MODELS", "DynamicsParams", "LearnedDynamicsConfig", "MLPConfig",
+    "NormalizerStats", "angle_normalize", "cartpole_dynamics", "cartpole_reward",
+    "dynamics_params_from_numpy", "ensemble_apply", "ensemble_init", "fit_normalizer",
+    "identity_stats", "make_learned_dynamics", "mlp_apply", "pendulum_dynamics",
+    "pendulum_reward", "ts_member_ids",
 ]

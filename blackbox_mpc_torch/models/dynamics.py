@@ -27,7 +27,7 @@ __all__ = [
     "DynamicsParams", "LearnedDynamicsConfig", "make_learned_dynamics", "ts_member_ids",
 ]
 
-_PROBABILISTIC_TODO = "is not ported yet (ROADMAP Queue 1 item 11, the probabilistic stack)"
+_PROBABILISTIC_TODO = "is not ported yet (ROADMAP Queue 1 items 4 and 8, the probabilistic stack)"
 
 
 def ts_member_ids(n: int, ensemble: int) -> np.ndarray:

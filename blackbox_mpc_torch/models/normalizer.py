@@ -8,7 +8,7 @@ import dataclasses
 
 import torch
 
-__all__ = ["NormalizerStats", "STATS_FIELDS", "identity_stats"]
+__all__ = ["NormalizerStats", "STATS_FIELDS", "fit_normalizer", "identity_stats"]
 
 _EPS = 1e-7
 
@@ -51,3 +51,13 @@ def identity_stats(dim_s: int, dim_u: int, device=None) -> NormalizerStats:
         mean_targets=torch.zeros(dim_s, device=device),
         std_targets=torch.ones(dim_s, device=device),
     )
+
+
+def fit_normalizer(states: torch.Tensor, actions: torch.Tensor,
+                   targets: torch.Tensor) -> NormalizerStats:
+    """Mean and std of (state, action, target) training arrays, per column. The std is the
+    population one (``correction=0``), as ``jnp.std`` computes it."""
+    columns = []
+    for x in (states, actions, targets):
+        columns += [x.mean(dim=0), x.std(dim=0, correction=0)]
+    return NormalizerStats(*columns)

@@ -38,6 +38,7 @@ from typing import Callable, Union
 import numpy as np
 import torch
 
+from blackbox_mpc_torch.core.device import per_device
 from blackbox_mpc_torch.core.types import Bounds, Solver, SolverAux
 from blackbox_mpc_torch.models.dynamics import DynamicsParams, LearnedDynamicsConfig
 from blackbox_mpc_torch.ops import _kernel_common as kc
@@ -604,18 +605,6 @@ def _seed_tensor(seed, device) -> torch.Tensor:
     return torch.tensor([seed], dtype=torch.int32, device=device)
 
 
-def _per_device(make: Callable):
-    """``get(device)``: ``make(device)``, made once per device."""
-    made = {}
-
-    def get(device):
-        if device not in made:
-            made[device] = make(device)
-        return made[device]
-
-    return get
-
-
 def make_fused_cem_kernels(
     config: LearnedDynamicsConfig,
     reward_fn: Callable,
@@ -712,8 +701,8 @@ def make_fused_cem_kernels(
         return Features(sampling=sampling, basis2=on_device, basis=block, clip=clip,
                         population=population if extra_slots else 0)
 
-    constants_on = _per_device(constants)
-    members_on = _per_device(lambda device: torch.as_tensor(tile_members, device=device))
+    constants_on = per_device(constants)
+    members_on = per_device(lambda device: torch.as_tensor(tile_members, device=device))
 
     def features_for(device, extra, gvec=None):
         if not flagged:
@@ -784,11 +773,13 @@ def _nan_guard(rewards: torch.Tensor) -> torch.Tensor:
 def _scatter_by_rank(values: torch.Tensor, index: torch.Tensor, population: int):
     """``out [P, A]`` with ``out[index[a, j], a] = values[j]`` (or 1.0 for ``values=None``)
     and 0 elsewhere; ``index [A, n]`` holds population indices, best first."""
-    agents = index.shape[0]
-    out = torch.zeros((population, agents), dtype=torch.float32, device=index.device)
-    out[index.T, torch.arange(agents, device=index.device)[None, :]] = (
-        1.0 if values is None else values[:, None])
-    return out
+    agents, n = index.shape
+    src = (torch.ones((n, agents), dtype=torch.float32, device=index.device) if values is None
+           else values[:, None].float().expand(n, agents))
+    # A source already on the device: a Python scalar here would be copied from pageable host
+    # memory, and that copy waits in the stream for the kernels before it.
+    return torch.zeros((population, agents), dtype=torch.float32,
+                       device=index.device).scatter_(0, index.T, src)
 
 
 def make_fused_cem(
@@ -808,7 +799,8 @@ def make_fused_cem(
     changes. Per iteration: a seed drawn on the device, ``std = sqrt(constrain_variance)``,
     rewards from K4 with the NaN guard, per-agent top-k -> 0/1 mask, centered moments from K6,
     ``new_mean = mean + csum / k``, ``new_var = max(csumsq / k - delta**2, 0)``, then the
-    ``alpha`` blend. No step synchronises with the host.
+    ``alpha`` blend. No step synchronises with the host: every value written lies on the
+    device already (``chip_smoke.py`` counts the host's waits in one traced ``act()``).
 
     The iCEM options: ``colored_noise_beta`` colors the draws inside the kernels;
     ``mean_as_candidate`` and ``keep_elites`` fill the kernels' injected slots (the clipped
@@ -841,7 +833,7 @@ def make_fused_cem(
         kernels_by_pop[pop_i] = build_kernels(pop_i)
     # draw_rows colors with the block of the matrix the kernels color with.
     basis2 = getattr(kernels_by_pop[pop][0], "basis2", None)
-    basis_on = _per_device(
+    basis_on = per_device(
         lambda device: None if basis2 is None else _basis_block(basis2.to(device), bounds.dim))
     n_extract = max(keep, 1 if execute_best else 0)
     current = _current(dp)
@@ -1024,7 +1016,7 @@ def make_fused_random_search(
     rewards ``[P, A]`` come back; :func:`draw_rows` draws the per-agent argmax row again."""
     if config.time_major:
         raise NotImplementedError(
-            "RandomSearchConfig.time_major=True is not ported yet (ROADMAP Queue 1 item 4: "
+            "RandomSearchConfig.time_major=True is not ported yet (ROADMAP Queue 1 item 5: "
             "the time-major candidate layout)"
         )
     horizon, agents, pop = config.planning_horizon, config.num_agents, config.population
@@ -1040,7 +1032,7 @@ def make_fused_random_search(
         mid = base.init_solution_mean(bounds, horizon, agents, device=device)
         return mid, ((upper - lower) / 2.0).expand(mid.shape).contiguous()
 
-    box_on = _per_device(box)
+    box_on = per_device(box)
 
     def init(generator: torch.Generator) -> RandomSearchState:
         del generator
@@ -1112,7 +1104,6 @@ def make_fused_sep_cma(
             clip_bounds=(bounds.lower, bounds.upper),
         )
     current = _current(dp)
-    weights_on = _per_device(lambda device: torch.as_tensor(C.weights, device=device))
 
     def init(generator: torch.Generator) -> CMAESState:
         return cma.init_state(bounds, horizon, agents, True, generator.device)
@@ -1123,7 +1114,7 @@ def make_fused_sep_cma(
         s = state
         if not config.persist_across_solves:
             s = dataclasses.replace(init(generator), mean=state.mean)
-        weights = weights_on(s.mean.device)
+        weights = C.weights_on(s.mean.device)
         for _ in range(config.max_iterations):
             seed = draw_seed(generator)
             std_eff = s.sigma * s.chol  # per-coordinate sigma * sqrt(diag C), [A, n]

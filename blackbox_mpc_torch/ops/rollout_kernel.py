@@ -100,6 +100,9 @@ def _packed_elements(widths: tuple, bf16: bool) -> int:
 
 
 def make_operands(dp: DynamicsParams, config: LearnedDynamicsConfig) -> KernelOperands:
+    """Packs ``dp`` for the kernels; ``make_operands.calls`` counts the packs (a caller that
+    plans on new weights packs them once)."""
+    make_operands.calls += 1
     weights = kc.weight_operands(dp, config.compute_dtype)
     widths = padded_widths(config)
     bf16 = config.compute_dtype == torch.bfloat16
@@ -116,6 +119,9 @@ def make_operands(dp: DynamicsParams, config: LearnedDynamicsConfig) -> KernelOp
         packed_b=torch.cat(packed_b).contiguous(),
         widths=widths,
     )
+
+
+make_operands.calls = 0
 
 
 def rollout_states_plain(

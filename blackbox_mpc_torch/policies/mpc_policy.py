@@ -18,8 +18,9 @@ Rollout backends:
   ``"MPPI"``, ``"RandomSearch"`` and ``"CMA-ES"`` with ``diagonal=True``; undiscounted rewards
   and no smoothness penalty.
 
-``"auto"`` is not ported yet. The JAX options ``mesh``, ``proposer``, ``remat_rollout``,
-``rng_impl`` and ``metrics_writer`` have no counterpart here yet.
+``"auto"`` is not ported yet. The JAX options ``mesh``, ``proposer``, ``remat_rollout`` and
+``rng_impl`` have no counterpart here yet. ``metrics_writer`` gets
+``rewards/predicted_reward`` once per ``act()``, from the host values ``act()`` returns.
 """
 from __future__ import annotations
 
@@ -67,6 +68,7 @@ class MPCPolicy(ModelBasedPolicy):
         seed: int = 0,
         rollout_backend: str = "eager",
         action_smoothness_weight: float = 0.0,
+        metrics_writer=None,
         device=None,
         **solver_kwargs,
     ):
@@ -93,7 +95,7 @@ class MPCPolicy(ModelBasedPolicy):
             rollout_backend = "fused"
         if rollout_backend == "auto":
             raise NotImplementedError(
-                "rollout_backend='auto' is not ported yet (ROADMAP Queue 1 item 9: the "
+                "rollout_backend='auto' is not ported yet (ROADMAP Queue 1 item 7: the "
                 "backend rule)"
             )
         if rollout_backend not in ROLLOUT_BACKENDS:
@@ -119,6 +121,8 @@ class MPCPolicy(ModelBasedPolicy):
                 "be silently ignored — use the 'eager' or 'kernel' backend"
             )
         self._smoothness = float(action_smoothness_weight)
+        self._writer = metrics_writer
+        self._act_counter = 0
         self._generator = torch.Generator(device=self._device)
         self._generator.manual_seed(seed)
         self._solver_kwargs = dict(solver_kwargs)
@@ -254,6 +258,11 @@ class MPCPolicy(ModelBasedPolicy):
         action = flat[:n_a].reshape(action.shape)
         next_obs = flat[n_a:n_a + n_o].reshape(next_obs.shape)
         pred_reward = flat[n_a + n_o:].reshape(pred_reward.shape)
+        self._act_counter += 1
+        if self._writer is not None:
+            self._writer.scalar(
+                "rewards/predicted_reward", float(np.mean(pred_reward)), self._act_counter
+            )
         if batched:
             return action, next_obs, pred_reward
         return action[0], next_obs[0], pred_reward[0]

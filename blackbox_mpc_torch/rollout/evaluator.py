@@ -91,7 +91,7 @@ def make_trajectory_evaluator(
         raise ValueError(f"num_particles must be >= 1, got {num_particles}")
     if num_particles > 1:
         raise NotImplementedError(
-            "num_particles > 1 is not ported yet (ROADMAP Queue 1 item 11, the "
+            "num_particles > 1 is not ported yet (ROADMAP Queue 1 items 4 and 8, the "
             "probabilistic stack)"
         )
     if action_smoothness_weight < 0:

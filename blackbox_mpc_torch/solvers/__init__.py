@@ -35,7 +35,7 @@ def lookup(name: str):
     """``(ConfigClass, factory)`` of ``name``; raises for unported and unknown names."""
     if name in UNPORTED_SOLVERS:
         raise NotImplementedError(
-            f"solver {name!r} is not ported yet (ROADMAP Queue 1 item 10); "
+            f"solver {name!r} is not ported yet (ROADMAP Queue 1 item 6); "
             f"ported: {sorted(SOLVER_REGISTRY)}"
         )
     try:

@@ -80,7 +80,7 @@ def init_solution_mean(
     bounds: Bounds, horizon: int, num_agents: int, dtype=torch.float32, device=None
 ) -> torch.Tensor:
     """Midpoint-of-action-space initial plan, [A, H, U]."""
-    mid = torch.as_tensor(bounds.midpoint, dtype=dtype, device=device)
+    mid = bounds.constant("midpoint", device).to(dtype)
     return mid.expand(num_agents, horizon, bounds.dim).clone()
 
 
@@ -88,7 +88,7 @@ def init_solution_variance(
     bounds: Bounds, horizon: int, num_agents: int, dtype=torch.float32, device=None
 ) -> torch.Tensor:
     """(range/4)^2 initial variance, [A, H, U]."""
-    var = torch.as_tensor(bounds.default_variance, dtype=dtype, device=device)
+    var = bounds.constant("default_variance", device).to(dtype)
     return var.expand(num_agents, horizon, bounds.dim).clone()
 
 

@@ -54,7 +54,7 @@ def check_config(config: CEMConfig) -> None:
     factories refuse."""
     if config.time_major:
         raise NotImplementedError(
-            "CEMConfig.time_major=True is not ported yet (ROADMAP Queue 1 item 4: the "
+            "CEMConfig.time_major=True is not ported yet (ROADMAP Queue 1 item 5: the "
             "time-major candidate layout)"
         )
     reserved = 1 + (1 if config.mean_as_candidate else 0)
@@ -101,8 +101,10 @@ def cem_iteration(config: CEMConfig, bounds: Bounds, evaluate, obs, mean, var, g
         samples = torch.cat([samples, carried.transpose(0, 1)], dim=0)
     rewards = evaluate(obs, samples)  # [P, A]
     elite_vals, elite_idx = torch.topk(rewards.T, k, dim=1)  # [A, k]
-    mask = torch.zeros((pop, agents), dtype=samples.dtype, device=samples.device)
-    mask[elite_idx.T, torch.arange(agents, device=samples.device)[None, :]] = 1.0
+    # scatter_ from a source on the device: a Python scalar would be a host copy that waits
+    # for the rollout.
+    mask = torch.zeros((pop, agents), dtype=samples.dtype, device=samples.device).scatter_(
+        0, elite_idx.T, torch.ones((k, agents), dtype=samples.dtype, device=samples.device))
     w = mask[:, :, None, None]
     new_mean = torch.sum(w * samples, dim=0) / k
     new_var = torch.sum(w * torch.square(samples - new_mean[None]), dim=0) / k

@@ -16,6 +16,7 @@ import types
 import numpy as np
 import torch
 
+from blackbox_mpc_torch.core.device import per_device
 from blackbox_mpc_torch.core.types import Bounds, Solver, SolverAux, TrajectoryEvaluator
 from blackbox_mpc_torch.solvers import base
 
@@ -92,6 +93,8 @@ def cma_constants(config: CMAESConfig, bounds: Bounds, horizon: int, pop: int, k
         n=n, weights=w, mu_eff=mu_eff, nf=nf, c_sigma=c_sigma, d_sigma=d_sigma, cc=cc,
         c1=c1, c_mu=c_mu, expectation_of_normal=expectation_of_normal,
         eigen_gap=eigen_gap, sigma0=sigma0,
+        weights_on=per_device(lambda device: torch.as_tensor(w, device=device)),
+        sigma0_on=per_device(lambda device: torch.as_tensor(sigma0, device=device)),
     )
 
 
@@ -125,7 +128,7 @@ def step_size_update(config: CMAESConfig, C, s: CMAESState, y_mean: torch.Tensor
     norm = torch.linalg.norm(p_sigma, dim=-1)
     sigma = s.sigma * torch.exp(
         (C.c_sigma / C.d_sigma) * (norm / C.expectation_of_normal - 1.0))[:, None]
-    sigma0 = torch.as_tensor(C.sigma0, device=sigma.device)
+    sigma0 = C.sigma0_on(sigma.device)
     sigma = torch.clamp(sigma, config.sigma_floor * sigma0, config.sigma_ceil * sigma0)
     if config.adaptive_h_sigma:
         warmup = 1.0 - (1.0 - C.c_sigma) ** (2.0 * (float(s.gen) + 1.0))
@@ -172,7 +175,7 @@ def make_cma_es(config: CMAESConfig, bounds: Bounds, evaluate: TrajectoryEvaluat
         if not config.persist_across_solves:
             # Fresh adaptation state each solve; only the (already time-shifted) mean carries.
             s = dataclasses.replace(init(generator), mean=state.mean)
-        weights = torch.as_tensor(C.weights, device=s.mean.device)
+        weights = C.weights_on(s.mean.device)
         for i in range(config.max_iterations):
             z = standard_normal(generator, (agents, pop, n))
             # y_i = L z_i ~ N(0, C) through the Cholesky factor.

@@ -54,7 +54,7 @@ def check_config(config: PI2Config) -> None:
     if config.time_major:
         raise NotImplementedError(
             f"{type(config).__name__}.time_major=True is not ported yet (ROADMAP Queue 1 item "
-            "4: the time-major candidate layout)"
+            "5: the time-major candidate layout)"
         )
 
 

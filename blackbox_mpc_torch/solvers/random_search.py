@@ -37,7 +37,7 @@ def make_random_search(
 ) -> Solver:
     if config.time_major:
         raise NotImplementedError(
-            "RandomSearchConfig.time_major=True is not ported yet (ROADMAP Queue 1 item 4: "
+            "RandomSearchConfig.time_major=True is not ported yet (ROADMAP Queue 1 item 5: "
             "the time-major candidate layout)"
         )
     horizon, agents, pop = config.planning_horizon, config.num_agents, config.population

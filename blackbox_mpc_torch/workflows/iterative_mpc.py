@@ -1,0 +1,158 @@
+"""Iterative model-based RL: alternate collecting with MPC and retraining the dynamics model.
+
+Counterpart of ``blackbox_mpc_tpu/workflows/iterative_mpc.py``: bootstrap with random-policy
+rollouts and a first training, build an MPC policy on the learned model, then N refinements of
+collect-with-MPC and retrain. Returns ``(handler, policy)``. The policy reads the handler's
+current parameters at every solve, so each refinement plans on the weights of the last
+``train()``, on every rollout backend.
+"""
+from __future__ import annotations
+
+import json
+import logging
+import os
+from typing import Callable, Optional
+
+from blackbox_mpc_torch.learning.handler import DynamicsHandler
+from blackbox_mpc_torch.models.dynamics import LearnedDynamicsConfig
+from blackbox_mpc_torch.policies.mpc_policy import MPCPolicy
+from blackbox_mpc_torch.policies.random_policy import RandomPolicy
+from blackbox_mpc_torch.workflows.dynamics_learning import learn_dynamics_from_policy
+
+logger = logging.getLogger(__name__)
+
+__all__ = ["learn_dynamics_iteratively_w_mpc"]
+
+
+def learn_dynamics_iteratively_w_mpc(
+    env,
+    reward_function: Callable,
+    solver_name: str = "CEM",
+    planning_horizon: int = 50,
+    number_of_initial_rollouts: int = 5,
+    number_of_rollouts_per_refinement: int = 1,
+    number_of_refinement_steps: int = 5,
+    rollout_horizon: int = 200,
+    dynamics_config: Optional[LearnedDynamicsConfig] = None,
+    handler: Optional[DynamicsHandler] = None,
+    epochs: int = 30,
+    batch_size: int = 128,
+    patience: Optional[int] = None,
+    learning_rate: float = 1e-3,
+    exploration_noise: bool = False,
+    metrics_writer=None,
+    seed: int = 0,
+    checkpoint_dir: Optional[str] = None,
+    resume: bool = False,
+    overlap: bool = False,
+    behavior_cloning: bool = False,
+    bc_epochs: int = 20,
+    bc_hidden: tuple = (64, 64),
+    solver_learning_rate: Optional[float] = None,
+    device=None,
+    **solver_kwargs,
+):
+    """The full MBRL loop. ``solver_kwargs`` go to :class:`MPCPolicy` and from there into the
+    solver config (``population``, ``rollout_backend``, ...).
+
+    ``checkpoint_dir``: the handler (model, optimizer state, normalizer, replay) and the loop
+    counter (``loop_state.json``) are checkpointed after the bootstrap and after every
+    refinement; ``resume=True`` restores them and continues at the next refinement.
+    ``solver_learning_rate`` goes to the solver config as ``learning_rate`` (Gradient) or
+    ``gd_learning_rate`` (CEM-GD), since the workflow's ``learning_rate`` is the model's.
+    ``device`` (default ``"cuda"``) is the handler's and the policy's.
+
+    ``overlap=True`` (the speculative pipeline) and ``behavior_cloning=True`` (the policy
+    proposer, ``bc_epochs`` and ``bc_hidden``) are not ported yet and raise.
+    """
+    del bc_epochs, bc_hidden
+    for name, flag, needs in (("overlap", overlap, "policies/pipeline.py"),
+                              ("behavior_cloning", behavior_cloning, "learning/proposer.py")):
+        if flag:
+            raise NotImplementedError(f"{name}=True needs {needs}, which is not ported yet "
+                                      "(ROADMAP Queue 1 item 8)")
+    if solver_learning_rate is not None:
+        lr_field = "gd_learning_rate" if solver_name == "CEM-GD" else "learning_rate"
+        solver_kwargs[lr_field] = solver_learning_rate
+    num_agents = env.num_envs
+    start_refinement = 0
+    if resume:
+        if checkpoint_dir is None:
+            raise ValueError("resume=True requires checkpoint_dir")
+        state_path = os.path.join(checkpoint_dir, "loop_state.json")
+        if os.path.exists(state_path):
+            with open(state_path) as f:
+                loop_state = json.load(f)
+            handler = DynamicsHandler.load(
+                os.path.join(checkpoint_dir, "handler"),
+                learning_rate=learning_rate,
+                metrics_writer=metrics_writer,
+                device=device,
+            )
+            start_refinement = int(loop_state["completed_refinements"])
+            number_of_initial_rollouts = 0
+            logger.info("resumed MBRL loop at refinement %d", start_refinement)
+
+    def _checkpoint(completed: int):
+        if checkpoint_dir is None:
+            return
+        os.makedirs(checkpoint_dir, exist_ok=True)
+        handler.save(os.path.join(checkpoint_dir, "handler"))
+        with open(os.path.join(checkpoint_dir, "loop_state.json"), "w") as f:
+            json.dump({"completed_refinements": completed}, f)
+
+    if number_of_initial_rollouts > 0:
+        random_policy = RandomPolicy(env.action_space, num_agents=num_agents, seed=seed)
+        logger.info("collecting %d bootstrap rollouts with a random policy",
+                    number_of_initial_rollouts)
+        handler, _, _ = learn_dynamics_from_policy(
+            env,
+            random_policy,
+            handler=handler,
+            dynamics_config=dynamics_config,
+            number_of_rollouts=number_of_initial_rollouts,
+            rollout_horizon=rollout_horizon,
+            epochs=epochs,
+            batch_size=batch_size,
+            patience=patience,
+            learning_rate=learning_rate,
+            metrics_writer=metrics_writer,
+            device=device,
+        )
+    elif handler is None:
+        raise ValueError("need number_of_initial_rollouts > 0 or a pre-trained handler")
+
+    policy = MPCPolicy(
+        action_space=env.action_space,
+        reward_function=reward_function,
+        dynamics_handler=handler,
+        solver_name=solver_name,
+        num_agents=num_agents,
+        planning_horizon=planning_horizon,
+        seed=seed,
+        metrics_writer=metrics_writer,
+        device=handler.device,
+        **solver_kwargs,
+    )
+    if start_refinement == 0:
+        _checkpoint(0)
+    for i in range(start_refinement, number_of_refinement_steps):
+        logger.info("refinement step %d/%d", i + 1, number_of_refinement_steps)
+        handler, result, metrics = learn_dynamics_from_policy(
+            env,
+            policy,
+            handler=handler,
+            number_of_rollouts=number_of_rollouts_per_refinement,
+            rollout_horizon=rollout_horizon,
+            epochs=epochs,
+            batch_size=batch_size,
+            patience=patience,
+            exploration_noise=exploration_noise,
+            metrics_writer=metrics_writer,
+        )
+        logger.info(
+            "refinement %d: episode reward %.2f, val loss %.5f",
+            i + 1, result["reward_sum"][-1], metrics["val_loss"],
+        )
+        _checkpoint(i + 1)
+    return handler, policy

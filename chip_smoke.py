@@ -39,10 +39,28 @@ It imports nothing of JAX and nothing of the JAX package. Phases, each fatal on 
    over exactly that run must be its count per ``act()`` times the steps: K4 and K6 once per
    iteration (RandomSearch: K4 once, K6 never), ``draw_rows`` 1 + iterations for iCEM, once
    for RandomSearch, never elsewhere; the plain RNG (``_mirror_z``, ``_gen_z``) must see no
-   CUDA tensor. One more ``act()`` of fused CEM and of fused iCEM runs under
+   CUDA tensor. One more ``act()`` of fused CEM, fused iCEM and fused CMA-ES runs under
    ``torch.profiler``: the ten device operations that take the most time, the count of K6's
-   kernels (one per iteration) and the device's idle share of the ``act()`` window. The eager
-   backend runs 3 steps, timed.
+   kernels (one per iteration), the device's idle share of the ``act()`` window and the
+   host's ``cudaStreamSynchronize`` calls, which must be 2 (the observation in, the action
+   out) for fused CEM and at most 2 for the others. Fused CEM is also traced, and timed in
+   turns, with the elite mask written from a Python scalar (the former scatter, which made
+   the host wait for K4 in every iteration), beside the scatter from a device source. The eager backend runs 3 steps, timed.
+6. MBRL loop: ``learn_dynamics_iteratively_w_mpc`` on the native pendulum (2 envs, episodes of
+   50 steps; S=3, U=1) with the flagship ensemble (3x500 tanh, 5 members, mean, f32) and CEM
+   (H=50, population 1000, 50 elites, 5 iterations): one random bootstrap rollout, then 2
+   refinements of one MPC rollout each, 5 epochs of batch 128 per ``train()``, on
+   ``"kernel"`` and on ``"fused"``. Gates: after every ``train()`` K2 (against the eager
+   evaluator) and K4 (against its plain version) on the trained weights and fitted stats,
+   1e-4 relative; the policy's evaluator packs the weights once at its first ``act()`` and
+   once after each ``train()`` that precedes an ``act()``; K2, or K4 and K6, launched
+   steps x iterations times over the loop and nothing else, the plain RNG on no CUDA tensor;
+   the final model's validation loss below the random initial model's, every action finite
+   and in bounds; the loop's checkpoint loads bit for bit (params, Adam state, stats, replay
+   and its RNG), two policies with one seed act alike on both, and ``resume=True`` continues
+   at the next refinement. Printed with the card's name and power limit: ``act()`` p50/p95,
+   seconds per ``train()``, ms per epoch, seconds per refinement, and the idle share of one
+   traced ``act()`` on the trained model.
 
 The line before the last two is ``{"kernels": [...]}``; then the card's name and power
 limit; the last line is ``{"ok": true, "device": {...}}``.
@@ -815,8 +833,23 @@ FUSED_FAMILY = {
     "fused CMA-ES": ("CMA-ES", dict(num_elite=50, max_iterations=ITERS, diagonal=True),
                      BACKEND_KERNELS["fused"]),
 }
-# The drives of which one more act() is traced.
-TRACED = ("fused", "fused iCEM")
+# The drives of which one more act() is traced, and the most cudaStreamSynchronize calls one
+# act() may make: the observation's copy in and the action's copy out.
+TRACED = ("fused", "fused iCEM", "fused CMA-ES")
+MAX_SYNCS = 2
+
+
+def scalar_scatter_by_rank(values, index, population: int):
+    """The elite mask written from a Python scalar through ``index_put_``, as the fused CEM
+    once did: the scalar is copied from pageable host memory, so the host waits for K4 in
+    every iteration. Traced beside ``_scatter_by_rank`` (a device source) to show the cost."""
+    import torch
+
+    agents = index.shape[0]
+    out = torch.zeros((population, agents), dtype=torch.float32, device=index.device)
+    out[index.T, torch.arange(agents, device=index.device)[None, :]] = (
+        1.0 if values is None else values[:, None])
+    return out
 
 
 def trace_act(policy, obs, label: str) -> dict:
@@ -834,6 +867,11 @@ def trace_act(policy, obs, label: str) -> dict:
     events = prof.events()
     window = next(e.time_range for e in events
                   if e.name == "act" and e.device_type == DeviceType.CPU)
+    # The host's waits for the device: each cudaStreamSynchronize (a blocking copy, a read of
+    # a device value) holds the host until the stream drains.
+    syncs = sum(1 for e in events if e.name == "cudaStreamSynchronize"
+                and e.device_type == DeviceType.CPU
+                and window.start <= e.time_range.start <= window.end)
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
                    if e.device_type == DeviceType.CUDA
                    and not getattr(e, "is_user_annotation", False))
@@ -857,7 +895,7 @@ def trace_act(policy, obs, label: str) -> dict:
            "device_idle_share": 1.0 - busy / (window.end - window.start),
            "idle_gaps_us": [{"us": us, "at_us": at, "before": name}
                             for us, at, name in sorted(gaps, reverse=True)[:6]],
-           "device_ops": len(spans),
+           "device_ops": len(spans), "stream_syncs": syncs,
            "k6_kernels": sum(n for name, (_, n) in by_name.items() if "moments_" in name),
            "draw_rows_kernels": sum(n for name, (_, n) in by_name.items()
                                     if "draw_rows_kernel" in name),
@@ -915,7 +953,41 @@ def drive_policy(device, backend: str, steps: int, label: str | None = None) -> 
            "last_action": [float(a) for a in action], "last_predicted_reward": float(reward)}
     print(json.dumps(res), flush=True)
     if label in TRACED:
+        if label == "fused":
+            from blackbox_mpc_torch.ops import fused_cem as fc
+
+            repaired = fc._scatter_by_rank
+            in_turns = {"scalar_scatter": [], "device_source_scatter": []}
+            try:
+                fc._scatter_by_rank = scalar_scatter_by_rank
+                before = trace_act(policy, obs, "fused, the elite mask from a Python scalar")
+                # act() with either scatter, in turns: scalar, device, device, scalar.
+                for name in ("scalar_scatter", "device_source_scatter") * 2:
+                    fc._scatter_by_rank = (scalar_scatter_by_rank
+                                           if name == "scalar_scatter" else repaired)
+                    for _ in range(steps):
+                        t0 = time.perf_counter()
+                        policy.act(obs)
+                        in_turns[name].append((time.perf_counter() - t0) * 1e3)
+            finally:
+                fc._scatter_by_rank = repaired
         res["trace"] = trace_act(policy, obs, label)
+        if label == "fused":
+            print(json.dumps({"device_idle_share_fused_cem_act": {
+                "scalar_scatter": before["device_idle_share"],
+                "device_source_scatter": res["trace"]["device_idle_share"]},
+                "stream_syncs": {"scalar_scatter": before["stream_syncs"],
+                                 "device_source_scatter": res["trace"]["stream_syncs"]},
+                "act_ms_in_turns": {k: {"median": float(np.median(v)), "all": v}
+                                    for k, v in in_turns.items()},
+                "card": nvidia_smi()}), flush=True)
+        if label == "fused" and res["trace"]["stream_syncs"] != MAX_SYNCS:
+            raise AssertionError(f"{label}: {res['trace']['stream_syncs']} cudaStreamSynchronize "
+                                 f"calls in one act(), expected {MAX_SYNCS} (observation in, "
+                                 "action out)")
+        if res["trace"]["stream_syncs"] > MAX_SYNCS:
+            raise AssertionError(f"{label}: {res['trace']['stream_syncs']} cudaStreamSynchronize "
+                                 f"calls in one act(), more than {MAX_SYNCS}")
         iterations = per_act["elite_moments"]
         if res["trace"]["k6_kernels"] != iterations:
             raise AssertionError(f"{label}: {res['trace']['k6_kernels']} K6 kernels in one "
@@ -923,6 +995,228 @@ def drive_policy(device, backend: str, steps: int, label: str | None = None) -> 
         if res["trace"]["draw_rows_kernels"] != per_act.get("draw_rows", 0):
             raise AssertionError(f"{label}: {res['trace']['draw_rows_kernels']} draw_rows "
                                  f"kernels in one act(), expected {per_act.get('draw_rows', 0)}")
+    return res
+
+
+# Phase 6: the MBRL loop at the flagship network width on the native pendulum (S=3, U=1), two
+# agents, CEM at H=50, population 1000, 50 elites, 5 iterations.
+MBRL = dict(num_envs=2, episode_steps=50, initial_rollouts=1, refinements=2, epochs=5,
+            batch_size=128)
+MBRL_RESUME_STEPS = 5  # the resumed refinement collects this many steps
+
+
+@contextlib.contextmanager
+def uncounted(plain_calls: dict):
+    """Launches, operand packs and plain RNG calls made inside are not counted: gate 1's
+    comparisons run their own evaluators and plain versions beside the policy's."""
+    from blackbox_mpc_torch.ops import rollout_kernel as rk
+
+    counters = launch_counters()
+    saved = {name: wrapper.launches for name, wrapper in counters.items()}
+    packs, plain = rk.make_operands.calls, dict(plain_calls)
+    try:
+        yield
+    finally:
+        for name, wrapper in counters.items():
+            wrapper.launches = saved[name]
+        rk.make_operands.calls = packs
+        plain_calls.update(plain)
+
+
+def trained_kernels_vs_plain(device, handler, obs) -> dict:
+    """Gate 1 on the handler's trained weights and fitted stats: K2 (through the kernel
+    evaluator) against the eager evaluator on the same candidates, and K4 against its plain
+    version on the same inputs, at two agents x population ROWS; rewards, states and actions
+    within TOLERANCE["float32"] relative to max(1, max |plain|)."""
+    from functools import partial
+
+    import torch
+
+    from blackbox_mpc_torch.models.analytic import pendulum_reward
+    from blackbox_mpc_torch.ops import fused_cem as fc
+    from blackbox_mpc_torch.ops import rollout_kernel as rk
+    from blackbox_mpc_torch.rollout.evaluator import make_trajectory_evaluator
+
+    config, dp = handler.config, handler.dynamics_params
+    agents = obs.shape[0]
+    rows = ROWS * agents
+    g = torch.Generator(device=device).manual_seed(11)
+    s0 = torch.as_tensor(obs, dtype=torch.float32, device=device)
+    acts = torch.rand((ROWS, agents, HORIZON, config.dim_u), generator=g, device=device) * 4 - 2
+    got = rk.make_rollout_kernel_evaluator(config, pendulum_reward, device=device)(dp, s0, acts)
+    ref = make_trajectory_evaluator(partial(handler.dynamics_fn, dp), pendulum_reward,
+                                    device=device)(s0, acts)
+    errs = {"k2_rewards": (got, ref)}
+    ops = rk.make_operands(dp, config)
+    mean = torch.zeros((agents, HORIZON * config.dim_u), device=device)
+    std = torch.full_like(mean, 1.0)
+    seed = torch.tensor([24681357], dtype=torch.int32, device=device)
+    rows_pad = -(-rows // rk.TILE_MEAN) * rk.TILE_MEAN
+    states, actions = (o[:, :rows] for o in fc.fused_rollout(config, ops, s0, mean, std, seed,
+                                                              rows_pad))
+    ref_states, ref_actions = fc.fused_rollout_plain(config, ops, s0, mean, std, seed, rows)
+    errs.update(k4_states=(states, ref_states), k4_actions=(actions, ref_actions))
+    out = {}
+    for what, (a, b) in errs.items():
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"trained {what}: not finite")
+        err, scale = float((a - b).abs().max()), max(1.0, float(b.abs().max()))
+        out[what] = err / scale
+        if err > TOLERANCE["float32"] * scale:
+            raise AssertionError(f"trained {what}: kernel vs plain {err} > "
+                                 f"{TOLERANCE['float32']} * {scale}")
+    return out
+
+
+def same_bits(a, b) -> bool:
+    """Tensors or arrays of one dtype and shape whose bytes are equal."""
+    import numpy as np
+    import torch
+
+    a, b = ((x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)) for x in (a, b))
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def checkpoint_matches(handler, loaded) -> None:
+    """Gate 5: ``loaded`` holds ``handler``'s params (trainable and planning), Adam state, step,
+    stats, replay and RNG state, bit for bit."""
+    from blackbox_mpc_torch.models.normalizer import STATS_FIELDS
+
+    a, b = handler.train_state, loaded.train_state
+    pairs = [(f"params {i} {k}", x[k].detach(), y[k].detach())
+             for i, (x, y) in enumerate(zip(a.params, b.params)) for k in x]
+    pairs += [(f"planning {i} {k}", x[k], y[k]) for i, (x, y) in
+              enumerate(zip(handler.dynamics_params.params, loaded.dynamics_params.params))
+              for k in x]
+    sa, sb = a.optimizer.state_dict()["state"], b.optimizer.state_dict()["state"]
+    pairs += [(f"adam {i} {k}", sa[i][k], sb[i][k]) for i in sa for k in sa[i]]
+    pairs += [(f"stats {f}", getattr(handler.dynamics_params.stats, f),
+               getattr(loaded.dynamics_params.stats, f)) for f in STATS_FIELDS]
+    ra, rb = handler.replay.state_dict(), loaded.replay.state_dict()
+    pairs += [(f"replay {k}", ra[k], rb[k]) for k in ra]
+    bad = [what for what, x, y in pairs if not same_bits(x, y)]
+    if bad or a.step != b.step or sorted(sa) != sorted(sb):
+        raise AssertionError(f"checkpoint round trip differs: {bad}, step {a.step} vs {b.step}")
+
+
+def mbrl_loop(device, backend: str) -> dict:
+    """Phase 6 on one rollout backend: ``learn_dynamics_iteratively_w_mpc`` from a random
+    bootstrap through MBRL["refinements"] refinements, each collecting one episode with
+    ``MPCPolicy`` on ``backend`` planning on the trained weights; then the five gates."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from blackbox_mpc_torch import (DynamicsHandler, LearnedDynamicsConfig, MetricsWriter,
+                                    MPCPolicy, learn_dynamics_iteratively_w_mpc)
+    from blackbox_mpc_torch.envs import NativePendulumVecEnv
+    from blackbox_mpc_torch.models.analytic import pendulum_reward
+    from blackbox_mpc_torch.ops import rollout_kernel as rk
+
+    smi = nvidia_smi()
+    config = LearnedDynamicsConfig(dim_s=3, dim_u=1, hidden=FLAGSHIP["hidden"],
+                                   ensemble_size=FLAGSHIP["ensemble_size"], propagation="mean")
+    solver = dict(solver_name="CEM", planning_horizon=HORIZON, population=ROWS, num_elite=50,
+                  max_iterations=ITERS, rollout_backend=backend, seed=0)
+    env = NativePendulumVecEnv(num_envs=MBRL["num_envs"], seed=0,
+                               max_episode_steps=MBRL["episode_steps"])
+    handler = DynamicsHandler(config, seed=0, device=device)
+    initial = [{k: v.clone() for k, v in layer.items()} for layer in handler.dynamics_params.params]
+    writer = MetricsWriter()
+    trains = []  # per train(): its seconds, epochs, ms per epoch, val loss
+    marks = []  # (train() done, gate 1 done): a refinement runs from one gate 1 to the next train
+    gate1 = []
+    train = handler.train
+
+    # The checkpoints live in a temporary directory that goes with the phase.
+    with tempfile.TemporaryDirectory(prefix="mbrl_") as ckpt:
+        with plain_rng_on_cuda() as plain_calls:
+            def timed_train(*args, **kwargs):
+                t0 = time.perf_counter()
+                metrics = train(*args, **kwargs)
+                torch.cuda.synchronize()
+                done = time.perf_counter()
+                trains.append({"train_s": done - t0, "epochs": metrics["epochs_ran"],
+                               "ms_per_epoch": (done - t0) * 1e3 / metrics["epochs_ran"],
+                               "val_loss": metrics["val_loss"]})
+                with uncounted(plain_calls):
+                    obs = handler.replay.arrays()[2][-MBRL["num_envs"]:]
+                    gate1.append(trained_kernels_vs_plain(device, handler, obs))
+                marks.append((done, time.perf_counter()))
+                return metrics
+
+            handler.train = timed_train
+            counters = launch_counters()
+            for wrapper in counters.values():
+                wrapper.launches = 0
+            rk.make_operands.calls = 0
+            t0 = time.perf_counter()
+            handler, policy = learn_dynamics_iteratively_w_mpc(
+                env, pendulum_reward, number_of_initial_rollouts=MBRL["initial_rollouts"],
+                number_of_rollouts_per_refinement=1, number_of_refinement_steps=MBRL["refinements"],
+                rollout_horizon=MBRL["episode_steps"], handler=handler, epochs=MBRL["epochs"],
+                batch_size=MBRL["batch_size"], metrics_writer=writer, checkpoint_dir=ckpt,
+                device=device, **solver)
+        loop_s = time.perf_counter() - t0
+        launches = {name: wrapper.launches for name, wrapper in counters.items()}
+        packs = rk.make_operands.calls
+        label = f"MBRL {backend}"
+        # Gate 2: the policy's evaluator packs once at its first act() and once after each train()
+        # that precedes an act(): the refinements but the last.
+        if packs != MBRL["refinements"]:
+            raise AssertionError(f"{label}: {packs} operand packs, expected {MBRL['refinements']}")
+        # Gate 3: every solve launched its kernels once per iteration, and nothing else ran.
+        acts = MBRL["refinements"] * MBRL["episode_steps"]
+        expected = {name: 0 for name in counters}
+        expected.update({name: acts * n for name, n in BACKEND_KERNELS[backend].items()})
+        if launches != expected:
+            raise AssertionError(f"{label}: kernel launches {launches}, expected {expected}")
+        if any(plain_calls.values()):
+            raise AssertionError(f"{label}: the plain RNG ran on CUDA tensors: {plain_calls}")
+        # Gate 4: the model learned, and every action taken was finite and in bounds.
+        final_val = float(np.mean(handler.validation_losses(handler.dynamics_params.params)))
+        initial_val = float(np.mean(handler.validation_losses(initial)))
+        if not final_val < initial_val:
+            raise AssertionError(f"{label}: validation loss {final_val} not below the random "
+                                 f"model's {initial_val}")
+        taken = handler.replay.arrays()[1]
+        if not (np.isfinite(taken).all() and np.abs(taken).max() <= 2.0):
+            raise AssertionError(f"{label}: an action was not finite or out of bounds")
+        # Gate 5: the loop's last checkpoint is the returned handler, bit for bit; two policies
+        # with one seed act alike on both; a resumed loop continues at the next refinement.
+        loaded = DynamicsHandler.load(f"{ckpt}/handler", device=device)
+        checkpoint_matches(handler, loaded)
+        obs = env.reset()
+        first = [MPCPolicy(env.action_space, pendulum_reward, h, num_agents=MBRL["num_envs"],
+                           device=device, **solver).act(obs)[0] for h in (handler, loaded)]
+        if not same_bits(*first):
+            raise AssertionError(f"{label}: the loaded handler's first action differs: {first}")
+        resumed, _ = learn_dynamics_iteratively_w_mpc(
+            env, pendulum_reward, number_of_refinement_steps=MBRL["refinements"] + 1,
+            rollout_horizon=MBRL_RESUME_STEPS, epochs=1, batch_size=MBRL["batch_size"],
+            checkpoint_dir=ckpt, resume=True, device=device, **solver)
+        with open(f"{ckpt}/loop_state.json") as f:
+            completed = json.load(f)["completed_refinements"]
+        grown = len(resumed.replay) - len(loaded.replay)
+        if (completed, grown) != (MBRL["refinements"] + 1, MBRL_RESUME_STEPS * MBRL["num_envs"]):
+            raise AssertionError(f"{label}: resume ran to {completed} refinements and added "
+                                 f"{grown} transitions")
+        trace = trace_act(policy, obs, f"{label}, trained")
+    history = writer.history
+    res = {
+        "mbrl": backend, "card": smi, "loop_s": loop_s, "acts": acts, "launches": launches,
+        "operand_packs": packs, "trained_kernel_vs_plain_rel_err": gate1,
+        "val_loss": {"initial_random_model": initial_val, "final": final_val},
+        "act_ms_p50": [1e3 * v for _, v in history["perf/act_latency_p50_s"]],
+        "act_ms_p95": [1e3 * v for _, v in history["perf/act_latency_p95_s"]],
+        "trains": trains,
+        "refinement_wall_s": [done - gated for (done, _), (_, gated) in zip(marks[1:], marks)],
+        "checkpoint": "bit for bit", "resumed_at": MBRL["refinements"],
+        "trained_act_device_idle_share": trace["device_idle_share"],
+        "trained_act_stream_syncs": trace["stream_syncs"],
+    }
+    print(json.dumps(res), flush=True)
     return res
 
 
@@ -975,6 +1269,7 @@ def main() -> int:
     fused_run = drive_policy(device, "fused", STEPS)
     family = {label: drive_policy(device, "fused", STEPS, label) for label in FUSED_FAMILY}
     drive_policy(device, "eager", 3)
+    mbrl = {backend: mbrl_loop(device, backend) for backend in ("kernel", "fused")}
     print(json.dumps({"act_ms_median": {
         "kernel": kernel_run["act_ms_median"], "fused": fused_run["act_ms_median"],
         **{label: run["act_ms_median"] for label, run in family.items()}}}), flush=True)

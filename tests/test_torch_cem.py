@@ -140,7 +140,7 @@ def test_with_state_dtype_bf16_roundtrip():
 @pytest.mark.parametrize("solver", ["CEM", "PI2", "MPPI", "RandomSearch"])
 def test_unported_cem_options_raise(solver):
     """The time-major candidate layout is what is left of the options that raise."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         make_solver(solver, TBounds.of(-1.0, 1.0, dim=U), t_evaluate, time_major=True)
 
 
@@ -268,5 +268,5 @@ def test_registry_errors():
     with pytest.raises(KeyError, match="available"):
         make_solver("bogus", TBounds.of(-1.0, 1.0, dim=U), t_evaluate)
     for name in ("PSO", "SPSA", "Gradient", "CEM-GD"):
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(NotImplementedError, match="item 6"):
             make_solver(name, TBounds.of(-1.0, 1.0, dim=U), t_evaluate)

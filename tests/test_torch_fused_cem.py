@@ -347,7 +347,7 @@ def test_policy_fused_constructor_errors():
         build(solver_name="bogus")
     with pytest.raises(ValueError, match="keep_elites"):
         build(keep_elites=60)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         MPCPolicy(space, t_reward, th, device="cpu", rollout_backend="auto")
     # ts1 at 4 tiles of 256 rows for 5 members raises, as in the JAX package
     ts1 = DynamicsHandler(tdyn.LearnedDynamicsConfig(dim_s=S, dim_u=U, hidden=(8,),
@@ -404,7 +404,7 @@ def test_kernels_errors_kept_from_jax():
     with pytest.raises(ValueError, match="num_elite"):
         tc.make_fused_cem(TCEMConfig(population=10, num_elite=20), TBounds.of(-1.0, 1.0, dim=U),
                           tcfg, None, t_reward)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         tc.make_fused_cem(TCEMConfig(time_major=True), TBounds.of(-1.0, 1.0, dim=U), tcfg, None,
                           t_reward)
     for option, value in (("keep_elites", 51), ("population_decay", 0.0)):

@@ -18,6 +18,10 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "flax", "optax", "blackbox_mpc_tpu")))
 assert not bad, bad
 assert "triton" not in sys.modules
+# Optional packages load only where they are used: gymnasium in make_gym_vec_env, imageio in
+# record_rollout, tensorboardX in a MetricsWriter with a log_dir.
+lazy = sorted(m for m in sys.modules if m.split(".")[0] in ("gymnasium", "imageio", "tensorboardX"))
+assert not lazy, lazy
 print(len(names))
 """
 
@@ -26,4 +30,4 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 20  # every module was walked
+    assert int(out.stdout.strip().splitlines()[-1]) >= 45  # every module was walked

@@ -103,7 +103,7 @@ def test_unported_dynamics_raise():
                     dict(probabilistic=True),
                     dict(plan_uncertainty_penalty=0.5, ensemble_size=2)):
         cfg = tdyn.LearnedDynamicsConfig(dim_s=S, dim_u=U, **changes)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        with pytest.raises(NotImplementedError, match="Queue 1 items 4 and 8"):
             tdyn.make_learned_dynamics(cfg)
     with pytest.raises(ValueError, match="unknown propagation"):
         tdyn.make_learned_dynamics(tdyn.LearnedDynamicsConfig(dim_s=S, dim_u=U, propagation="x"))

@@ -123,7 +123,7 @@ def test_constructor_errors(monkeypatch):
         build(keep_elites=5, **SOLVER)  # more than num_elite
     with pytest.raises(ValueError, match="num_agents"):
         build(num_agents=2, **SOLVER).act(np.zeros((3, S), np.float32))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(RuntimeError, match="replay buffer is empty"):
         th.train()
     # The eager backend plans through a true model.
     assert build(true, **SOLVER).act(np.zeros(S, np.float32))[0].shape == (U,)
