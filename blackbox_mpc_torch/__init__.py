@@ -6,7 +6,9 @@ the fused solver family) over a learned MLP ensemble, with the rollout as a hand
 kernel (``rollout_backend="kernel"``) or an eager PyTorch loop (``"eager"``), and the
 generate-in-kernel solvers, whose CUDA kernels draw, roll out and reduce the candidates without
 storing them (``"fused"``); and the loop around it: vectorized envs, rollouts, the replay, the
-trainer, checkpoints and the MBRL workflows.
+trainer, checkpoints and the MBRL workflows. Probabilistic (PETS) ensembles plan on
+``"eager"``: Gaussian heads with fixed or learned logvar bounds, ``ts_inf``/``mm`` propagation
+with particles, the uncertainty penalty, and the heads' calibration after each training.
 """
 from blackbox_mpc_torch.core.types import Bounds
 from blackbox_mpc_torch.learning.handler import DynamicsHandler

@@ -6,7 +6,8 @@ the weights: the trainable ones inside the trainer's :class:`TrainState`, which 
 place, and the planning ``DynamicsParams`` (:attr:`dynamics_params`), tensors without grad that
 ``train()`` replaces by a new object when it ends. The kernel backends repack their weights
 when that object changes (``ops/rollout_kernel.py::operand_cache``), so the next ``act()``
-plans on the new weights.
+plans on the new weights. A probabilistic handler also reports the heads' variance
+calibration after each ``train()`` (:mod:`~blackbox_mpc_torch.learning.calibration`).
 
 Checkpoints: :meth:`save` writes ``config.json`` in the JAX package's format (version stamp,
 replay keys, the config with ``compute_dtype`` by name, the counters) and a ``torch.save``
@@ -26,12 +27,18 @@ import numpy as np
 import torch
 
 from blackbox_mpc_torch.core.device import resolve_device
+from blackbox_mpc_torch.learning.calibration import calibration_summary
 from blackbox_mpc_torch.learning.replay import ReplayBuffer
-from blackbox_mpc_torch.learning.trainer import make_trainer
+from blackbox_mpc_torch.learning.trainer import flat_params, make_trainer
 from blackbox_mpc_torch.models.dynamics import (
     DynamicsParams,
     LearnedDynamicsConfig,
+    logvar_bounds,
     make_learned_dynamics,
+    make_penalized_dynamics,
+    map_params,
+    net_layers,
+    true_model_dynamics,
 )
 from blackbox_mpc_torch.models.normalizer import STATS_FIELDS, NormalizerStats, fit_normalizer
 
@@ -59,9 +66,9 @@ def config_from_json(cfg: dict) -> LearnedDynamicsConfig:
     return LearnedDynamicsConfig(**cfg)
 
 
-def _planning_copy(params) -> list:
-    """Tensors without grad that no optimizer step touches."""
-    return [{k: v.detach().clone() for k, v in layer.items()} for layer in params]
+def _planning_copy(params):
+    """Tensors without grad that no optimizer step touches, in the layout of ``params``."""
+    return map_params(lambda v: v.detach().clone(), params)
 
 
 class DynamicsHandler:
@@ -106,19 +113,23 @@ class DynamicsHandler:
         if true_model is not None:
             self._is_true_model = True
             self._config = None
-            self._dynamics_fn = lambda dp, state, action: true_model(state, action)
+            self._dynamics_fn = true_model_dynamics(true_model)
             self._mean_dynamics_fn = self._dynamics_fn
+            self._penalized_dynamics_fn = None
             self._params = None
             self._replay = None
             return
         self._is_true_model = False
         self._config = config
         init, self._dynamics_fn = make_learned_dynamics(config)
-        if config.propagation == "mean":
+        self._penalized_dynamics_fn = (make_penalized_dynamics(config)
+                                       if config.plan_uncertainty_penalty > 0 else None)
+        if config.propagation in ("mean", "mm"):
+            # mm without noise returns the moment-matched mean, the mean of the member means.
             self._mean_dynamics_fn = self._dynamics_fn
         else:
             # Posterior-mean variant for the one-step lookahead: a [num_agents, S] probe
-            # batch need not divide the ensemble.
+            # batch need not divide the ensemble, and a report is no noise sample.
             _, self._mean_dynamics_fn = make_learned_dynamics(
                 dataclasses.replace(config, propagation="mean")
             )
@@ -147,14 +158,20 @@ class DynamicsHandler:
 
     @property
     def dynamics_fn(self) -> Callable:
-        """``(DynamicsParams, state [B,S], action [B,U]) -> next_state [B,S]``."""
+        """``(DynamicsParams, state [B,S], action [B,U], noise=None) -> next_state [B,S]``."""
         return self._dynamics_fn
 
     @property
     def mean_dynamics_fn(self) -> Callable:
-        """Posterior-mean dynamics (ensemble-averaged) for diagnostics; equals
-        :attr:`dynamics_fn` unless propagation is member-partitioned (``ts1``)."""
+        """Posterior-mean dynamics (ensemble-averaged head means) for diagnostics; equals
+        :attr:`dynamics_fn` unless propagation is member-partitioned (``ts1``/``ts_inf``)."""
         return self._mean_dynamics_fn
+
+    @property
+    def penalized_dynamics_fn(self) -> Optional[Callable]:
+        """``(dp, state, action, noise=None) -> (next_state, penalty [B])`` when the config
+        sets ``plan_uncertainty_penalty > 0`` (pessimistic planning), else ``None``."""
+        return self._penalized_dynamics_fn
 
     @property
     def dynamics_params(self) -> Optional[DynamicsParams]:
@@ -176,10 +193,8 @@ class DynamicsHandler:
         planning and for further training; the optimizer starts afresh."""
         if self._is_true_model:
             raise RuntimeError("a true-model handler has no parameters")
-        old = self._params
-        if len(dp.params) != len(old.params) or any(
-            new[k].shape != cur[k].shape for new, cur in zip(dp.params, old.params) for k in cur
-        ):
+        new, cur = flat_params(dp.params), flat_params(self._params.params)
+        if len(new) != len(cur) or any(a.shape != b.shape for a, b in zip(new, cur)):
             raise ValueError("parameter shapes do not match the handler's config")
         dp = dp.to(self._device)
         self._params = dp.replace(params=_planning_copy(dp.params))
@@ -281,15 +296,24 @@ class DynamicsHandler:
                 (best_val - member_val) > 0.01 * np.maximum(np.abs(best_val), 1e-3),
             )
             current = self._train_state.params
+            layers = net_layers(best_params)
             if better.any():
                 sel = torch.as_tensor(better, device=self._device)
                 # torch.where makes new tensors: the bests never alias what Adam updates.
-                best_params = [
+                layers = [
                     {k: torch.where(sel.reshape((ensemble,) + (1,) * (v.dim() - 1)),
-                                    current[i][k].detach(), v)
+                                    net_layers(current)[i][k].detach(), v)
                      for k, v in layer.items()}
-                    for i, layer in enumerate(best_params)
+                    for i, layer in enumerate(layers)
                 ]
+            lv_min, lv_max = logvar_bounds(current)
+            if lv_min is None:
+                best_params = layers
+            elif ensemble > 1 or better.any():
+                # The shared bounds have no member axis: as in JAX, the bests carry the
+                # current ones (at every epoch with E > 1, with the best net for E = 1).
+                best_params = {"net": layers, "lv_min": lv_min.detach().clone(),
+                               "lv_max": lv_max.detach().clone()}
             best_val = np.minimum(best_val, member_val)
             stall = 0 if improved.any() else stall + 1
             if stall >= patience:
@@ -306,22 +330,34 @@ class DynamicsHandler:
             final_val = self.validation_losses(self._params.params, batch_size)
         val_loss = float(np.mean(final_val)) if final_val is not None else float("nan")
         self._train_calls += 1
+        # The probabilistic heads' variance calibration on the validation split.
+        calibration = None
+        if self._config.probabilistic:
+            cal = calibration_summary(self)
+            if cal is not None:
+                calibration = cal["variance_ratio"]
         if self._writer is not None:
             self._writer.scalar("system_model/train_loss", last_train, self._train_calls)
             self._writer.scalar("system_model/val_loss", val_loss, self._train_calls)
+            if calibration is not None:
+                self._writer.scalar("system_model/val_calibration_ratio", calibration,
+                                    self._train_calls)
         logger.info(
             "dynamics train call %d: train_loss=%.5f val_loss=%.5f (replay: %d train / %d val)",
             self._train_calls, last_train, val_loss, self._replay.num_train, self._replay.num_val,
         )
         if self._save_dir is not None and self._train_calls % self._save_frequency == 0:
             self.save(self._save_dir)
-        return {
+        metrics = {
             "train_loss": last_train,
             "val_loss": val_loss,
             "replay_size": len(self._replay),
             "train_calls": self._train_calls,
             "epochs_ran": epochs_ran,
         }
+        if calibration is not None:
+            metrics["val_calibration_ratio"] = calibration
+        return metrics
 
     # ------------------------------------------------------------------ checkpointing
 
@@ -343,7 +379,7 @@ class DynamicsHandler:
             }, f)
         ts = self._train_state
         torch.save({
-            "params": [{k: v.detach() for k, v in layer.items()} for layer in ts.params],
+            "params": map_params(torch.Tensor.detach, ts.params),
             "optimizer": ts.optimizer.state_dict(),
             "step": ts.step,
             "stats": {f: getattr(self._params.stats, f) for f in STATS_FIELDS},
@@ -377,8 +413,8 @@ class DynamicsHandler:
     def _restore(self, params, stats: NormalizerStats, replay_state: dict, meta: dict) -> None:
         """Sets params (trainable and planning), stats, replay and counters; the optimizer
         starts afresh (the caller loads its state)."""
-        params = [{k: torch.as_tensor(v, dtype=torch.float32, device=self._device)
-                   for k, v in layer.items()} for layer in params]
+        params = map_params(
+            lambda v: torch.as_tensor(v, dtype=torch.float32, device=self._device), params)
         self._train_state = self._trainer_init(params)
         self._params = DynamicsParams(params=_planning_copy(params), stats=stats.to(self._device))
         self._replay.load_state_dict(replay_state)

@@ -3,22 +3,33 @@
 Counterpart of ``blackbox_mpc_tpu/learning/trainer.py``. The JAX package ``vmap``s one
 member's loss over the ensemble; here every member runs in one batched forward over ``[E]``
 (:func:`~blackbox_mpc_torch.models.mlp.ensemble_forward` under autograd, with the cast order of
-``models/mlp.py`` in bfloat16). The loss is the sum over members of each member's mean squared
-error on normalized delta targets, so each member's gradient is the one it would get if trained
-alone. The optimizer is ``torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)`` on the stacked
-``[E, ...]`` tensors: optax ``adam`` with ``eps_root=0``, elementwise.
+``models/mlp.py`` in bfloat16; the head stays float32). A member's loss is its mean squared
+error on normalized delta targets, or with ``probabilistic=True`` the Gaussian NLL
+``mean((mean - target)^2 * exp(-logvar) + logvar)`` with the bounded logvar. The loss is the
+sum over members, so each member's gradient is the one it would get if trained alone, plus
+with learned logvar bounds the band regularizer ``0.01 * (mean(lv_max) - mean(lv_min))``; the
+shared ``[S]`` bounds get every member's gradient. The optimizer is
+``torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)`` on the stacked tensors: optax ``adam``
+with ``eps_root=0``, elementwise.
 
 A step's losses stay on the device: the caller decides when to read them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import Any, List, Tuple
 
 import torch
 
 from blackbox_mpc_torch.models import transforms
-from blackbox_mpc_torch.models.dynamics import LearnedDynamicsConfig, check_config
+from blackbox_mpc_torch.models.dynamics import (
+    LearnedDynamicsConfig,
+    bound_logvar,
+    check_config,
+    logvar_bounds,
+    map_params,
+    net_layers,
+)
 from blackbox_mpc_torch.models.mlp import ensemble_forward
 from blackbox_mpc_torch.models.normalizer import NormalizerStats
 
@@ -27,22 +38,29 @@ __all__ = ["TrainState", "flat_params", "make_trainer"]
 # optax.adam's defaults.
 ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
+# PETS' weight of the logvar band regularizer, on per-dim means (JAX trainer.py:86-95).
+BOUND_REGULARIZER = 0.01
 
 
 @dataclasses.dataclass
 class TrainState:
-    """``params``: list of ``{"w": [E, in, out], "b": [E, out]}`` leaf tensors that require
-    grad; ``optimizer``: the Adam over them (in :func:`flat_params` order); ``step``: the
-    number of steps taken."""
+    """``params``: the layer list ``{"w": [E, in, out], "b": [E, out]}`` (or the learned-bounds
+    dict around it) of leaf tensors that require grad; ``optimizer``: the Adam over them (in
+    :func:`flat_params` order); ``step``: the number of steps taken."""
 
-    params: List[dict]
+    params: Any
     optimizer: torch.optim.Adam
     step: int = 0
 
 
 def flat_params(params) -> List[torch.Tensor]:
-    """The tensors of ``params`` in the optimizer's order: w then b, layer by layer."""
-    return [layer[k] for layer in params for k in ("w", "b")]
+    """The tensors of ``params`` in the optimizer's order: w then b, layer by layer, then
+    ``lv_min`` and ``lv_max`` in the learned-bounds layout."""
+    flat = [layer[k] for layer in net_layers(params) for k in ("w", "b")]
+    lv_min, lv_max = logvar_bounds(params)
+    if lv_min is not None:
+        flat += [lv_min, lv_max]
+    return flat
 
 
 def make_trainer(config: LearnedDynamicsConfig, learning_rate: float = 1e-3, mesh=None):
@@ -53,13 +71,14 @@ def make_trainer(config: LearnedDynamicsConfig, learning_rate: float = 1e-3, mes
       ``[E, B, .]`` on the parameters' device; ``ts`` is updated in place and returned;
     * ``eval_step(params, stats, s, a, ns) -> member_losses [E]``, without autograd.
 
-    ``probabilistic=True`` (the Gaussian NLL) and ``mesh`` are not ported yet and raise.
+    ``mesh`` is not ported yet and raises.
     """
     check_config(config)
     if mesh is not None:
         raise NotImplementedError(
             "data-parallel training over a mesh is not ported yet (ROADMAP Queue 1 item 9)")
     mlp_cfg = config.mlp
+    dim_s = config.dim_s
     transform = (transforms.delta_transform if config.predict_delta
                  else transforms.identity_transform)
 
@@ -70,13 +89,22 @@ def make_trainer(config: LearnedDynamicsConfig, learning_rate: float = 1e-3, mes
             target = stats.normalize_targets(target)
         else:
             x = torch.cat([s, a], dim=-1)
-        pred = ensemble_forward([(layer["w"], layer["b"]) for layer in params], x,
+        pred = ensemble_forward([(layer["w"], layer["b"]) for layer in net_layers(params)], x,
                                 mlp_cfg.activation, mlp_cfg.compute_dtype)
+        if config.probabilistic:
+            mean = pred[..., :dim_s]
+            logvar = bound_logvar(pred[..., dim_s:], *logvar_bounds(params))
+            return (torch.square(mean - target) * torch.exp(-logvar) + logvar).mean(dim=(1, 2))
         return torch.square(pred - target).mean(dim=(1, 2))  # [E]
 
+    def bound_regularizer(params):
+        lv_min, lv_max = logvar_bounds(params)
+        if lv_min is None:
+            return 0.0
+        return BOUND_REGULARIZER * (lv_max.mean() - lv_min.mean())
+
     def init(params) -> TrainState:
-        trainable = [{k: v.detach().clone().requires_grad_(True) for k, v in layer.items()}
-                     for layer in params]
+        trainable = map_params(lambda v: v.detach().clone().requires_grad_(True), params)
         optimizer = torch.optim.Adam(flat_params(trainable), lr=learning_rate,
                                      betas=ADAM_BETAS, eps=ADAM_EPS)
         return TrainState(params=trainable, optimizer=optimizer)
@@ -85,7 +113,7 @@ def make_trainer(config: LearnedDynamicsConfig, learning_rate: float = 1e-3, mes
                    ) -> Tuple[TrainState, torch.Tensor]:
         ts.optimizer.zero_grad(set_to_none=True)
         member_losses = losses(ts.params, stats, s, a, ns)
-        member_losses.sum().backward()
+        (member_losses.sum() + bound_regularizer(ts.params)).backward()
         ts.optimizer.step()
         ts.step += 1
         return ts, member_losses.detach()

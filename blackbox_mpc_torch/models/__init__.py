@@ -11,15 +11,22 @@ from blackbox_mpc_torch.models.dynamics import (
     DynamicsParams,
     LearnedDynamicsConfig,
     make_learned_dynamics,
+    true_model_dynamics,
     ts_member_ids,
 )
-from blackbox_mpc_torch.models.mlp import MLPConfig, ensemble_apply, ensemble_init, mlp_apply
+from blackbox_mpc_torch.models.mlp import (
+    MLPConfig,
+    ensemble_apply,
+    ensemble_init,
+    mlp_apply,
+    mlp_init,
+)
 from blackbox_mpc_torch.models.normalizer import NormalizerStats, fit_normalizer, identity_stats
 
 __all__ = [
     "ANALYTIC_MODELS", "DynamicsParams", "LearnedDynamicsConfig", "MLPConfig",
     "NormalizerStats", "angle_normalize", "cartpole_dynamics", "cartpole_reward",
     "dynamics_params_from_numpy", "ensemble_apply", "ensemble_init", "fit_normalizer",
-    "identity_stats", "make_learned_dynamics", "mlp_apply", "pendulum_dynamics",
-    "pendulum_reward", "ts_member_ids",
+    "identity_stats", "make_learned_dynamics", "mlp_apply", "mlp_init", "pendulum_dynamics",
+    "pendulum_reward", "true_model_dynamics", "ts_member_ids",
 ]

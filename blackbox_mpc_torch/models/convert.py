@@ -1,9 +1,10 @@
 """Weight bridge: JAX ``DynamicsParams`` (as numpy) -> the port's ``DynamicsParams``.
 
 ``params`` is ``DynamicsParams.params`` of the JAX package as numpy arrays: a list of
-``{"w": [E, in, out], "b": [E, out]}``, without the ``[E]`` axis when ``ensemble_size == 1``.
-``stats`` holds the six ``NormalizerStats`` fields as numpy, as a mapping or as attributes.
-With the same weights the port computes what the JAX package computes.
+``{"w": [E, in, out], "b": [E, out]}``, without the ``[E]`` axis when ``ensemble_size == 1``;
+with learned logvar bounds the mapping ``{"net": <that list>, "lv_min": [S], "lv_max": [S]}``,
+read by key. ``stats`` holds the six ``NormalizerStats`` fields as numpy, as a mapping or as
+attributes. With the same weights the port computes what the JAX package computes.
 
 :func:`handler_from_numpy` carries a whole training checkpoint of the JAX package over: the
 config, params, Adam state, step, stats and replay, as JAX's ``DynamicsHandler.load`` returns
@@ -51,6 +52,21 @@ def _layers_from_numpy(params, config: LearnedDynamicsConfig, device) -> list:
     return layers
 
 
+def _params_from_numpy(params, config: LearnedDynamicsConfig, device):
+    """``params`` (or an Adam moment of the same pytree) in the port's layout."""
+    layers = _layers_from_numpy(params["net"] if isinstance(params, Mapping) else params,
+                                config, device)
+    if not (config.probabilistic and config.learn_logvar_bounds):
+        return layers
+    bounds = {}
+    for name in ("lv_min", "lv_max"):
+        v = np.array(params[name], np.float32)
+        if v.shape != (config.dim_s,):
+            raise ValueError(f"{name}: got shape {v.shape}, expected {(config.dim_s,)}")
+        bounds[name] = torch.as_tensor(v, device=device)
+    return {"net": layers, **bounds}
+
+
 def dynamics_params_from_numpy(
     params, stats, config: LearnedDynamicsConfig, device=None
 ) -> DynamicsParams:
@@ -59,7 +75,7 @@ def dynamics_params_from_numpy(
         torch.as_tensor(np.array(_stat(stats, f), np.float32), device=device)
         for f in STATS_FIELDS
     ))
-    return DynamicsParams(params=_layers_from_numpy(params, config, device), stats=stat_tensors)
+    return DynamicsParams(params=_params_from_numpy(params, config, device), stats=stat_tensors)
 
 
 def _adam_field(opt_state, name: str):
@@ -78,7 +94,9 @@ def handler_from_numpy(meta: dict, params, opt_state, step, stats, replay: dict,
 
     ``meta`` is the dict of the checkpoint's ``config.json``; ``params`` and ``stats`` as in
     :func:`dynamics_params_from_numpy`; ``opt_state`` the Adam state (``mu`` -> ``exp_avg``,
-    ``nu`` -> ``exp_avg_sq``, ``count`` -> ``step``), as a mapping or as optax's state;
+    ``nu`` -> ``exp_avg_sq``, ``count`` -> ``step``), as a mapping or as optax's state, its
+    moments in the layout of ``params`` (matched by key: a JAX dict pytree flattens in
+    sorted key order, which is not the optimizer's);
     ``step`` the trainer's step; ``replay`` the replay's ``state_dict``. ``handler_kwargs``
     go to the constructor (``learning_rate``, ``seed``, ...). Training continues as the JAX
     handler's would.
@@ -91,7 +109,7 @@ def handler_from_numpy(meta: dict, params, opt_state, step, stats, replay: dict,
     dp = dynamics_params_from_numpy(params, stats, config, device=handler.device)
     handler._restore(dp.params, dp.stats, replay, meta)
     count = float(np.asarray(_adam_field(opt_state, "count")))
-    moments = [_layers_from_numpy(_adam_field(opt_state, name), config, handler.device)
+    moments = [_params_from_numpy(_adam_field(opt_state, name), config, handler.device)
                for name in ("mu", "nu")]
     optimizer = handler.train_state.optimizer
     optimizer.load_state_dict({

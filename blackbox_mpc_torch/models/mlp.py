@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = [
-    "ACTIVATIONS", "MLPConfig", "mlp_apply", "ensemble_init", "ensemble_apply",
+    "ACTIVATIONS", "MLPConfig", "mlp_apply", "mlp_init", "ensemble_init", "ensemble_apply",
     "ensemble_forward", "round_to",
 ]
 
@@ -64,6 +64,11 @@ def ensemble_init(generator: torch.Generator, config: MLPConfig, num_members: in
         _layer_init(generator, sizes[i], sizes[i + 1], lead=(num_members,))
         for i in range(len(sizes) - 1)
     ]
+
+
+def mlp_init(generator: torch.Generator, config: MLPConfig):
+    """One network, as a one-member ensemble (the port always keeps the ``[E]`` axis)."""
+    return ensemble_init(generator, config, 1)
 
 
 def ensemble_forward(layers, x: torch.Tensor, activation: str, compute_dtype) -> torch.Tensor:

@@ -7,7 +7,9 @@ action, predicted next observation and predicted reward to the host once.
 Rollout backends:
 
 * ``"eager"`` (default; the counterpart of ``"xla"``): the eager PyTorch evaluator
-  (:mod:`blackbox_mpc_torch.rollout.evaluator`), any dynamics;
+  (:mod:`blackbox_mpc_torch.rollout.evaluator`), any dynamics, among them the PETS
+  propagations ``ts_inf``/``mm`` with ``num_particles`` and pessimistic planning
+  (``plan_uncertainty_penalty``), which the kernel backends refuse as JAX's do;
 * ``"kernel"`` (the counterpart of ``"pallas"``): the hand-written CUDA rollout kernel
   (:mod:`blackbox_mpc_torch.ops.rollout_kernel`), learned MLP dynamics with mean/ts1
   propagation;
@@ -21,6 +23,11 @@ Rollout backends:
 ``"auto"`` is not ported yet. The JAX options ``mesh``, ``proposer``, ``remat_rollout`` and
 ``rng_impl`` have no counterpart here yet. ``metrics_writer`` gets
 ``rewards/predicted_reward`` once per ``act()``, from the host values ``act()`` returns.
+
+Stochastic dynamics draw their rollout noise from a generator of their own, seeded from
+``seed``, so the solver's draws are those of a deterministic model. Every evaluation of one
+solve scores its candidates under the same noise (common random numbers: the generator is set
+back to the solve's start before each draw), and the next solve draws new noise.
 """
 from __future__ import annotations
 
@@ -44,6 +51,8 @@ logger = logging.getLogger(__name__)
 __all__ = ["MPCPolicy", "ROLLOUT_BACKENDS"]
 
 ROLLOUT_BACKENDS = ("eager", "kernel", "fused")
+# Seeds the rollout-noise generator of stochastic dynamics apart from the solver's.
+_NOISE_SEED_OFFSET = 0x5EED
 # The fused solver family, by registry name: the factory of ops/fused_cem.py behind each.
 _FUSED_FAMILY = {
     "CEM": "make_fused_cem",
@@ -52,6 +61,11 @@ _FUSED_FAMILY = {
     "RandomSearch": "make_fused_random_search",
     "CMA-ES": "make_fused_sep_cma",  # requires diagonal=True (the factory checks)
 }
+
+
+def rollout_noise(generator: torch.Generator, shape, device) -> torch.Tensor:
+    """The ``[H, rows, S]`` standard normals of one evaluation of stochastic dynamics."""
+    return torch.randn(shape, generator=generator, device=device)
 
 
 class MPCPolicy(ModelBasedPolicy):
@@ -103,8 +117,24 @@ class MPCPolicy(ModelBasedPolicy):
                 f"rollout_backend must be one of {ROLLOUT_BACKENDS} ('fused_cem' is an alias "
                 f"of 'fused'), got {rollout_backend!r}"
             )
-        if rollout_backend != "eager" and dynamics_handler.is_true_model:
+        kernel_backend = rollout_backend != "eager"
+        if kernel_backend and dynamics_handler.is_true_model:
             raise ValueError(f"rollout_backend={rollout_backend!r} requires learned MLP dynamics")
+        dyn_cfg = dynamics_handler.config
+        self._stochastic = dyn_cfg is not None and dyn_cfg.propagation in ("ts_inf", "mm")
+        self._penalized = dynamics_handler.penalized_dynamics_fn is not None
+        if kernel_backend and self._penalized:
+            raise ValueError(
+                f"rollout_backend={rollout_backend!r} does not support "
+                "plan_uncertainty_penalty (the kernels roll out penalty-free dynamics); "
+                "use the 'eager' backend"
+            )
+        if kernel_backend and self._stochastic:
+            raise ValueError(
+                f"rollout_backend={rollout_backend!r} does not support propagation="
+                f"{dyn_cfg.propagation!r} (the fused kernels are deterministic); use the "
+                "'eager' backend"
+            )
         self._rollout_backend = rollout_backend
         if action_smoothness_weight < 0:
             raise ValueError(
@@ -125,6 +155,9 @@ class MPCPolicy(ModelBasedPolicy):
         self._act_counter = 0
         self._generator = torch.Generator(device=self._device)
         self._generator.manual_seed(seed)
+        self._noise_generator = torch.Generator(device=self._device)
+        self._noise_generator.manual_seed(seed + _NOISE_SEED_OFFSET)
+        self._noise_start = None  # the noise generator's state at the start of the solve
         self._solver_kwargs = dict(solver_kwargs)
         self._build(solver_name, strict_kwargs=True)
 
@@ -200,17 +233,40 @@ class MPCPolicy(ModelBasedPolicy):
 
             return evaluate
 
-        return make_trajectory_evaluator(
-            lambda s, a: handler.dynamics_fn(handler.dynamics_params, s, a), reward_fn,
-            discount=self._discount, action_smoothness_weight=self._smoothness,
+        dynamics_fn = (handler.penalized_dynamics_fn if self._penalized
+                       else handler.dynamics_fn)
+        num_particles = handler.config.num_particles if self._stochastic else 1
+        evaluate = make_trajectory_evaluator(
+            lambda s, a, noise=None: dynamics_fn(handler.dynamics_params, s, a, noise),
+            reward_fn, discount=self._discount, num_particles=num_particles,
+            action_smoothness_weight=self._smoothness, dynamics_returns_penalty=self._penalized,
             time_major=time_major, device=self._device,
         )
+        if not self._stochastic:
+            return evaluate
+        dim_s = handler.config.dim_s
+        h_axis, p_axis = (0, 1) if time_major else (2, 0)
 
-    def _step(self, obs: torch.Tensor, t: int, generator: torch.Generator, add_noise: bool):
+        def stochastic_evaluate(obs, actions):
+            generator, start = self._noise_start
+            generator.set_state(start)  # common random numbers within one solve
+            rows = actions.shape[p_axis] * num_particles * obs.shape[0]
+            return evaluate(obs, actions, rollout_noise(
+                generator, (actions.shape[h_axis], rows, dim_s), self._device))
+
+        return stochastic_evaluate
+
+    def _step(self, obs: torch.Tensor, t: int, generator: torch.Generator,
+              noise_generator: torch.Generator, add_noise: bool):
+        if self._stochastic:
+            # The noise generator's state lives on the host: reading and setting it waits for
+            # nothing.
+            self._noise_start = (noise_generator, noise_generator.get_state())
         action, new_state, aux = self._solver.solve(self._solver_state, obs, t, generator)
         if add_noise:
             action = _exploration_noise(generator, action, self._bounds, self._noise_scale)
-        # One-step lookahead on the posterior-mean dynamics: predicted next state + reward.
+        # One-step lookahead on the posterior-mean dynamics (the unpenalized head means):
+        # predicted next state + reward.
         next_obs = self._handler.mean_dynamics_fn(self._handler.dynamics_params, obs, action)
         pred_reward = self._reward_fn(obs, action, next_obs)
         return action, new_state, aux, next_obs, pred_reward
@@ -250,7 +306,7 @@ class MPCPolicy(ModelBasedPolicy):
         """
         obs, batched = self._obs(observations)
         action, self._solver_state, _, next_obs, pred_reward = self._step(
-            obs, t, self._generator, bool(exploration_noise)
+            obs, t, self._generator, self._noise_generator, bool(exploration_noise)
         )
         flat = torch.cat([action.reshape(-1), next_obs.reshape(-1), pred_reward.reshape(-1)])
         flat = flat.float().cpu().numpy()
@@ -271,13 +327,15 @@ class MPCPolicy(ModelBasedPolicy):
     def plan(self, observations, t: int = 0):
         """Runs a solve and returns the full refined plan [A, H, U] + expected reward [A].
 
-        A read-only query: the solver state is kept and the policy's generator is not
-        advanced (the solve draws from a copy of it).
+        A read-only query: the solver state is kept and the policy's generators are not
+        advanced (the solve draws from copies of them).
         """
         obs, _ = self._obs(observations)
-        generator = torch.Generator(device=self._device)
-        generator.set_state(self._generator.get_state())
-        _, _, aux, _, _ = self._step(obs, t, generator, False)
+        copies = []
+        for source in (self._generator, self._noise_generator):
+            copies.append(torch.Generator(device=self._device))
+            copies[-1].set_state(source.get_state())
+        _, _, aux, _, _ = self._step(obs, t, *copies, False)
         return aux.plan.cpu().numpy(), aux.expected_reward.cpu().numpy()
 
     def reset(self) -> None:

@@ -3,6 +3,10 @@
 Counterpart of ``blackbox_mpc_tpu/rollout/evaluator.py`` (its ``lax.scan`` becomes a Python
 loop). This is the ``"eager"`` backend of :class:`~blackbox_mpc_torch.policies.MPCPolicy`;
 the ``"kernel"`` backend is :mod:`blackbox_mpc_torch.ops.rollout_kernel`.
+
+Stochastic dynamics (PETS ``ts_inf``/``mm``) take their randomness as a tensor: ``noise``
+``[H, B, S]`` of standard normals, step ``t`` reading ``noise[t]``, where JAX splits one key
+into H step keys and draws ``normal(key_t, [B, S])``.
 """
 from __future__ import annotations
 
@@ -28,21 +32,31 @@ def rollout_trajectories(
     *,
     discount: float = 1.0,
     return_states: bool = False,
+    noise: torch.Tensor | None = None,
+    dynamics_returns_penalty: bool = False,
     time_major: bool = False,
 ):
     """Rolls a batch of action sequences through the dynamics, accumulating reward.
 
     Returns total_reward [B] (and the visited states [H, B, S] if requested). The discount
-    is carried by repeated multiplication, as the JAX scan carries it.
+    is carried by repeated multiplication, as the JAX scan carries it. ``noise`` ([H, B, S]):
+    step ``t`` calls ``dynamics_fn(state, action, noise[t])``; None keeps the two-argument
+    call. ``dynamics_returns_penalty``: the dynamics return ``(next_state, penalty [B])`` and
+    each step adds ``discount^t * (r - penalty)``.
     """
     actions = action_sequences if time_major else action_sequences.transpose(0, 1)
     state = initial_states
     total = torch.zeros(state.shape[0], dtype=state.dtype, device=state.device)
     disc = torch.ones((), dtype=state.dtype, device=state.device)
     states = []
-    for actions_t in actions:
-        next_state = dynamics_fn(state, actions_t)
-        total = total + disc * reward_fn(state, actions_t, next_state)
+    for t, actions_t in enumerate(actions):
+        out = (dynamics_fn(state, actions_t) if noise is None
+               else dynamics_fn(state, actions_t, noise[t]))
+        next_state, penalty = out if dynamics_returns_penalty else (out, None)
+        r = reward_fn(state, actions_t, next_state)
+        if penalty is not None:
+            r = r - penalty
+        total = total + disc * r
         disc = disc * discount
         state = next_state
         if return_states:
@@ -77,46 +91,60 @@ def make_trajectory_evaluator(
     nan_guard: bool = True,
     num_particles: int = 1,
     action_smoothness_weight: float = 0.0,
+    dynamics_returns_penalty: bool = False,
     time_major: bool = False,
     device=None,
 ) -> TrajectoryEvaluator:
-    """Builds ``evaluate(initial_states [A,S], action_sequences [P,A,H,U]) -> rewards [P,A]``.
+    """Builds ``evaluate(initial_states [A,S], action_sequences [P,A,H,U], noise=None) ->
+    rewards [P,A]``.
 
     The initial state of agent ``a`` is tiled across the population agent-minor, each
     candidate is rolled out for H steps, the discounted rewards are summed, the smoothness
     cost is subtracted and NaN rewards become -1e6. ``time_major``: candidates are
     ``[H, P, A, U]``. Inputs must lie on ``device``.
+
+    ``noise`` (stochastic dynamics): ``[H, P*K*A, S]`` standard normals with
+    ``K = num_particles``. Each candidate is then rolled out K times, particle ``j`` of
+    candidate ``i`` on rows ``(i*K + j)*A + a``, and the K returns are averaged (the PETS
+    estimator); without noise K is 1. ``dynamics_returns_penalty``: see
+    :func:`rollout_trajectories`.
     """
     if num_particles < 1:
         raise ValueError(f"num_particles must be >= 1, got {num_particles}")
-    if num_particles > 1:
-        raise NotImplementedError(
-            "num_particles > 1 is not ported yet (ROADMAP Queue 1 items 4 and 8, the "
-            "probabilistic stack)"
-        )
     if action_smoothness_weight < 0:
         raise ValueError(
             f"action_smoothness_weight must be >= 0, got {action_smoothness_weight}"
         )
     device = resolve_device(device)
 
-    def evaluate(initial_states: torch.Tensor, action_sequences: torch.Tensor) -> torch.Tensor:
+    def evaluate(initial_states: torch.Tensor, action_sequences: torch.Tensor,
+                 noise: torch.Tensor | None = None) -> torch.Tensor:
         if initial_states.device != device or action_sequences.device != device:
             raise ValueError(f"inputs must be on {device}")
+        k = num_particles if noise is not None else 1
         if time_major:
             horizon, pop, agents, dim_u = action_sequences.shape
-            flat_actions = action_sequences.reshape(horizon, pop * agents, dim_u)
         else:
             pop, agents, horizon, dim_u = action_sequences.shape
-            flat_actions = action_sequences.reshape(pop * agents, horizon, dim_u)
-        # [A, S] -> [P*A, S], agent minor (as tf.tile(current_states, [pop, 1])).
-        flat_states = initial_states.repeat(pop, 1)
+        # [P, A, H, U] -> [P*K, A, H, U]: particle j of candidate i is row i*K + j.
+        repeated = (action_sequences if k == 1
+                    else action_sequences.repeat_interleave(k, dim=1 if time_major else 0))
+        if time_major:
+            flat_actions = repeated.reshape(horizon, pop * k * agents, dim_u)
+        else:
+            flat_actions = repeated.reshape(pop * k * agents, horizon, dim_u)
+        if noise is not None and noise.shape[:2] != (horizon, pop * k * agents):
+            raise ValueError(f"noise must be [H, P*K*A, S] = [{horizon}, {pop * k * agents}, "
+                             f"S], got {list(noise.shape)}")
+        # [A, S] -> [P*K*A, S], agent minor (as tf.tile(current_states, [pop, 1])).
+        flat_states = initial_states.repeat(pop * k, 1)
         total = rollout_trajectories(
-            dynamics_fn, reward_fn, flat_states, flat_actions, discount=discount,
-            time_major=time_major,
+            dynamics_fn, reward_fn, flat_states, flat_actions, discount=discount, noise=noise,
+            dynamics_returns_penalty=dynamics_returns_penalty, time_major=time_major,
         )
-        rewards = total.reshape(pop, agents)
+        rewards = total.reshape(pop, k, agents).mean(1) if k > 1 else total.reshape(pop, agents)
         if action_smoothness_weight > 0.0:
+            # Every particle of a candidate carries its plan's penalty: take the plans once.
             rewards = rewards - action_smoothness_penalty(
                 action_sequences, action_smoothness_weight, discount, time_major=time_major
             )

@@ -174,10 +174,9 @@ def exploration_noise(
     """Adds truncated-normal exploration noise to an [A, U] action and clips to bounds.
 
     Keeps the reference quirk: the noise is centered at the action-space midpoint, not 0.
+    The bounds' constants are on the device already, so the host waits for nothing.
     """
-    mid = torch.as_tensor(bounds.midpoint, dtype=action.dtype, device=action.device)
-    std = torch.as_tensor(
-        (bounds.default_variance * scale) ** 0.5, dtype=action.dtype, device=action.device
-    )
+    mid = bounds.constant("midpoint", action.device).to(action.dtype)
+    std = torch.sqrt(bounds.constant("default_variance", action.device) * scale).to(action.dtype)
     noise = truncated_normal(generator, mid, std, action.shape)
     return bounds.clip(action + noise)

@@ -61,6 +61,24 @@ It imports nothing of JAX and nothing of the JAX package. Phases, each fatal on 
    at the next refinement. Printed with the card's name and power limit: ``act()`` p50/p95,
    seconds per ``train()``, ms per epoch, seconds per refinement, and the idle share of one
    traced ``act()`` on the trained model.
+7. PETS on ``"eager"`` (no kernel: the JAX package refuses its kernels for Gaussian heads,
+   sampled propagation and the penalty, and so does the port). Part A, the planning step at the
+   configuration of ``benchmarks/ckpt_tsinf_p20_lvb`` (S=18, U=6, 3x256 tanh, E=5, learned
+   bounds, 20 particles; seeded weights, made-up stats and bounds) with the committed run's
+   CEM (population 510, 50 elites, 5 iterations, H=15, two agents: 20 400 rows a step), with
+   the cheetah reward: ``act()`` with ``ts_inf``, ``mm``, ``mean`` (the configuration of
+   ``ckpt_gradient_bc_300``), ``mean`` with ``plan_uncertainty_penalty=1.0`` and ``ts1``.
+   Gates: ``"kernel"`` and ``"fused"`` raise ``ValueError`` on each; the actions are finite and
+   in bounds; no kernel launches; one traced ``act()`` waits for the card at most twice (ts1
+   and ts_inf are traced again with the member permutation made from numpy at every step, as
+   before it was cached); one ts_inf rollout of the 20 400 rows on the card against the CPU
+   with the same weights and noise, 1e-4 of max(1, max|cpu|). Part B, the loop of phase 6 on
+   the pendulum with that ensemble (ts_inf, 20 particles, learned bounds) and Part A's CEM:
+   no kernel launches, the final validation NLL below the random model's, the calibration
+   ratio finite and written after every ``train()``, the bounds moved, the checkpoint bit for
+   bit (bounds and their Adam state too), resume, and a trained ``act()`` waiting at most
+   twice. Phase 5 also traces fused CEM with ``exploration_noise=True``, with the noise's
+   constants copied from numpy (as before) and from the device (at most two waits).
 
 The line before the last two is ``{"kernels": [...]}``; then the card's name and power
 limit; the last line is ``{"ok": true, "device": {...}}``.
@@ -839,6 +857,26 @@ TRACED = ("fused", "fused iCEM", "fused CMA-ES")
 MAX_SYNCS = 2
 
 
+def host_copy_exploration_noise(generator, action, bounds, scale: float = 0.05):
+    """The exploration noise as ``solvers/base.py`` drew it before its constants lived on the
+    device: the midpoint and the std copied from numpy at every noisy ``act()``. Traced beside
+    the repaired one to show the waits it made."""
+    import torch
+
+    from blackbox_mpc_torch.core.types import truncated_normal
+
+    mid = torch.as_tensor(bounds.midpoint, dtype=action.dtype, device=action.device)
+    std = torch.as_tensor((bounds.default_variance * scale) ** 0.5, dtype=action.dtype,
+                          device=action.device)
+    return bounds.clip(action + truncated_normal(generator, mid, std, action.shape))
+
+
+def gate_waits(trace: dict, label: str) -> None:
+    if trace["stream_syncs"] > MAX_SYNCS:
+        raise AssertionError(f"{label}: {trace['stream_syncs']} cudaStreamSynchronize calls in "
+                             f"one act(), more than {MAX_SYNCS}")
+
+
 def scalar_scatter_by_rank(values, index, population: int):
     """The elite mask written from a Python scalar through ``index_put_``, as the fused CEM
     once did: the scalar is copied from pageable host memory, so the host waits for K4 in
@@ -852,7 +890,7 @@ def scalar_scatter_by_rank(values, index, population: int):
     return out
 
 
-def trace_act(policy, obs, label: str) -> dict:
+def trace_act(policy, obs, label: str, exploration_noise: bool = False) -> dict:
     """One ``act()`` under ``torch.profiler``: the ten device operations that take the most
     time, the launches of K6's and K3's kernels, the share of the ``act()`` window (the host's
     range around it, which ends in the copy of the action to the host) in which the device ran
@@ -863,7 +901,7 @@ def trace_act(policy, obs, label: str) -> dict:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with record_function("act"):
-            policy.act(obs)
+            policy.act(obs, exploration_noise=exploration_noise)
     events = prof.events()
     window = next(e.time_range for e in events
                   if e.name == "act" and e.device_type == DeviceType.CPU)
@@ -905,6 +943,30 @@ def trace_act(policy, obs, label: str) -> dict:
     return res
 
 
+def timed_acts(policy, obs, steps: int, label: str):
+    """``steps`` closed-loop ``act()`` calls, each action finite and in [-1, 1] and each
+    prediction finite. Returns the ms of each, every kernel's launches over them (the counts
+    set to 0 just before), the plain RNG's calls on CUDA tensors and the last ``act()``."""
+    import numpy as np
+
+    counters = launch_counters()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    times = []
+    with plain_rng_on_cuda() as plain_calls:
+        for t in range(steps):
+            t0 = time.perf_counter()
+            out = policy.act(obs, t)  # returns host arrays: synchronised
+            times.append((time.perf_counter() - t0) * 1e3)
+            action, obs, reward = out
+            if not (np.all(np.isfinite(action)) and np.all(np.abs(action) <= 1.0)):
+                raise AssertionError(f"{label}: action out of bounds or not finite: {action}")
+            if not (np.all(np.isfinite(obs)) and np.all(np.isfinite(reward))):
+                raise AssertionError(f"{label}: predicted next obs/reward not finite")
+    launches = {name: wrapper.launches for name, wrapper in counters.items()}
+    return times, launches, plain_calls, out
+
+
 def drive_policy(device, backend: str, steps: int, label: str | None = None) -> dict:
     """``steps`` closed-loop ``act()`` calls after a warm-up. ``label`` names a drive of
     FUSED_FAMILY; without it the solver is the flagship CEM on ``backend``. A drive in TRACED
@@ -928,21 +990,8 @@ def drive_policy(device, backend: str, steps: int, label: str | None = None) -> 
     )
     obs = np.zeros(17, np.float32)
     policy.act(obs)  # warm-up: first-use costs (kernel load, cuBLAS handles)
-    counters = launch_counters()
-    for wrapper in counters.values():
-        wrapper.launches = 0
-    times = []
-    with plain_rng_on_cuda() as plain_calls:
-        for t in range(steps):
-            t0 = time.perf_counter()
-            action, obs, reward = policy.act(obs, t)  # returns host arrays: synchronised
-            times.append((time.perf_counter() - t0) * 1e3)
-            if not (np.all(np.isfinite(action)) and np.all(np.abs(action) <= 1.0)):
-                raise AssertionError(f"{label}: action out of bounds or not finite: {action}")
-            if not (np.all(np.isfinite(obs)) and np.isfinite(reward)):
-                raise AssertionError(f"{label}: predicted next obs/reward not finite")
-    launches = {name: wrapper.launches for name, wrapper in counters.items()}
-    expected = {name: steps * per_act.get(name, 0) for name in counters}
+    times, launches, plain_calls, (action, obs, reward) = timed_acts(policy, obs, steps, label)
+    expected = {name: steps * per_act.get(name, 0) for name in launches}
     if launches != expected:
         raise AssertionError(f"{label}: kernel launches {launches}, expected {expected}")
     if any(plain_calls.values()):
@@ -973,6 +1022,24 @@ def drive_policy(device, backend: str, steps: int, label: str | None = None) -> 
                 fc._scatter_by_rank = repaired
         res["trace"] = trace_act(policy, obs, label)
         if label == "fused":
+            # act(exploration_noise=True), with the noise's constants copied from the host at
+            # every act() (before) and from the device (after).
+            from blackbox_mpc_torch.policies import mpc_policy
+
+            repaired_noise = mpc_policy._exploration_noise
+            try:
+                mpc_policy._exploration_noise = host_copy_exploration_noise
+                noise_before = trace_act(policy, obs, "fused, exploration noise copied from "
+                                         "the host", exploration_noise=True)
+            finally:
+                mpc_policy._exploration_noise = repaired_noise
+            res["noise_trace"] = trace_act(policy, obs, "fused, exploration noise",
+                                           exploration_noise=True)
+            gate_waits(res["noise_trace"], "fused, exploration noise")
+            print(json.dumps({"exploration_noise_stream_syncs": {
+                "host_copy": noise_before["stream_syncs"],
+                "device_constants": res["noise_trace"]["stream_syncs"]},
+                "card": nvidia_smi()}), flush=True)
             print(json.dumps({"device_idle_share_fused_cem_act": {
                 "scalar_scatter": before["device_idle_share"],
                 "device_source_scatter": res["trace"]["device_idle_share"]},
@@ -985,9 +1052,7 @@ def drive_policy(device, backend: str, steps: int, label: str | None = None) -> 
             raise AssertionError(f"{label}: {res['trace']['stream_syncs']} cudaStreamSynchronize "
                                  f"calls in one act(), expected {MAX_SYNCS} (observation in, "
                                  "action out)")
-        if res["trace"]["stream_syncs"] > MAX_SYNCS:
-            raise AssertionError(f"{label}: {res['trace']['stream_syncs']} cudaStreamSynchronize "
-                                 f"calls in one act(), more than {MAX_SYNCS}")
+        gate_waits(res["trace"], label)
         iterations = per_act["elite_moments"]
         if res["trace"]["k6_kernels"] != iterations:
             raise AssertionError(f"{label}: {res['trace']['k6_kernels']} K6 kernels in one "
@@ -1080,14 +1145,15 @@ def same_bits(a, b) -> bool:
 def checkpoint_matches(handler, loaded) -> None:
     """Gate 5: ``loaded`` holds ``handler``'s params (trainable and planning), Adam state, step,
     stats, replay and RNG state, bit for bit."""
+    from blackbox_mpc_torch.learning.trainer import flat_params
     from blackbox_mpc_torch.models.normalizer import STATS_FIELDS
 
     a, b = handler.train_state, loaded.train_state
-    pairs = [(f"params {i} {k}", x[k].detach(), y[k].detach())
-             for i, (x, y) in enumerate(zip(a.params, b.params)) for k in x]
-    pairs += [(f"planning {i} {k}", x[k], y[k]) for i, (x, y) in
-              enumerate(zip(handler.dynamics_params.params, loaded.dynamics_params.params))
-              for k in x]
+    # flat_params: w, b of each layer, then the learned logvar bounds where the config has them.
+    pairs = [(f"params {i}", x.detach(), y.detach())
+             for i, (x, y) in enumerate(zip(flat_params(a.params), flat_params(b.params)))]
+    pairs += [(f"planning {i}", x, y) for i, (x, y) in enumerate(zip(
+        flat_params(handler.dynamics_params.params), flat_params(loaded.dynamics_params.params)))]
     sa, sb = a.optimizer.state_dict()["state"], b.optimizer.state_dict()["state"]
     pairs += [(f"adam {i} {k}", sa[i][k], sb[i][k]) for i in sa for k in sa[i]]
     pairs += [(f"stats {f}", getattr(handler.dynamics_params.stats, f),
@@ -1220,6 +1286,261 @@ def mbrl_loop(device, backend: str) -> dict:
     return res
 
 
+# Phase 7: the PETS stack on "eager" at the configuration of benchmarks/ckpt_tsinf_p20_lvb
+# (HalfCheetah, S=18, U=6, a 5-member 3x256 tanh Gaussian ensemble) with the committed run's
+# planning settings (benchmarks/cheetah_tsinf_p20_run.jsonl line 1, cheetah_mbrl.py:117-118,
+# 174-192): CEM, population 510, 50 elites, 5 iterations, H=15, two agents, 20 particles,
+# so 20 400 rows a step. Seeded weights, made-up stats and bounds.
+PETS_NET = dict(dim_s=18, dim_u=6, hidden=(256, 256, 256), ensemble_size=5, probabilistic=True)
+PETS_SOLVER = dict(solver_name="CEM", planning_horizon=15, population=510, num_elite=50,
+                   max_iterations=ITERS)
+PETS_AGENTS, PETS_PARTICLES = 2, 20
+# The configurations driven, by label: ts_inf and mm as ckpt_tsinf_p20_lvb, mean as
+# ckpt_gradient_bc_300, mean with the uncertainty penalty, and ts1 for the wait gate.
+PETS_DRIVES = {
+    "ts_inf": dict(propagation="ts_inf", num_particles=PETS_PARTICLES, learn_logvar_bounds=True),
+    "mm": dict(propagation="mm", num_particles=PETS_PARTICLES, learn_logvar_bounds=True),
+    "mean": dict(propagation="mean"),
+    "mean + penalty": dict(propagation="mean", plan_uncertainty_penalty=1.0),
+    "ts1": dict(propagation="ts1"),
+}
+# Traced once more with the member permutation made from numpy at every step, as before it
+# was cached on the device.
+UNCACHED = ("ts1", "ts_inf")
+
+
+def cheetah_reward(s, a, ns):
+    # benchmarks/cheetah_mbrl.py:90-93: the root's forward velocity minus an action cost.
+    return (ns[:, 0] - s[:, 0]) / 0.05 - 0.1 * (a * a).sum(-1)
+
+
+def pets_params(config, device):
+    """Seeded weights and made-up stats (``flagship_params``); made-up learned bounds."""
+    import numpy as np
+    import torch
+
+    dp = flagship_params(config, device)
+    if not isinstance(dp.params, dict):
+        return dp
+    g = np.random.default_rng(2)
+    bounds = {name: torch.as_tensor(g.uniform(lo, hi, config.dim_s), dtype=torch.float32,
+                                    device=device)
+              for name, lo, hi in (("lv_min", -8.0, -5.0), ("lv_max", -2.0, 0.0))}
+    return dp.replace(params={**dp.params, **bounds})
+
+
+@contextlib.contextmanager
+def uncached_member_permutation():
+    """``ts1``/``ts_inf`` make their member permutation from numpy at every step, as before
+    it was cached: two host-to-device copies a step, each a wait."""
+    from blackbox_mpc_torch.models import dynamics
+
+    cached = dynamics.member_permutation
+    dynamics.member_permutation = cached.__wrapped__
+    try:
+        yield
+    finally:
+        dynamics.member_permutation = cached
+
+
+def pets_act(device, label: str, steps: int = STEPS) -> dict:
+    """``steps`` closed-loop ``act()`` calls on ``"eager"`` after a warm-up; the kernel
+    backends must refuse the configuration, no kernel may launch, and one traced ``act()``
+    may wait for the card at most MAX_SYNCS times."""
+    import numpy as np
+
+    from blackbox_mpc_torch import DynamicsHandler, LearnedDynamicsConfig, MPCPolicy
+    from blackbox_mpc_torch.core.spaces import BoxSpace
+
+    config = LearnedDynamicsConfig(**PETS_NET, **PETS_DRIVES[label])
+    handler = DynamicsHandler(config, seed=0, device=device)
+    handler.set_params(pets_params(config, device))
+    space = BoxSpace.of(-1.0, 1.0, dim=config.dim_u)
+
+    def policy(backend):
+        return MPCPolicy(space, cheetah_reward, handler, num_agents=PETS_AGENTS,
+                         rollout_backend=backend, seed=0, device=device, **PETS_SOLVER)
+
+    refusals = {}
+    for backend in ("kernel", "fused"):
+        try:
+            policy(backend)
+        except ValueError as err:
+            refusals[backend] = str(err)
+        else:
+            raise AssertionError(f"PETS {label}: rollout_backend={backend!r} did not refuse")
+    eager = policy("eager")
+    obs = np.zeros((PETS_AGENTS, config.dim_s), np.float32)
+    eager.act(obs)  # warm-up
+    times, launches, plain_calls, (_, obs, _) = timed_acts(eager, obs, steps, f"PETS {label}")
+    if any(launches.values()) or any(plain_calls.values()):
+        raise AssertionError(f"PETS {label}: kernels launched {launches}, plain RNG on CUDA "
+                             f"{plain_calls}; the PETS path launches none")
+    res = {"pets": label, "card": nvidia_smi(), "rows_per_step": (
+        PETS_SOLVER["population"] * PETS_AGENTS
+        * (PETS_PARTICLES if config.propagation in ("ts_inf", "mm") else 1)),
+        "act_ms": times, "act_ms_median": float(np.median(times)), "launches": launches,
+        "refusals": refusals}
+    if label in UNCACHED:
+        with uncached_member_permutation():
+            res["stream_syncs_uncached_permutation"] = trace_act(
+                eager, obs, f"PETS {label}, permutation from numpy")["stream_syncs"]
+    trace = trace_act(eager, obs, f"PETS {label}")
+    gate_waits(trace, f"PETS {label}")
+    res.update(stream_syncs=trace["stream_syncs"], device_idle_share=trace["device_idle_share"],
+               traced_act_window_us=trace["act_window_us"], device_ops=trace["device_ops"])
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def pets_rollout_card_vs_cpu(device) -> dict:
+    """One ts_inf rollout of the act()'s 20 400 rows (particle-major layout of the
+    evaluator) on the card and on the CPU, with the same weights and the same noise: the
+    visited states and the returns within TOLERANCE["float32"] of max(1, max|cpu|)."""
+    import torch
+
+    from blackbox_mpc_torch.models.dynamics import LearnedDynamicsConfig, make_learned_dynamics
+    from blackbox_mpc_torch.rollout.evaluator import rollout_trajectories
+
+    config = LearnedDynamicsConfig(**PETS_NET, **PETS_DRIVES["ts_inf"])
+    dp = pets_params(config, device)
+    fn = make_learned_dynamics(config)[1]
+    rows = PETS_SOLVER["population"] * PETS_PARTICLES * PETS_AGENTS
+    horizon = PETS_SOLVER["planning_horizon"]
+    g = torch.Generator().manual_seed(13)
+    s0 = 0.5 * torch.randn((rows, config.dim_s), generator=g)
+    acts = 2.0 * torch.rand((rows, horizon, config.dim_u), generator=g) - 1.0
+    noise = torch.randn((horizon, rows, config.dim_s), generator=g)
+    out = {}
+    for where, params in (("cpu", dp.to("cpu")), ("card", dp)):
+        on = torch.device("cpu") if where == "cpu" else device
+        t0 = time.perf_counter()
+        out[where] = [x.cpu() for x in rollout_trajectories(
+            lambda s, a, n, p=params: fn(p, s, a, n), cheetah_reward, s0.to(on), acts.to(on),
+            noise=noise.to(on), return_states=True)]
+        out[f"{where}_s"] = time.perf_counter() - t0
+    res = {"pets_rollout_card_vs_cpu": "ts_inf", "rows": rows, "horizon": horizon,
+           "cpu_s": out["cpu_s"], "card_s": out["card_s"]}
+    for i, what in enumerate(("returns", "states")):
+        ref, got = out["cpu"][i], out["card"][i]
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"PETS rollout on the card: {what} not finite")
+        err, scale = float((got - ref).abs().max()), max(1.0, float(ref.abs().max()))
+        res[f"{what}_rel_err"] = err / scale
+        if err > TOLERANCE["float32"] * scale:
+            raise AssertionError(f"PETS rollout {what}: card vs CPU {err} > "
+                                 f"{TOLERANCE['float32']} * {scale}")
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def pets_loop(device) -> dict:
+    """Part B: ``learn_dynamics_iteratively_w_mpc`` on the native pendulum with a PETS
+    ensemble (3x256, E=5, learned bounds, ts_inf, 20 particles) and Part A's planning
+    settings, cut as phase 6 is. Gates: no kernel launched; the final validation NLL below
+    the random model's on the same split and stats; ``val_calibration_ratio`` finite and in
+    the writer after every ``train()``; the bounds moved; the checkpoint bit for bit with its
+    bounds and their Adam state; resume continues; a trained ``act()`` waits at most twice."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from blackbox_mpc_torch import (DynamicsHandler, LearnedDynamicsConfig, MetricsWriter,
+                                    learn_dynamics_iteratively_w_mpc)
+    from blackbox_mpc_torch.envs import NativePendulumVecEnv
+    from blackbox_mpc_torch.models.analytic import pendulum_reward
+    from blackbox_mpc_torch.models.dynamics import map_params
+
+    label = "MBRL PETS"
+    config = LearnedDynamicsConfig(dim_s=3, dim_u=1, **{
+        k: v for k, v in PETS_NET.items() if k not in ("dim_s", "dim_u")},
+        **PETS_DRIVES["ts_inf"])
+    solver = dict(PETS_SOLVER, rollout_backend="eager", seed=0)
+    env = NativePendulumVecEnv(num_envs=MBRL["num_envs"], seed=0,
+                               max_episode_steps=MBRL["episode_steps"])
+    writer = MetricsWriter()
+    handler = DynamicsHandler(config, seed=0, device=device, metrics_writer=writer)
+    initial = map_params(torch.clone, handler.dynamics_params.params)
+    trains = []
+    train = handler.train
+
+    def timed_train(*args, **kwargs):
+        t0 = time.perf_counter()
+        metrics = train(*args, **kwargs)
+        trains.append({"train_s": time.perf_counter() - t0, "epochs": metrics["epochs_ran"],
+                       "val_loss": metrics["val_loss"],
+                       "val_calibration_ratio": metrics.get("val_calibration_ratio")})
+        return metrics
+
+    handler.train = timed_train
+    with tempfile.TemporaryDirectory(prefix="pets_") as ckpt:
+        counters = launch_counters()
+        for wrapper in counters.values():
+            wrapper.launches = 0
+        t0 = time.perf_counter()
+        with plain_rng_on_cuda() as plain_calls:
+            handler, policy = learn_dynamics_iteratively_w_mpc(
+                env, pendulum_reward, number_of_initial_rollouts=MBRL["initial_rollouts"],
+                number_of_rollouts_per_refinement=1,
+                number_of_refinement_steps=MBRL["refinements"],
+                rollout_horizon=MBRL["episode_steps"], handler=handler,
+                epochs=MBRL["epochs"], batch_size=MBRL["batch_size"],
+                metrics_writer=writer, checkpoint_dir=ckpt, device=device, **solver)
+        loop_s = time.perf_counter() - t0
+        launches = {name: wrapper.launches for name, wrapper in counters.items()}
+        if any(launches.values()) or any(plain_calls.values()):
+            raise AssertionError(f"{label}: kernels launched {launches}, plain RNG on CUDA "
+                                 f"{plain_calls}")
+        final_val = float(np.mean(handler.validation_losses(handler.dynamics_params.params)))
+        initial_val = float(np.mean(handler.validation_losses(initial)))
+        if not final_val < initial_val:
+            raise AssertionError(f"{label}: validation NLL {final_val} not below the random "
+                                 f"model's {initial_val}")
+        ratios = [v for _, v in writer.history.get("system_model/val_calibration_ratio", [])]
+        if len(ratios) != 1 + MBRL["refinements"] or not np.all(np.isfinite(ratios)):
+            raise AssertionError(f"{label}: val_calibration_ratio written {ratios}")
+        final = handler.dynamics_params.params
+        moved = {name: not torch.equal(final[name], initial[name].to(final[name].device))
+                 for name in ("lv_min", "lv_max")}
+        if not all(moved.values()):
+            raise AssertionError(f"{label}: the logvar bounds did not move: {moved}")
+        taken = handler.replay.arrays()[1]
+        if not (np.isfinite(taken).all() and np.abs(taken).max() <= 2.0):
+            raise AssertionError(f"{label}: an action was not finite or out of bounds")
+        loaded = DynamicsHandler.load(f"{ckpt}/handler", device=device)
+        checkpoint_matches(handler, loaded)  # the bounds and their Adam state included
+        obs = env.reset()
+        resumed, _ = learn_dynamics_iteratively_w_mpc(
+            env, pendulum_reward, number_of_refinement_steps=MBRL["refinements"] + 1,
+            rollout_horizon=MBRL_RESUME_STEPS, epochs=1, batch_size=MBRL["batch_size"],
+            checkpoint_dir=ckpt, resume=True, device=device, **solver)
+        with open(f"{ckpt}/loop_state.json") as f:
+            completed = json.load(f)["completed_refinements"]
+        grown = len(resumed.replay) - len(loaded.replay)
+        if (completed, grown) != (MBRL["refinements"] + 1,
+                                  MBRL_RESUME_STEPS * MBRL["num_envs"]):
+            raise AssertionError(f"{label}: resume ran to {completed} refinements and added "
+                                 f"{grown} transitions")
+        trace = trace_act(policy, obs, f"{label}, trained")
+        gate_waits(trace, f"{label}, trained")
+    history = writer.history
+    res = {
+        "mbrl": "PETS eager", "card": nvidia_smi(), "loop_s": loop_s, "launches": launches,
+        "val_nll": {"initial_random_model": initial_val, "final": final_val},
+        "val_calibration_ratio": ratios,
+        "logvar_bounds": {name: [float(final[name].min()), float(final[name].max())]
+                          for name in ("lv_min", "lv_max")},
+        "act_ms_p50": [1e3 * v for _, v in history["perf/act_latency_p50_s"]],
+        "act_ms_p95": [1e3 * v for _, v in history["perf/act_latency_p95_s"]],
+        "trains": trains, "checkpoint": "bit for bit", "resumed_at": MBRL["refinements"],
+        "trained_act_stream_syncs": trace["stream_syncs"],
+        "trained_act_device_idle_share": trace["device_idle_share"],
+    }
+    print(json.dumps(res), flush=True)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1270,6 +1591,12 @@ def main() -> int:
     family = {label: drive_policy(device, "fused", STEPS, label) for label in FUSED_FAMILY}
     drive_policy(device, "eager", 3)
     mbrl = {backend: mbrl_loop(device, backend) for backend in ("kernel", "fused")}
+    pets = {label: pets_act(device, label) for label in PETS_DRIVES}
+    pets_rollout_card_vs_cpu(device)
+    pets_loop(device)
+    print(json.dumps({"pets_act_ms_median": {label: run["act_ms_median"]
+                                             for label, run in pets.items()},
+                      "card": smi}), flush=True)
     print(json.dumps({"act_ms_median": {
         "kernel": kernel_run["act_ms_median"], "fused": fused_run["act_ms_median"],
         **{label: run["act_ms_median"] for label, run in family.items()}}}), flush=True)

@@ -189,9 +189,12 @@ def test_trainer_matches_jax(ensemble, dtype):
 
 
 def test_trainer_refuses_what_is_not_ported():
+    """The Gaussian NLL is ported (tests/test_torch_probabilistic.py); ``mesh`` is not."""
     cfg = LearnedDynamicsConfig(dim_s=3, dim_u=1, hidden=(8,), probabilistic=True)
-    with pytest.raises(NotImplementedError, match="probabilistic"):
-        make_trainer(cfg)
+    init, step, _ = make_trainer(cfg)
+    dp = DynamicsHandler(cfg, device="cpu").dynamics_params
+    s, a, ns = (torch.zeros(1, 4, d) for d in (3, 1, 3))
+    assert step(init(dp.params), dp.stats, s, a, ns)[1].shape == (1,)
     with pytest.raises(NotImplementedError, match="item 9"):
         make_trainer(configs(1)[1], mesh=object())
     with pytest.raises(NotImplementedError, match="item 9"):

@@ -98,13 +98,16 @@ def test_bridge_rejects_wrong_shapes():
 
 
 def test_unported_dynamics_raise():
+    """The probabilistic stack is ported: what raised NotImplementedError builds, and only
+    the JAX package's ValueErrors are left (tests/test_torch_probabilistic.py holds them)."""
     for changes in (dict(propagation="ts_inf", probabilistic=True),
                     dict(propagation="mm", probabilistic=True),
                     dict(probabilistic=True),
                     dict(plan_uncertainty_penalty=0.5, ensemble_size=2)):
         cfg = tdyn.LearnedDynamicsConfig(dim_s=S, dim_u=U, **changes)
-        with pytest.raises(NotImplementedError, match="Queue 1 items 4 and 8"):
-            tdyn.make_learned_dynamics(cfg)
+        init, fn = tdyn.make_learned_dynamics(cfg)
+        dp = init(torch.Generator().manual_seed(0))
+        assert fn(dp, torch.zeros(4, S), torch.zeros(4, U)).shape == (4, S)
     with pytest.raises(ValueError, match="unknown propagation"):
         tdyn.make_learned_dynamics(tdyn.LearnedDynamicsConfig(dim_s=S, dim_u=U, propagation="x"))
 
