@@ -9,10 +9,18 @@ attributes. With the same weights the port computes what the JAX package compute
 :func:`handler_from_numpy` carries a whole training checkpoint of the JAX package over: the
 config, params, Adam state, step, stats and replay, as JAX's ``DynamicsHandler.load`` returns
 them converted to numpy (Orbax is read where JAX is, not here).
+
+:func:`proposer_from_numpy` carries the JAX package's ``PolicyProposer.state_dict()`` (as
+numpy) into the port's ``PolicyProposer``: the params and optax's Adam state. A loop
+checkpoint of before Orbax holds that dict pickled in ``proposer.npy``; :func:`load_legacy_npy`
+reads it without optax.
 """
 from __future__ import annotations
 
 from collections.abc import Mapping
+
+import collections
+import pickle
 
 import numpy as np
 import torch
@@ -21,7 +29,8 @@ from blackbox_mpc_torch.core.device import resolve_device
 from blackbox_mpc_torch.models.dynamics import DynamicsParams, LearnedDynamicsConfig
 from blackbox_mpc_torch.models.normalizer import STATS_FIELDS, NormalizerStats
 
-__all__ = ["dynamics_params_from_numpy", "handler_from_numpy"]
+__all__ = ["dynamics_params_from_numpy", "handler_from_numpy", "load_legacy_npy",
+           "proposer_from_numpy"]
 
 
 def _stat(stats, name: str):
@@ -120,3 +129,58 @@ def handler_from_numpy(meta: dict, params, opt_state, step, stats, replay: dict,
     })
     handler.train_state.step = int(np.asarray(step))
     return handler
+
+
+def proposer_from_numpy(state, config, bounds, device=None):
+    """A port ``PolicyProposer`` holding the JAX proposer's ``state_dict()``: ``params`` a list
+    of ``{"w": [in, out], "b": [out]}`` (shapes checked against ``config``), ``opt_state``
+    optax's ``adam`` state (``count`` -> ``step``, ``mu``/``nu`` -> ``exp_avg``/``exp_avg_sq``,
+    matched by layer and key), as optax's tuples or as mappings."""
+    from blackbox_mpc_torch.learning.proposer import PolicyProposer
+
+    proposer = PolicyProposer(config, bounds, device=device)
+
+    def layers(tree):
+        return [{k: np.array(layer[k], np.float32)[None] for k in ("w", "b")} for layer in tree]
+
+    opt_state = state["opt_state"]
+    moments = {name: [layer[k] for layer in layers(_adam_field(opt_state, name))
+                      for k in ("w", "b")] for name in ("mu", "nu")}
+    proposer.load_state_dict({
+        "params": layers(state["params"]),
+        "adam": {"step": int(np.asarray(_adam_field(opt_state, "count"))),
+                 "exp_avg": moments["mu"], "exp_avg_sq": moments["nu"]},
+    })
+    return proposer
+
+
+# The optax containers a pickled proposer state holds, by class name: their fields.
+_OPTAX_STATES = {"ScaleByAdamState": ("count", "mu", "nu"), "EmptyState": ()}
+
+
+class _LegacyUnpickler(pickle.Unpickler):
+    """Unpickles numpy and builtins as they are, and optax's state tuples as namedtuples of
+    the same fields, so no optax is needed; any other class is refused."""
+
+    def find_class(self, module, name):
+        if module.split(".")[0] == "optax" and name in _OPTAX_STATES:
+            return collections.namedtuple(name, _OPTAX_STATES[name])
+        if module.split(".")[0] in ("numpy", "builtins", "copyreg", "_codecs"):
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(f"refusing to unpickle {module}.{name}")
+
+
+def load_legacy_npy(path: str):
+    """The object stored in a one-element pickled object array (``np.save`` of
+    ``np.asarray([obj], dtype=object)``), read without optax."""
+    with open(path, "rb") as f:
+        version = np.lib.format.read_magic(f)
+        read_header = {(1, 0): np.lib.format.read_array_header_1_0,
+                       (2, 0): np.lib.format.read_array_header_2_0}.get(version)
+        if read_header is None:
+            raise ValueError(f"{path}: .npy format version {version} is not read here")
+        shape, _, dtype = read_header(f)
+        if dtype != np.dtype(object) or shape != (1,):
+            raise ValueError(f"{path}: expected a pickled object array of one element, "
+                             f"got {dtype} {shape}")
+        return _LegacyUnpickler(f).load()[0]

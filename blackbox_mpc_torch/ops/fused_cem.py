@@ -49,7 +49,6 @@ from blackbox_mpc_torch.solvers import cma_es as cma
 from blackbox_mpc_torch.solvers.cem import CEMConfig, CEMState, check_config, iteration_populations
 from blackbox_mpc_torch.solvers.cma_es import CMAESConfig, CMAESState
 from blackbox_mpc_torch.solvers.pi2 import PI2Config, PI2State, softmax_weights
-from blackbox_mpc_torch.solvers.pi2 import check_config as check_pi2_config
 from blackbox_mpc_torch.solvers.random_search import RandomSearchConfig, RandomSearchState
 
 __all__ = [
@@ -782,6 +781,15 @@ def _scatter_by_rank(values: torch.Tensor, index: torch.Tensor, population: int)
                        device=index.device).scatter_(0, index.T, src)
 
 
+def check_candidate_layout(config) -> None:
+    """The fused kernels draw and reduce ``[P, A, H, U]`` candidates: refuse ``time_major``."""
+    if getattr(config, "time_major", False):
+        raise ValueError(
+            "time_major=True requires the eager evaluator; the 'fused' backend's candidate "
+            "contract is [P, A, H, U]"
+        )
+
+
 def make_fused_cem(
     config: CEMConfig,
     bounds: Bounds,
@@ -809,6 +817,7 @@ def make_fused_cem(
     ``execute_best`` acts with the best candidate seen over all iterations.
     """
     check_config(config)
+    check_candidate_layout(config)
     horizon, agents, pop, k = (
         config.planning_horizon, config.num_agents, config.population, config.num_elite,
     )
@@ -952,7 +961,7 @@ def make_fused_pi2(
     bounds inside the kernels and the squared violation is subtracted from each row's reward.
     What differs: z is clipped at +/-2, not resampled.
     """
-    check_pi2_config(config)
+    check_candidate_layout(config)
     horizon, agents, pop = config.planning_horizon, config.num_agents, config.population
     lamda = config.lamda
     rollout_rewards, weighted_moments = make_fused_cem_kernels(
@@ -1014,11 +1023,7 @@ def make_fused_random_search(
     """RandomSearch over the fused kernels: K4 draws uniform-in-bounds candidates
     (``sampling="uniform"`` around the midpoint with the half range as std) and only the
     rewards ``[P, A]`` come back; :func:`draw_rows` draws the per-agent argmax row again."""
-    if config.time_major:
-        raise NotImplementedError(
-            "RandomSearchConfig.time_major=True is not ported yet (ROADMAP Queue 1 item 5: "
-            "the time-major candidate layout)"
-        )
+    check_candidate_layout(config)
     horizon, agents, pop = config.planning_horizon, config.num_agents, config.population
     n_flat = horizon * bounds.dim
     rollout_rewards, _ = make_fused_cem_kernels(

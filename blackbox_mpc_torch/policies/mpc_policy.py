@@ -20,9 +20,16 @@ Rollout backends:
   ``"MPPI"``, ``"RandomSearch"`` and ``"CMA-ES"`` with ``diagonal=True``; undiscounted rewards
   and no smoothness penalty.
 
-``"auto"`` is not ported yet. The JAX options ``mesh``, ``proposer``, ``remat_rollout`` and
-``rng_impl`` have no counterpart here yet. ``metrics_writer`` gets
-``rewards/predicted_reward`` once per ``act()``, from the host values ``act()`` returns.
+The first-order solvers (Gradient, CEM-GD) run on ``"eager"`` only, as in JAX: the CUDA
+rollout kernel has no backward. ``"auto"`` is not ported yet, and neither are the JAX options
+``mesh`` and ``rng_impl``. ``metrics_writer`` gets ``rewards/predicted_reward`` once per
+``act()``, from the host values ``act()`` returns.
+
+``proposer`` (a :class:`~blackbox_mpc_torch.learning.proposer.PolicyProposer`): before every
+solve its policy net is unrolled through the posterior-mean dynamics and the plan replaces the
+solver's carried plan (``Solver.plan_field``). ``remat_rollout`` checkpoints each horizon step
+of the eager evaluator (``torch.utils.checkpoint``), so the first-order solvers keep each
+step's inputs instead of its activations for the backward pass; the gradients are the same.
 
 Stochastic dynamics draw their rollout noise from a generator of their own, seeded from
 ``seed``, so the solver's draws are those of a deterministic model. Every evaluation of one
@@ -31,6 +38,7 @@ back to the solve's start before each draw), and the next solve draws new noise.
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
 from typing import Callable
 
@@ -43,7 +51,7 @@ from blackbox_mpc_torch.core.types import Bounds
 from blackbox_mpc_torch.learning.handler import DynamicsHandler
 from blackbox_mpc_torch.policies.base import ModelBasedPolicy
 from blackbox_mpc_torch.rollout.evaluator import make_trajectory_evaluator
-from blackbox_mpc_torch.solvers import SOLVER_REGISTRY, UNPORTED_SOLVERS, lookup
+from blackbox_mpc_torch.solvers import SOLVER_REGISTRY, lookup
 from blackbox_mpc_torch.solvers.base import exploration_noise as _exploration_noise
 
 logger = logging.getLogger(__name__)
@@ -81,6 +89,8 @@ class MPCPolicy(ModelBasedPolicy):
         discount: float = 1.0,
         seed: int = 0,
         rollout_backend: str = "eager",
+        proposer=None,
+        remat_rollout: bool = False,
         action_smoothness_weight: float = 0.0,
         metrics_writer=None,
         device=None,
@@ -90,7 +100,10 @@ class MPCPolicy(ModelBasedPolicy):
 
         ``reward_function`` is a torch ``(s [B,S], a [B,U], s' [B,S]) -> [B]`` function.
         ``device=None`` means ``"cuda"``; it must be the dynamics handler's device.
-        ``seed`` seeds the policy's ``torch.Generator``, which every solve draws from.
+        ``seed`` seeds the policy's ``torch.Generator``, which every solve draws from, and a
+        host generator of its own (the episode seeds of ``policies/pipeline.py``).
+        ``proposer`` needs a plan-carrying solver (CEM, CEM-GD, CMA-ES, Gradient, PI2, MPPI,
+        SPSA) on the policy's device.
         """
         self._device = resolve_device(device)
         if dynamics_handler.device != self._device:
@@ -158,14 +171,19 @@ class MPCPolicy(ModelBasedPolicy):
         self._noise_generator = torch.Generator(device=self._device)
         self._noise_generator.manual_seed(seed + _NOISE_SEED_OFFSET)
         self._noise_start = None  # the noise generator's state at the start of the solve
+        self._host_rng = np.random.default_rng(seed)
+        if proposer is not None and proposer.device != self._device:
+            raise ValueError(f"proposer lives on {proposer.device}, policy on {self._device}")
+        self._proposer = proposer
+        self._proposer_field = None
+        self._remat = bool(remat_rollout)
         self._solver_kwargs = dict(solver_kwargs)
         self._build(solver_name, strict_kwargs=True)
 
     # ------------------------------------------------------------------ construction
 
     def _build(self, solver_name: str, strict_kwargs: bool = False) -> None:
-        known = solver_name in SOLVER_REGISTRY or solver_name in UNPORTED_SOLVERS
-        # an unknown name gets lookup's KeyError
+        known = solver_name in SOLVER_REGISTRY  # an unknown name gets lookup's KeyError
         if self._rollout_backend == "fused" and known and solver_name not in _FUSED_FAMILY:
             raise ValueError(
                 "rollout_backend='fused' backs the generate-in-kernel solver family "
@@ -190,6 +208,30 @@ class MPCPolicy(ModelBasedPolicy):
             raise ValueError(
                 f"num_elite ({config.num_elite}) must be <= population ({config.population})"
             )
+        field = None
+        if self._proposer is not None:
+            # Validated before any state of the policy changes: a refused switch_solver leaves
+            # the previous solver in place.
+            probe = factory(config, self._bounds, lambda s, a: None)
+            field = probe.plan_field
+            if field is None:
+                raise ValueError(
+                    f"proposer= requires a plan-carrying solver (one declaring "
+                    f"Solver.plan_field: CEM, CEM-GD, CMA-ES, Gradient, PI2, SPSA); "
+                    f"{solver_name} declares none"
+                )
+            plan_size = self._num_agents * self._planning_horizon * self._bounds.dim
+            size = getattr(probe.init(torch.Generator()), field).numel()
+            if size != plan_size:
+                raise ValueError(
+                    f"{solver_name} plan field '{field}' has size {size}, expected "
+                    f"A*H*U={plan_size}"
+                )
+        if self._rollout_backend == "kernel" and solver_name in ("Gradient", "CEM-GD"):
+            raise ValueError(
+                f"rollout_backend='kernel' cannot back the first-order {solver_name} solver "
+                "(the CUDA rollout kernel has no VJP); use the eager backend"
+            )
         time_major = bool(getattr(config, "time_major", False))
         if time_major and self._rollout_backend != "eager":
             raise ValueError(
@@ -211,6 +253,13 @@ class MPCPolicy(ModelBasedPolicy):
         self._config = config
         self._solver = solver
         self._solver_state = solver.init(self._generator)
+        self._proposer_field = field
+        if self._proposer is not None:
+            from blackbox_mpc_torch.learning.proposer import make_plan_proposal_fn
+
+            self._propose = make_plan_proposal_fn(
+                self._proposer.config, self._bounds, self._handler.mean_dynamics_fn,
+                self._planning_horizon)
 
     def _make_evaluate(self, time_major: bool):
         """The solver's ``evaluate(obs, candidates)``, reading the handler's current
@@ -240,7 +289,7 @@ class MPCPolicy(ModelBasedPolicy):
             lambda s, a, noise=None: dynamics_fn(handler.dynamics_params, s, a, noise),
             reward_fn, discount=self._discount, num_particles=num_particles,
             action_smoothness_weight=self._smoothness, dynamics_returns_penalty=self._penalized,
-            time_major=time_major, device=self._device,
+            time_major=time_major, remat=self._remat, device=self._device,
         )
         if not self._stochastic:
             return evaluate
@@ -256,13 +305,23 @@ class MPCPolicy(ModelBasedPolicy):
 
         return stochastic_evaluate
 
-    def _step(self, obs: torch.Tensor, t: int, generator: torch.Generator,
+    def _step(self, solver_state, obs: torch.Tensor, t: int, generator: torch.Generator,
               noise_generator: torch.Generator, add_noise: bool):
+        """One solve from ``solver_state`` (which it does not change), the optional
+        exploration noise and the one-step lookahead: ``(action, new_state, aux, next_obs,
+        pred_reward)``, all on the device."""
         if self._stochastic:
             # The noise generator's state lives on the host: reading and setting it waits for
             # nothing.
             self._noise_start = (noise_generator, noise_generator.get_state())
-        action, new_state, aux = self._solver.solve(self._solver_state, obs, t, generator)
+        if self._proposer is not None:
+            # POPLIN-style seeding: the policy net's unroll replaces the carried plan (reshaped
+            # for CMA-ES's flat [A, H*U] mean).
+            proposed = self._propose(self._proposer.params, self._handler.dynamics_params, obs)
+            current = getattr(solver_state, self._proposer_field)
+            solver_state = dataclasses.replace(solver_state, **{
+                self._proposer_field: proposed.reshape(current.shape).to(current.dtype)})
+        action, new_state, aux = self._solver.solve(solver_state, obs, t, generator)
         if add_noise:
             action = _exploration_noise(generator, action, self._bounds, self._noise_scale)
         # One-step lookahead on the posterior-mean dynamics (the unpenalized head means):
@@ -296,6 +355,10 @@ class MPCPolicy(ModelBasedPolicy):
     def device(self) -> torch.device:
         return self._device
 
+    @property
+    def proposer(self):
+        return self._proposer
+
     @torch.no_grad()
     def act(self, observations, t: int = 0, exploration_noise: bool = False):
         """Solves one MPC step.
@@ -306,7 +369,8 @@ class MPCPolicy(ModelBasedPolicy):
         """
         obs, batched = self._obs(observations)
         action, self._solver_state, _, next_obs, pred_reward = self._step(
-            obs, t, self._generator, self._noise_generator, bool(exploration_noise)
+            self._solver_state, obs, t, self._generator, self._noise_generator,
+            bool(exploration_noise)
         )
         flat = torch.cat([action.reshape(-1), next_obs.reshape(-1), pred_reward.reshape(-1)])
         flat = flat.float().cpu().numpy()
@@ -335,7 +399,7 @@ class MPCPolicy(ModelBasedPolicy):
         for source in (self._generator, self._noise_generator):
             copies.append(torch.Generator(device=self._device))
             copies[-1].set_state(source.get_state())
-        _, _, aux, _, _ = self._step(obs, t, *copies, False)
+        _, _, aux, _, _ = self._step(self._solver_state, obs, t, *copies, False)
         return aux.plan.cpu().numpy(), aux.expected_reward.cpu().numpy()
 
     def reset(self) -> None:

@@ -7,10 +7,15 @@ the ``"kernel"`` backend is :mod:`blackbox_mpc_torch.ops.rollout_kernel`.
 Stochastic dynamics (PETS ``ts_inf``/``mm``) take their randomness as a tensor: ``noise``
 ``[H, B, S]`` of standard normals, step ``t`` reading ``noise[t]``, where JAX splits one key
 into H step keys and draws ``normal(key_t, [B, S])``.
+
+``remat`` (JAX's ``jax.checkpoint`` of the scan body) runs each horizon step through
+``torch.utils.checkpoint``: differentiating through the rollout (the Gradient and CEM-GD
+solvers) then keeps each step's inputs only and computes the step again in the backward pass.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from blackbox_mpc_torch.core.device import resolve_device
 from blackbox_mpc_torch.core.types import DynamicsFn, RewardFn, TrajectoryEvaluator
@@ -35,6 +40,7 @@ def rollout_trajectories(
     noise: torch.Tensor | None = None,
     dynamics_returns_penalty: bool = False,
     time_major: bool = False,
+    remat: bool = False,
 ):
     """Rolls a batch of action sequences through the dynamics, accumulating reward.
 
@@ -43,19 +49,35 @@ def rollout_trajectories(
     step ``t`` calls ``dynamics_fn(state, action, noise[t])``; None keeps the two-argument
     call. ``dynamics_returns_penalty``: the dynamics return ``(next_state, penalty [B])`` and
     each step adds ``discount^t * (r - penalty)``.
+
+    ``remat``: each step runs under ``torch.utils.checkpoint`` (non-reentrant), which stores
+    the step's inputs instead of its activations and recomputes them in the backward pass.
+    The step's noise is one of those inputs, so a recomputation sees the same draws; the
+    gradients are the same as without it.
     """
     actions = action_sequences if time_major else action_sequences.transpose(0, 1)
     state = initial_states
     total = torch.zeros(state.shape[0], dtype=state.dtype, device=state.device)
     disc = torch.ones((), dtype=state.dtype, device=state.device)
     states = []
-    for t, actions_t in enumerate(actions):
-        out = (dynamics_fn(state, actions_t) if noise is None
-               else dynamics_fn(state, actions_t, noise[t]))
+
+    def step(state, actions_t, noise_t):
+        out = (dynamics_fn(state, actions_t) if noise_t is None
+               else dynamics_fn(state, actions_t, noise_t))
         next_state, penalty = out if dynamics_returns_penalty else (out, None)
         r = reward_fn(state, actions_t, next_state)
         if penalty is not None:
             r = r - penalty
+        return next_state, r
+
+    for t, actions_t in enumerate(actions):
+        noise_t = None if noise is None else noise[t]
+        if remat and torch.is_grad_enabled():
+            # The step draws nothing, so there is no RNG state to save and restore.
+            next_state, r = checkpoint(step, state, actions_t, noise_t, use_reentrant=False,
+                                       preserve_rng_state=False)
+        else:
+            next_state, r = step(state, actions_t, noise_t)
         total = total + disc * r
         disc = disc * discount
         state = next_state
@@ -93,6 +115,7 @@ def make_trajectory_evaluator(
     action_smoothness_weight: float = 0.0,
     dynamics_returns_penalty: bool = False,
     time_major: bool = False,
+    remat: bool = False,
     device=None,
 ) -> TrajectoryEvaluator:
     """Builds ``evaluate(initial_states [A,S], action_sequences [P,A,H,U], noise=None) ->
@@ -106,7 +129,7 @@ def make_trajectory_evaluator(
     ``noise`` (stochastic dynamics): ``[H, P*K*A, S]`` standard normals with
     ``K = num_particles``. Each candidate is then rolled out K times, particle ``j`` of
     candidate ``i`` on rows ``(i*K + j)*A + a``, and the K returns are averaged (the PETS
-    estimator); without noise K is 1. ``dynamics_returns_penalty``: see
+    estimator); without noise K is 1. ``dynamics_returns_penalty`` and ``remat``: see
     :func:`rollout_trajectories`.
     """
     if num_particles < 1:
@@ -141,6 +164,7 @@ def make_trajectory_evaluator(
         total = rollout_trajectories(
             dynamics_fn, reward_fn, flat_states, flat_actions, discount=discount, noise=noise,
             dynamics_returns_penalty=dynamics_returns_penalty, time_major=time_major,
+            remat=remat,
         )
         rewards = total.reshape(pop, k, agents).mean(1) if k > 1 else total.reshape(pop, agents)
         if action_smoothness_weight > 0.0:

@@ -1,8 +1,9 @@
 """Solver registry: one factory per trajectory optimizer, keyed by name.
 
-Counterpart of ``blackbox_mpc_tpu/solvers/__init__.py``. Ported: CEM (with the iCEM options),
-PI2, MPPI, RandomSearch and CMA-ES, the solvers the fused kernels of ``ops/fused_cem.py`` back.
-The other names of the JAX registry (``UNPORTED_SOLVERS``) raise ``NotImplementedError``.
+Counterpart of ``blackbox_mpc_tpu/solvers/__init__.py``, with all nine of its names: CEM (with
+the iCEM options), CEM-GD, CMA-ES, Gradient, MPPI, PI2, PSO, RandomSearch and SPSA. Each
+factory takes ``(config, bounds, evaluate)``; the sampled solvers also take the time-major
+candidate layout (``time_major=True``) with a time-major evaluator.
 """
 from __future__ import annotations
 
@@ -11,33 +12,33 @@ from typing import Callable, Dict, Tuple, Type
 from blackbox_mpc_torch.core.types import Bounds, Solver, SolverAux, TrajectoryEvaluator
 from blackbox_mpc_torch.solvers.base import SolverConfig
 from blackbox_mpc_torch.solvers.cem import CEMConfig, CEMState, make_cem
+from blackbox_mpc_torch.solvers.cem_gd import CEMGDConfig, CEMGDState, make_cem_gd
 from blackbox_mpc_torch.solvers.cma_es import CMAESConfig, CMAESState, make_cma_es
+from blackbox_mpc_torch.solvers.gradient import GradientConfig, GradientState, make_gradient
 from blackbox_mpc_torch.solvers.pi2 import MPPIConfig, PI2Config, PI2State, make_pi2
+from blackbox_mpc_torch.solvers.pso import PSOConfig, PSOState, make_pso
 from blackbox_mpc_torch.solvers.random_search import (
     RandomSearchConfig,
     RandomSearchState,
     make_random_search,
 )
+from blackbox_mpc_torch.solvers.spsa import SPSAConfig, SPSAState, make_spsa
 
 SOLVER_REGISTRY: Dict[str, Tuple[Type[SolverConfig], Callable]] = {
     "CEM": (CEMConfig, make_cem),
+    "CEM-GD": (CEMGDConfig, make_cem_gd),
     "CMA-ES": (CMAESConfig, make_cma_es),
+    "Gradient": (GradientConfig, make_gradient),
     "MPPI": (MPPIConfig, make_pi2),
     "PI2": (PI2Config, make_pi2),
+    "PSO": (PSOConfig, make_pso),
     "RandomSearch": (RandomSearchConfig, make_random_search),
+    "SPSA": (SPSAConfig, make_spsa),
 }
-
-# Solvers of the JAX package that the port does not have yet.
-UNPORTED_SOLVERS = frozenset({"CEM-GD", "Gradient", "PSO", "SPSA"})
 
 
 def lookup(name: str):
-    """``(ConfigClass, factory)`` of ``name``; raises for unported and unknown names."""
-    if name in UNPORTED_SOLVERS:
-        raise NotImplementedError(
-            f"solver {name!r} is not ported yet (ROADMAP Queue 1 item 6); "
-            f"ported: {sorted(SOLVER_REGISTRY)}"
-        )
+    """``(ConfigClass, factory)`` of ``name``; raises ``KeyError`` for an unknown name."""
     try:
         return SOLVER_REGISTRY[name]
     except KeyError:
@@ -53,8 +54,10 @@ def make_solver(
 
 
 __all__ = [
-    "SOLVER_REGISTRY", "UNPORTED_SOLVERS", "lookup", "make_solver", "Solver", "SolverAux",
-    "SolverConfig", "CEMConfig", "CEMState", "make_cem", "CMAESConfig", "CMAESState",
-    "make_cma_es", "MPPIConfig", "PI2Config", "PI2State", "make_pi2", "RandomSearchConfig",
-    "RandomSearchState", "make_random_search",
+    "SOLVER_REGISTRY", "lookup", "make_solver", "Solver", "SolverAux", "SolverConfig",
+    "CEMConfig", "CEMState", "make_cem", "CEMGDConfig", "CEMGDState", "make_cem_gd",
+    "CMAESConfig", "CMAESState", "make_cma_es", "GradientConfig", "GradientState",
+    "make_gradient", "MPPIConfig", "PI2Config", "PI2State", "make_pi2", "PSOConfig", "PSOState",
+    "make_pso", "RandomSearchConfig", "RandomSearchState", "make_random_search", "SPSAConfig",
+    "SPSAState", "make_spsa",
 ]

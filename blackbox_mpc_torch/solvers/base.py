@@ -2,14 +2,15 @@
 
 Counterpart of ``blackbox_mpc_tpu/solvers/base.py``: bounds bookkeeping, midpoint/variance
 initialization, warm-start time shifting, the bound-violation penalty, the iCEM colored noise
-(with the spectral-synthesis basis the fused kernels contract) and the exploration-noise rule.
-The time-major colored noise and ``adam_polish`` are not ported yet (ROADMAP Queue 1 items 4
-and 10).
+in both candidate layouts (with the spectral-synthesis basis the fused kernels contract), the
+exploration-noise rule, and the projected Adam ascent the first-order solvers share
+(:func:`adam_polish`, over :func:`adam_update`, optax's ``adam`` written out).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import functools
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -18,6 +19,9 @@ from blackbox_mpc_torch.core.types import Bounds, Solver, truncated_normal
 
 __all__ = [
     "SolverConfig",
+    "AdamState",
+    "adam_polish",
+    "adam_update",
     "with_state_dtype",
     "init_solution_mean",
     "init_solution_variance",
@@ -25,6 +29,7 @@ __all__ = [
     "shift_time",
     "bound_violation_penalty",
     "colored_noise",
+    "colored_noise_time_major",
     "colored_spectrum",
     "colored_synthesis_basis",
     "exploration_noise",
@@ -111,12 +116,15 @@ def shift_time(plan: torch.Tensor) -> torch.Tensor:
 
 
 def bound_violation_penalty(
-    samples: torch.Tensor, bounds: Bounds
+    samples: torch.Tensor, bounds: Bounds, time_major: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Clips samples ``[P, A, H, U]`` to bounds; returns (feasible samples, squared-violation
-    penalty ``[P, A]``)."""
+    penalty ``[P, A]``). ``time_major``: samples are ``[H, P, A, U]`` (the penalty stays
+    ``[P, A]``)."""
     feasible = bounds.clip(samples)
     violation = torch.square(samples - feasible)
+    if time_major:
+        return feasible, violation.sum(dim=(0, 3))
     return feasible, violation.reshape(samples.shape[0], samples.shape[1], -1).sum(-1)
 
 
@@ -146,6 +154,32 @@ def colored_noise(generator: torch.Generator, beta: float, shape,
     signal = torch.fft.irfft(spectrum, n=horizon, dim=-1).transpose(-1, -2)  # [..., H, U]
     std = torch.std(signal, dim=(-2, -1), keepdim=True, unbiased=False) + 1e-8
     return signal / std
+
+
+def colored_noise_time_major(generator: torch.Generator, beta: float, shape,
+                             dtype=torch.float32) -> torch.Tensor:
+    """:func:`colored_noise` for the time-major candidate layout: ``shape`` is
+    ``(H, *lead, U)``, the power-law correlation along axis 0.
+
+    The spectrum is drawn as :func:`colored_noise` draws it, so from the same generator state
+    the result is ``colored_noise(generator, beta, (*lead, H, U))`` moved to H-major, up to
+    rounding; the synthesis is one contraction with the ``[2F, H]`` basis
+    (:func:`colored_synthesis_basis`) that writes the output H-major.
+    """
+    horizon, *lead, dim_u = shape
+    real, imag = colored_spectrum(generator, (*lead, horizon, dim_u), dtype)
+    coeffs = torch.stack([real, imag], dim=-1).reshape(*lead, dim_u, -1)  # [*lead, U, 2F]
+    basis = _basis_tensor(horizon, float(beta), coeffs.device, dtype)
+    signal = torch.einsum("fh,...f->h...", basis, coeffs)  # [H, *lead, U]
+    std = torch.std(signal, dim=(0, signal.dim() - 1), keepdim=True, unbiased=False) + 1e-8
+    return signal / std
+
+
+@functools.lru_cache(maxsize=None)
+def _basis_tensor(horizon: int, beta: float, device: torch.device, dtype) -> torch.Tensor:
+    """The synthesis basis on ``device``, copied there once (a copy per solve would make the
+    host wait)."""
+    return torch.as_tensor(colored_synthesis_basis(horizon, beta), dtype=dtype, device=device)
 
 
 def colored_synthesis_basis(horizon: int, beta: float) -> np.ndarray:
@@ -180,3 +214,60 @@ def exploration_noise(
     std = torch.sqrt(bounds.constant("default_variance", action.device) * scale).to(action.dtype)
     noise = truncated_normal(generator, mid, std, action.shape)
     return bounds.clip(action + noise)
+
+
+# optax.adam's defaults.
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+@dataclasses.dataclass
+class AdamState:
+    """optax's ``ScaleByAdamState`` in PyTorch's names: ``step`` is optax's ``count`` (a host
+    int: the bias corrections are host scalars, so no step reads the device), ``exp_avg`` and
+    ``exp_avg_sq`` its ``mu`` and ``nu``, one tensor per parameter."""
+
+    step: int
+    exp_avg: List[torch.Tensor]
+    exp_avg_sq: List[torch.Tensor]
+
+    @classmethod
+    def zeros_like(cls, params: Sequence[torch.Tensor]) -> "AdamState":
+        return cls(0, [torch.zeros_like(p) for p in params],
+                   [torch.zeros_like(p) for p in params])
+
+
+def adam_update(state: AdamState, grads: Sequence[torch.Tensor], lr: float
+                ) -> Tuple[AdamState, List[torch.Tensor]]:
+    """One step of ``optax.adam(lr)`` (b1 0.9, b2 0.999, eps 1e-8, eps_root 0) in optax's
+    order of operations: ``mu = (1 - b1) g + b1 mu``, ``nu = (1 - b2) g^2 + b2 nu``, the
+    bias-corrected moments, ``mu_hat / (sqrt(nu_hat) + eps)`` scaled by ``-lr``. Returns the
+    new state and the updates to add to the parameters."""
+    step = state.step + 1
+    mus = [(1.0 - ADAM_B1) * g + ADAM_B1 * m for g, m in zip(grads, state.exp_avg)]
+    nus = [(1.0 - ADAM_B2) * (g * g) + ADAM_B2 * v for g, v in zip(grads, state.exp_avg_sq)]
+    c1, c2 = 1.0 - ADAM_B1 ** step, 1.0 - ADAM_B2 ** step
+    updates = [(m / c1) / (torch.sqrt(v / c2) + ADAM_EPS) * -lr for m, v in zip(mus, nus)]
+    return AdamState(step, mus, nus), updates
+
+
+def adam_polish(evaluate, bounds: Bounds, lr: float, plans: torch.Tensor,
+                iterations: int) -> torch.Tensor:
+    """Projected Adam ascent of ``evaluate`` over a batch of plans ``[P, A, H, U]``.
+
+    Shared by the first-order solvers (``gradient.py``, ``cem_gd.py``). The objective is
+    ``-mean(evaluate(plans))``: each plan's reward depends only on its own actions, so the
+    gradient decomposes per plan, and the mean (not the sum) keeps its scale where Adam's
+    ``eps`` expects it. The plans are clipped to the bounds after every step. Gradients flow
+    into the plans only (the planning parameters carry none), also when the caller runs
+    under ``torch.no_grad()``; the result is detached.
+    """
+    plans = plans.detach()
+    state = AdamState.zeros_like([plans])
+    with torch.enable_grad():
+        for _ in range(iterations):
+            leaf = plans.requires_grad_(True)
+            objective = -torch.mean(evaluate(leaf))
+            (grad,) = torch.autograd.grad(objective, leaf)
+            state, (update,) = adam_update(state, [grad], lr)
+            plans = bounds.clip(leaf.detach() + update)
+    return plans

@@ -9,8 +9,10 @@ state unchanged between solves.
 The iCEM options run as in the JAX package: ``colored_noise_beta`` (colored samples, clipped to
 the bounds), ``keep_elites`` (the previous iteration's best rejoin the population),
 ``mean_as_candidate``, ``population_decay`` (iteration i samples
-``max(population * decay^i, 2 * num_elite)``) and ``execute_best``. The time-major candidate
-layout is not ported yet: ``time_major=True`` raises ``NotImplementedError``.
+``max(population * decay^i, 2 * num_elite)``) and ``execute_best``. ``time_major=True`` samples
+and evaluates the candidates ``[H, P, A, U]`` (pair it with a time-major evaluator); the state,
+the returned elites and the moments keep their layouts. Colored noise draws the same spectrum
+in both layouts; a truncated normal is as random in both but not the same draw.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ __all__ = [
 @dataclasses.dataclass(frozen=True)
 class CEMConfig(base.SolverConfig):
     """Defaults match the reference; the fields after ``warm_start`` are the iCEM options of
-    the JAX package (``time_major`` carries over but only ``False`` runs)."""
+    the JAX package, then the candidate layout."""
 
     num_elite: int = 50
     alpha: float = 0.25  # weight of the previous mean/var
@@ -50,13 +52,7 @@ class CEMConfig(base.SolverConfig):
 
 
 def check_config(config: CEMConfig) -> None:
-    """Raises for what is not ported (``time_major``) and for the option ranges the JAX
-    factories refuse."""
-    if config.time_major:
-        raise NotImplementedError(
-            "CEMConfig.time_major=True is not ported yet (ROADMAP Queue 1 item 5: the "
-            "time-major candidate layout)"
-        )
+    """Raises for the option ranges the JAX factories refuse."""
     reserved = 1 + (1 if config.mean_as_candidate else 0)
     if not 0 <= config.keep_elites <= min(config.num_elite, config.population - reserved):
         raise ValueError(
@@ -79,42 +75,64 @@ def cem_iteration(config: CEMConfig, bounds: Bounds, evaluate, obs, mean, var, g
 
     Samples ``population - keep_elites`` (less one with ``mean_as_candidate``) fresh candidates
     around ``mean``: colored noise clipped to the bounds when ``config.colored_noise_beta >
-    0``, else a truncated normal. The clipped mean and the ``carried [A, keep, H, U]`` elites
-    of the previous iteration rejoin them. ``elites`` is ``[A, n, H, U]`` ranked best-first
-    with ``n = num_elite``, or ``max(n_extract, keep_elites)`` when ``n_extract`` is given;
+    0``, else a truncated normal. The clipped mean and the ``carried`` elites of the previous
+    iteration rejoin them. ``elites`` is ``[A, n, H, U]`` ranked best-first with ``n =
+    num_elite``, or ``max(n_extract, keep_elites)`` when ``n_extract`` is given;
     ``elite_vals`` is ``[A, k]``. ``population`` overrides ``config.population`` (iCEM decay).
+
+    ``config.time_major``: the candidates are ``[H, P, A, U]`` and ``carried`` is
+    ``[H, keep, A, U]`` (``[A, keep, H, U]`` otherwise); everything else keeps its layout.
     """
     horizon, agents = config.planning_horizon, config.num_agents
     pop = config.population if population is None else population
     k, alpha, keep = config.num_elite, config.alpha, config.keep_elites
+    tm = config.time_major
     std = torch.sqrt(base.constrain_variance(mean, var, bounds))
     n_fresh = pop - keep - (1 if config.mean_as_candidate else 0)
-    shape = (n_fresh, agents, horizon, bounds.dim)
-    if config.colored_noise_beta > 0.0:
-        z = base.colored_noise(generator, config.colored_noise_beta, shape)
-        samples = bounds.clip(mean + std * z)
+    if tm:
+        # [H, 1, A, U] anchors: small transposes of the [A, H, U] state.
+        center, spread = mean.permute(1, 0, 2)[:, None], std.permute(1, 0, 2)[:, None]
+        shape, p_axis = (horizon, n_fresh, agents, bounds.dim), 1
     else:
-        samples = truncated_normal(generator, mean, std, shape)
+        center, spread = mean, std
+        shape, p_axis = (n_fresh, agents, horizon, bounds.dim), 0
+    if config.colored_noise_beta > 0.0:
+        colored = base.colored_noise_time_major if tm else base.colored_noise
+        samples = bounds.clip(center + spread * colored(generator, config.colored_noise_beta,
+                                                        shape))
+    else:
+        samples = truncated_normal(generator, center, spread, shape)
     if config.mean_as_candidate:
-        samples = torch.cat([samples, bounds.clip(mean)[None]], dim=0)
+        samples = torch.cat([samples, bounds.clip(center if tm else mean[None])], dim=p_axis)
     if keep:
-        samples = torch.cat([samples, carried.transpose(0, 1)], dim=0)
+        samples = torch.cat([samples, carried if tm else carried.transpose(0, 1)], dim=p_axis)
     rewards = evaluate(obs, samples)  # [P, A]
     elite_vals, elite_idx = torch.topk(rewards.T, k, dim=1)  # [A, k]
     # scatter_ from a source on the device: a Python scalar would be a host copy that waits
     # for the rollout.
     mask = torch.zeros((pop, agents), dtype=samples.dtype, device=samples.device).scatter_(
         0, elite_idx.T, torch.ones((k, agents), dtype=samples.dtype, device=samples.device))
-    w = mask[:, :, None, None]
-    new_mean = torch.sum(w * samples, dim=0) / k
-    new_var = torch.sum(w * torch.square(samples - new_mean[None]), dim=0) / k
+    if tm:
+        w = mask[None, :, :, None]
+        new_mean_t = torch.sum(w * samples, dim=1) / k  # [H, A, U]
+        new_var_t = torch.sum(w * torch.square(samples - new_mean_t[:, None]), dim=1) / k
+        new_mean, new_var = new_mean_t.permute(1, 0, 2), new_var_t.permute(1, 0, 2)
+    else:
+        w = mask[:, :, None, None]
+        new_mean = torch.sum(w * samples, dim=0) / k
+        new_var = torch.sum(w * torch.square(samples - new_mean[None]), dim=0) / k
     n = k if n_extract is None else max(n_extract, keep)
-    index = elite_idx[:, :n, None, None].expand(agents, n, horizon, bounds.dim)
-    elites = torch.gather(samples.transpose(0, 1), 1, index)  # [A, n, H, U]
+    if tm:
+        index = elite_idx[:, :n].T[None, :, :, None].expand(horizon, n, agents, bounds.dim)
+        elites_t = torch.gather(samples, 1, index)  # [H, n, A, U]
+        elites = elites_t.permute(2, 1, 0, 3)
+    else:
+        index = elite_idx[:, :n, None, None].expand(agents, n, horizon, bounds.dim)
+        elites = torch.gather(samples.transpose(0, 1), 1, index)  # [A, n, H, U]
     mean = alpha * mean + (1.0 - alpha) * new_mean
     var = alpha * var + (1.0 - alpha) * new_var
     if keep:
-        carried = elites[:, :keep]
+        carried = elites_t[:, :keep] if tm else elites[:, :keep]
     return mean, var, carried, elites, elite_vals
 
 
@@ -131,14 +149,21 @@ def iteration_populations(config: CEMConfig):
 
 
 def init_carried(config: CEMConfig, bounds: Bounds, state: CEMState, generator):
-    """The initial carried-elite buffer ``[A, keep, H, U]``: placeholders sampled around the
-    incoming plan. ``keep_elites == 0`` draws nothing."""
+    """The initial carried-elite buffer ``[A, keep, H, U]`` (``[H, keep, A, U]`` time-major):
+    placeholders sampled around the incoming plan. ``keep_elites == 0`` draws nothing."""
     keep = config.keep_elites
-    shape = (keep, config.num_agents, config.planning_horizon, bounds.dim)
+    if config.time_major:
+        shape = (config.planning_horizon, keep, config.num_agents, bounds.dim)
+        mean, std = state.mean.permute(1, 0, 2)[:, None], torch.sqrt(state.variance).permute(
+            1, 0, 2)[:, None]
+    else:
+        shape = (keep, config.num_agents, config.planning_horizon, bounds.dim)
+        mean, std = state.mean, torch.sqrt(state.variance)
     if not keep:
-        return torch.zeros(shape, dtype=state.mean.dtype, device=state.mean.device).transpose(0, 1)
-    carried0 = truncated_normal(generator, state.mean, torch.sqrt(state.variance), shape)
-    return carried0.transpose(0, 1)
+        carried = torch.zeros(shape, dtype=state.mean.dtype, device=state.mean.device)
+    else:
+        carried = truncated_normal(generator, mean, std, shape)
+    return carried if config.time_major else carried.transpose(0, 1)
 
 
 def make_cem(config: CEMConfig, bounds: Bounds, evaluate: TrajectoryEvaluator) -> Solver:

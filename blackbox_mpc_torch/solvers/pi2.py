@@ -5,7 +5,7 @@ population around the running mean, clip to bounds with a squared-violation pena
 rewards into costs and softmax-weight the samples with temperature ``lamda`` against the
 per-agent best cost. The variance is static unless ``adapt_variance`` (PI2-CMA) is set;
 ``control_cost`` adds MPPI's information-theoretic control cost. Warm-starts by time-shifting
-the solution. The time-major candidate layout is not ported yet.
+the solution. ``time_major=True`` samples and evaluates the candidates ``[H, P, A, U]``.
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ class PI2Config(base.SolverConfig):
     variance_floor_frac: float = 0.01
     # MPPI: add lambda * sum_t u_t^T Sigma^-1 eps_t to each sample's cost before the softmax.
     control_cost: bool = False
-    time_major: bool = False  # carried over from the JAX package; only False runs
+    time_major: bool = False  # candidates [H, P, A, U]; pair with a time-major evaluator
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,14 +50,6 @@ class PI2State:
     mean: torch.Tensor  # [A, H, U]
 
 
-def check_config(config: PI2Config) -> None:
-    if config.time_major:
-        raise NotImplementedError(
-            f"{type(config).__name__}.time_major=True is not ported yet (ROADMAP Queue 1 item "
-            "5: the time-major candidate layout)"
-        )
-
-
 def softmax_weights(costs: torch.Tensor, lamda: float) -> torch.Tensor:
     """``exp(-(cost - min) / lamda)`` normalized over the population axis; costs ``[P, A]``."""
     prob = torch.exp(-(costs - costs.min(dim=0, keepdim=True).values) / lamda)
@@ -65,9 +57,13 @@ def softmax_weights(costs: torch.Tensor, lamda: float) -> torch.Tensor:
 
 
 def make_pi2(config: PI2Config, bounds: Bounds, evaluate: TrajectoryEvaluator) -> Solver:
-    check_config(config)
     horizon, agents, pop = config.planning_horizon, config.num_agents, config.population
     lamda = config.lamda
+    tm = config.time_major
+    # The candidates' shape, an [A, H, U] tensor lifted to them, and the weighted sum over P.
+    shape = (horizon, pop, agents, bounds.dim) if tm else (pop, agents, horizon, bounds.dim)
+    lift = (lambda x: x.permute(1, 0, 2)[:, None]) if tm else (lambda x: x)
+    weighted = "pa,hpau->hau" if tm else "pa,pahu->ahu"
 
     def init(generator: torch.Generator) -> PI2State:
         return PI2State(
@@ -79,28 +75,32 @@ def make_pi2(config: PI2Config, bounds: Bounds, evaluate: TrajectoryEvaluator) -
         mean = state.mean
         variance0 = base.init_solution_variance(bounds, horizon, agents, device=mean.device)
         variance = variance0
-        shape = (pop, agents, horizon, bounds.dim)
         for _ in range(config.max_iterations):
             stddev = torch.sqrt(variance)
             if config.colored_noise_beta > 0.0:
-                samples = mean + stddev * base.colored_noise(
+                colored = base.colored_noise_time_major if tm else base.colored_noise
+                samples = lift(mean) + lift(stddev) * colored(
                     generator, config.colored_noise_beta, shape)
             else:
-                samples = truncated_normal(generator, mean, stddev, shape)
-            samples, penalty = base.bound_violation_penalty(samples, bounds)
+                samples = truncated_normal(generator, lift(mean), lift(stddev), shape)
+            samples, penalty = base.bound_violation_penalty(samples, bounds, time_major=tm)
             rewards = evaluate(obs, samples) - penalty  # [P, A]
             costs = -rewards
             if config.control_cost:
                 # MPPI exploration cost on the post-clip (actually applied) perturbation.
-                costs = costs + lamda * torch.einsum(
-                    "ahu,pahu->pa", mean / variance, samples - mean[None])
+                precision = mean / variance
+                costs = costs + lamda * (
+                    torch.einsum("hau,hpau->pa", precision.permute(1, 0, 2), samples - lift(mean))
+                    if tm else torch.einsum("ahu,pahu->pa", precision, samples - mean[None]))
             omega = softmax_weights(costs, lamda)  # [P, A]
-            new_mean = torch.einsum("pa,pahu->ahu", omega, samples)
+            new_mean = torch.einsum(weighted, omega, samples)
             if config.adapt_variance:
-                new_var = torch.einsum("pa,pahu->ahu", omega,
-                                       torch.square(samples - new_mean[None]))
+                dev = samples - new_mean[:, None] if tm else samples - new_mean[None]
+                new_var = torch.einsum(weighted, omega, torch.square(dev))
+                if tm:
+                    new_var = new_var.permute(1, 0, 2)
                 variance = torch.maximum(new_var, config.variance_floor_frac * variance0)
-            mean = new_mean
+            mean = new_mean.permute(1, 0, 2) if tm else new_mean
         aux = SolverAux(expected_reward=rewards.max(dim=0).values, plan=mean)
         return mean[:, 0], PI2State(mean=base.shift_time(mean)), aux
 

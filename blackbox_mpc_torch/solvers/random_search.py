@@ -1,7 +1,8 @@
 """Random-shooting trajectory solver.
 
 Counterpart of ``blackbox_mpc_tpu/solvers/random_search.py``: one uniform population, one
-evaluation, per-agent argmax. Stateless. The time-major candidate layout is not ported yet.
+evaluation, per-agent argmax. Stateless. ``time_major=True`` samples and evaluates the
+candidates ``[H, P, A, U]``.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ __all__ = ["RandomSearchConfig", "RandomSearchState", "make_random_search"]
 class RandomSearchConfig(base.SolverConfig):
     population: int = 1024
     max_iterations: int = 1  # single-shot by definition
-    time_major: bool = False  # carried over from the JAX package; only False runs
+    time_major: bool = False  # candidates [H, P, A, U]; pair with a time-major evaluator
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,12 +36,9 @@ def unit_uniform(generator: torch.Generator, shape) -> torch.Tensor:
 def make_random_search(
     config: RandomSearchConfig, bounds: Bounds, evaluate: TrajectoryEvaluator
 ) -> Solver:
-    if config.time_major:
-        raise NotImplementedError(
-            "RandomSearchConfig.time_major=True is not ported yet (ROADMAP Queue 1 item 5: "
-            "the time-major candidate layout)"
-        )
     horizon, agents, pop = config.planning_horizon, config.num_agents, config.population
+    tm = config.time_major
+    shape = (horizon, pop, agents, bounds.dim) if tm else (pop, agents, horizon, bounds.dim)
 
     def init(generator: torch.Generator) -> RandomSearchState:
         del generator
@@ -49,12 +47,14 @@ def make_random_search(
     def solve(state: RandomSearchState, obs: torch.Tensor, t, generator: torch.Generator):
         del t
         lower, upper = bounds.on(obs.device)
-        u = unit_uniform(generator, (pop, agents, horizon, bounds.dim))
-        samples = lower + u * (upper - lower)
+        samples = lower + unit_uniform(generator, shape) * (upper - lower)
         rewards = evaluate(obs, samples)  # [P, A]
         best_idx = torch.argmax(rewards, dim=0)  # [A]
         agent_ids = torch.arange(agents, device=obs.device)
-        best_plan = samples[best_idx, agent_ids]  # [A, H, U]
+        if tm:
+            best_plan = samples[:, best_idx, agent_ids].permute(1, 0, 2)  # [A, H, U]
+        else:
+            best_plan = samples[best_idx, agent_ids]
         aux = SolverAux(expected_reward=rewards[best_idx, agent_ids], plan=best_plan)
         return best_plan[:, 0], state, aux
 

@@ -13,6 +13,8 @@ import logging
 import os
 from typing import Callable, Optional
 
+import torch
+
 from blackbox_mpc_torch.learning.handler import DynamicsHandler
 from blackbox_mpc_torch.models.dynamics import LearnedDynamicsConfig
 from blackbox_mpc_torch.policies.mpc_policy import MPCPolicy
@@ -22,6 +24,9 @@ from blackbox_mpc_torch.workflows.dynamics_learning import learn_dynamics_from_p
 logger = logging.getLogger(__name__)
 
 __all__ = ["learn_dynamics_iteratively_w_mpc"]
+
+# The proposer's checkpoint beside handler/: a directory with a torch.save payload.
+_PROPOSER_PAYLOAD = ("proposer", "proposer.pt")
 
 
 def learn_dynamics_iteratively_w_mpc(
@@ -62,15 +67,15 @@ def learn_dynamics_iteratively_w_mpc(
     ``gd_learning_rate`` (CEM-GD), since the workflow's ``learning_rate`` is the model's.
     ``device`` (default ``"cuda"``) is the handler's and the policy's.
 
-    ``overlap=True`` (the speculative pipeline) and ``behavior_cloning=True`` (the policy
-    proposer, ``bc_epochs`` and ``bc_hidden``) are not ported yet and raise.
+    ``overlap=True``: the refinements collect through the speculative pipeline
+    (``perform_rollouts(overlap=True)``). ``behavior_cloning=True`` (POPLIN-style): a
+    :class:`~blackbox_mpc_torch.learning.proposer.PolicyProposer` (hidden widths
+    ``bc_hidden``) is behaviour-cloned for ``bc_epochs`` on the replay after the bootstrap and
+    after every refinement (``proposer/bc_loss``) and seeds the solver's plan at every solve;
+    it is returned as ``policy.proposer`` and checkpointed beside ``handler/`` as
+    ``proposer/proposer.pt`` (a ``torch.save`` payload). ``resume=True`` restores it, or reads
+    the JAX package's legacy ``proposer.npy``.
     """
-    del bc_epochs, bc_hidden
-    for name, flag, needs in (("overlap", overlap, "policies/pipeline.py"),
-                              ("behavior_cloning", behavior_cloning, "learning/proposer.py")):
-        if flag:
-            raise NotImplementedError(f"{name}=True needs {needs}, which is not ported yet "
-                                      "(ROADMAP Queue 1 item 8)")
     if solver_learning_rate is not None:
         lr_field = "gd_learning_rate" if solver_name == "CEM-GD" else "learning_rate"
         solver_kwargs[lr_field] = solver_learning_rate
@@ -98,6 +103,9 @@ def learn_dynamics_iteratively_w_mpc(
             return
         os.makedirs(checkpoint_dir, exist_ok=True)
         handler.save(os.path.join(checkpoint_dir, "handler"))
+        if proposer is not None:
+            os.makedirs(os.path.join(checkpoint_dir, "proposer"), exist_ok=True)
+            torch.save(proposer.state_dict(), os.path.join(checkpoint_dir, *_PROPOSER_PAYLOAD))
         with open(os.path.join(checkpoint_dir, "loop_state.json"), "w") as f:
             json.dump({"completed_refinements": completed}, f)
 
@@ -122,6 +130,11 @@ def learn_dynamics_iteratively_w_mpc(
     elif handler is None:
         raise ValueError("need number_of_initial_rollouts > 0 or a pre-trained handler")
 
+    proposer = None
+    if behavior_cloning:
+        proposer = _make_proposer(env, handler, checkpoint_dir if resume else None,
+                                  bc_epochs, tuple(bc_hidden), seed)
+
     policy = MPCPolicy(
         action_space=env.action_space,
         reward_function=reward_function,
@@ -132,6 +145,7 @@ def learn_dynamics_iteratively_w_mpc(
         seed=seed,
         metrics_writer=metrics_writer,
         device=handler.device,
+        proposer=proposer,
         **solver_kwargs,
     )
     if start_refinement == 0:
@@ -149,10 +163,47 @@ def learn_dynamics_iteratively_w_mpc(
             patience=patience,
             exploration_noise=exploration_noise,
             metrics_writer=metrics_writer,
+            overlap=overlap,
         )
         logger.info(
             "refinement %d: episode reward %.2f, val loss %.5f",
             i + 1, result["reward_sum"][-1], metrics["val_loss"],
         )
+        if proposer is not None:
+            bc = proposer.train(handler.replay, epochs=bc_epochs)
+            if metrics_writer is not None:
+                metrics_writer.scalar("proposer/bc_loss", bc["bc_loss"], i + 1)
         _checkpoint(i + 1)
     return handler, policy
+
+
+def _make_proposer(env, handler: DynamicsHandler, resume_dir: Optional[str], bc_epochs: int,
+                   bc_hidden: tuple, seed: int):
+    """The loop's proposer: restored from ``resume_dir`` (the port's payload, else the JAX
+    package's legacy ``proposer.npy``) or behaviour-cloned on the bootstrap replay."""
+    from blackbox_mpc_torch.core.types import Bounds
+    from blackbox_mpc_torch.learning.proposer import PolicyProposer, ProposerConfig
+    from blackbox_mpc_torch.models.convert import load_legacy_npy, proposer_from_numpy
+
+    if handler.replay is None:
+        raise ValueError(
+            "behavior_cloning=True requires a learned-dynamics handler (a replay "
+            "buffer to clone from); true-model handlers have none"
+        )
+    config = ProposerConfig(dim_s=handler.config.dim_s, dim_u=env.action_space.dim,
+                            hidden=bc_hidden)
+    bounds = Bounds.from_space(env.action_space)
+    proposer = PolicyProposer(config, bounds, seed=seed, device=handler.device)
+    payload = os.path.join(resume_dir, *_PROPOSER_PAYLOAD) if resume_dir else None
+    legacy = os.path.join(resume_dir, "proposer.npy") if resume_dir else None
+    if payload and os.path.exists(payload):
+        proposer.load_state_dict(torch.load(payload, map_location=handler.device))
+        logger.info("resumed proposer from %s", payload)
+    elif legacy and os.path.exists(legacy):
+        restored = proposer_from_numpy(load_legacy_npy(legacy), config, bounds,
+                                       device=handler.device)
+        proposer.load_state_dict(restored.state_dict())
+        logger.info("resumed proposer from legacy %s", legacy)
+    else:
+        logger.info("behavior cloning: %s", proposer.train(handler.replay, epochs=bc_epochs))
+    return proposer

@@ -3,8 +3,9 @@
 Counterpart of ``blackbox_mpc_tpu/workflows/rollouts.py``, with its metric tags: the per-step
 actual reward and, for a model-based policy, the model's reward and observation errors; per
 episode the actual and the predicted return; per call the solve rate and the ``act()`` latency
-percentiles (p50 and p95). ``overlap=True`` (the speculative pipeline of
-``policies/pipeline.py``) is not ported yet and raises.
+percentiles (p50 and p95). ``overlap=True`` runs the speculative pipeline of
+``policies/pipeline.py``: while the env steps (``step_async``/``step_wait``), the next solve runs
+from the model's predicted observation.
 """
 from __future__ import annotations
 
@@ -48,18 +49,24 @@ def perform_rollouts(
 
     Returns observations [N, T+1, E, S], actions [N, T, E, U], rewards [N, T, E] and dones
     [N, T, E] with E = env.num_envs, plus per-episode reward sums and act-latency stats. An
-    episode ends early once every env is done. ``overlap`` and ``spec_tol`` belong to the
-    speculative pipeline, which is not ported yet: ``overlap=True`` raises.
+    episode ends early once every env is done.
+
+    ``overlap=True`` (model-based policies only): depth-1 speculative pipelining. While the
+    env executes ``step_async``, the next solve runs from the model's predicted observation;
+    a real observation within ``spec_tol`` (max-abs) of the prediction adopts the
+    speculative action, else the step solves again exactly with the same per-step
+    randomness. ``spec_tol=None`` keeps exact semantics (prefetch only).
     """
-    del spec_tol
     model_based = isinstance(policy, ModelBasedPolicy)
+    pipe = None
     if overlap:
         if not model_based:
             raise ValueError("overlap=True requires a model-based policy (it speculates "
                              "on the policy's predicted next observation)")
-        raise NotImplementedError(
-            "overlap=True needs policies/pipeline.py, which is not ported yet (ROADMAP "
-            "Queue 1 item 8)")
+        from blackbox_mpc_torch.policies.pipeline import SpeculativePipeline
+
+        pipe = SpeculativePipeline(policy, spec_tol=spec_tol,
+                                   exploration_noise=exploration_noise)
     all_obs: List[np.ndarray] = []
     all_actions: List[np.ndarray] = []
     all_rewards: List[np.ndarray] = []
@@ -69,13 +76,19 @@ def perform_rollouts(
 
     wall_start = time.perf_counter()
     for episode in range(number_of_rollouts):
-        policy.reset()
+        if pipe is not None:
+            pipe.reset()
+        else:
+            policy.reset()
         obs = env.reset()
         ep_obs, ep_actions, ep_rewards, ep_dones = [obs], [], [], []
         predicted_rewards = []
         for t in range(rollout_horizon):
             timer.start()
-            if model_based:
+            if pipe is not None:
+                action, pred_next, pred_reward, _hit = pipe.act(obs, t)
+                predicted_rewards.append(np.asarray(pred_reward))
+            elif model_based:
                 action, pred_next, pred_reward = policy.act(
                     obs, t, exploration_noise=exploration_noise
                 )
@@ -83,7 +96,12 @@ def perform_rollouts(
             else:
                 action = policy.act(obs, t, exploration_noise=exploration_noise)
             timer.stop()
-            obs, reward, done, _infos = env.step(action)
+            if pipe is not None:
+                # The speculative solve and its readback overlap the env step.
+                env.step_async(action)
+                obs, reward, done, _infos = env.step_wait()
+            else:
+                obs, reward, done, _infos = env.step(action)
             ep_obs.append(obs)
             ep_actions.append(np.asarray(action))
             ep_rewards.append(reward)
@@ -138,6 +156,13 @@ def perform_rollouts(
             )
             metrics_writer.scalar("perf/act_latency_p50_s", latency["p50_s"], start_step)
             metrics_writer.scalar("perf/act_latency_p95_s", latency["p95_s"], start_step)
+            if pipe is not None:
+                metrics_writer.scalar("perf/spec_hit_rate", pipe.hit_rate, start_step)
+    if pipe is not None:
+        logger.info(
+            "speculative pipeline: %d hits / %d misses (%.0f%% hit rate)",
+            pipe.hits, pipe.misses, 100 * pipe.hit_rate,
+        )
     return RolloutResult(
         observations=all_obs,
         actions=all_actions,
@@ -145,5 +170,5 @@ def perform_rollouts(
         dones=all_dones,
         reward_sum=[float(r.sum(axis=0).mean()) for r in all_rewards],
         latency=latency,
-        spec_hit_rate=None,
+        spec_hit_rate=pipe.hit_rate if pipe is not None else None,
     )

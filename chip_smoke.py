@@ -79,6 +79,23 @@ It imports nothing of JAX and nothing of the JAX package. Phases, each fatal on 
    bit (bounds and their Adam state too), resume, and a trained ``act()`` waiting at most
    twice. Phase 5 also traces fused CEM with ``exploration_noise=True``, with the noise's
    constants copied from numpy (as before) and from the device (at most two waits).
+8. The rest of the solver registry and the POPLIN half. Part A, on ``"eager"`` at the
+   configuration of ``benchmarks/cheetah_gradient_bc_300ep_run.jsonl`` (S=18, U=6, 5 x 3x256
+   tanh Gaussian heads, mean, H=15, two agents, seeded weights): ``act()`` of Gradient (32
+   restarts, 20 Adam steps) without and with a (64, 64) proposer and of CEM-GD (population 510,
+   5 iterations); gates: ``"kernel"`` and ``"fused"`` refuse both, no kernel launches, at most
+   two waits per traced ``act()``, remat's gradients within 1e-6 of plain (the peak memory of
+   both printed), one ``adam_polish`` held against the CPU at every plan it visits (gradient
+   and Adam update). Part B, at the flagship on ``"kernel"``: PSO and SPSA launch K2 once per
+   iteration on 1000 and 2000 rows (at most two waits), K2 against its plain version on an SPSA
+   2P batch; fused CEM seeded by a proposer launches K4 and K6 as without it (the unroll's host
+   time printed); eager CEM time-major beside the standard layout. Part C, the speculative
+   pipeline on fused CEM at the flagship width on the pendulum: ``spec_tol=None`` and a miss at
+   every step give the synchronous per-step-seeded run's bits, K4/K6 once per iteration of each
+   solve, at most two waits a pipelined step; the wall time per step with overlap off and on,
+   on the native env and on one padded to 40 ms, and the hit rates. Part D, phase 6's loop on
+   ``"fused"`` with ``behavior_cloning=True, overlap=True``: each cloning lowers the proposer's
+   error, the checkpoint and ``resume=True`` keep handler and proposer bit for bit.
 
 The line before the last two is ``{"kernels": [...]}``; then the card's name and power
 limit; the last line is ``{"ok": true, "device": {...}}``.
@@ -300,7 +317,10 @@ def pad_rows(x, rows: int, dim: int):
     return torch.nn.functional.pad(x, pad).contiguous()
 
 
-def kernel_vs_plain(device, propagation: str, dtype: str, rows: int = ROWS) -> dict:
+def kernel_vs_plain(device, propagation: str, dtype: str, rows: int = ROWS, inputs=None,
+                    label: str = "") -> dict:
+    """K2 against its plain version on ``inputs`` (``actions [H, rows, U]``, ``s0 [rows, S]``
+    on the card), or on uniform actions and normal states made from a seed."""
     import numpy as np
     import torch
 
@@ -310,11 +330,15 @@ def kernel_vs_plain(device, propagation: str, dtype: str, rows: int = ROWS) -> d
     config = LearnedDynamicsConfig(**FLAGSHIP, propagation=propagation,
                                    compute_dtype=getattr(torch, dtype))
     ops = rk.make_operands(flagship_params(config, device), config)
-    g = np.random.default_rng(2)
-    acts = torch.as_tensor(g.uniform(-1, 1, (HORIZON, rows, config.dim_u)), dtype=torch.float32,
-                           device=device)
-    s0 = torch.as_tensor(g.normal(0, 1, (rows, config.dim_s)), dtype=torch.float32,
-                         device=device)
+    if inputs is None:
+        g = np.random.default_rng(2)
+        acts = torch.as_tensor(g.uniform(-1, 1, (HORIZON, rows, config.dim_u)),
+                               dtype=torch.float32, device=device)
+        s0 = torch.as_tensor(g.normal(0, 1, (rows, config.dim_s)), dtype=torch.float32,
+                             device=device)
+    else:
+        acts, s0 = inputs
+        rows = s0.shape[0]
     member = None
     members = config.ensemble_size
     tile = rk.tile_rows(propagation == "ts1")
@@ -345,7 +369,7 @@ def kernel_vs_plain(device, propagation: str, dtype: str, rows: int = ROWS) -> d
     state_scale = max(1.0, float(ref_states.abs().max()))
     bound_ms, bound_by = bound(config, rows, HORIZON, members)
     res = {
-        "case": f"{propagation}/{dtype}" + ("" if rows == ROWS else f" rows={rows}"),
+        "case": f"{propagation}/{dtype}" + ("" if rows == ROWS else f" rows={rows}") + label,
         "rows": rows, "rows_launched": rows_pad, **rk.kernel_occupancy(config, rows_pad),
         "max_abs_err": err, "max_rel_err": err / scale, "tolerance_rel": TOLERANCE[dtype],
         "state_max_abs_err": state_err, "state_max_rel_err": state_err / state_scale,
@@ -907,9 +931,10 @@ def trace_act(policy, obs, label: str, exploration_noise: bool = False) -> dict:
                   if e.name == "act" and e.device_type == DeviceType.CPU)
     # The host's waits for the device: each cudaStreamSynchronize (a blocking copy, a read of
     # a device value) holds the host until the stream drains.
-    syncs = sum(1 for e in events if e.name == "cudaStreamSynchronize"
-                and e.device_type == DeviceType.CPU
-                and window.start <= e.time_range.start <= window.end)
+    syncs, event_syncs = (sum(1 for e in events if e.name == name
+                              and e.device_type == DeviceType.CPU
+                              and window.start <= e.time_range.start <= window.end)
+                          for name in ("cudaStreamSynchronize", "cudaEventSynchronize"))
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
                    if e.device_type == DeviceType.CUDA
                    and not getattr(e, "is_user_annotation", False))
@@ -933,7 +958,7 @@ def trace_act(policy, obs, label: str, exploration_noise: bool = False) -> dict:
            "device_idle_share": 1.0 - busy / (window.end - window.start),
            "idle_gaps_us": [{"us": us, "at_us": at, "before": name}
                             for us, at, name in sorted(gaps, reverse=True)[:6]],
-           "device_ops": len(spans), "stream_syncs": syncs,
+           "device_ops": len(spans), "stream_syncs": syncs, "event_syncs": event_syncs,
            "k6_kernels": sum(n for name, (_, n) in by_name.items() if "moments_" in name),
            "draw_rows_kernels": sum(n for name, (_, n) in by_name.items()
                                     if "draw_rows_kernel" in name),
@@ -1541,6 +1566,522 @@ def pets_loop(device) -> dict:
     return res
 
 
+# Phase 8: the rest of the solver registry and the POPLIN half. Part A at the configuration of
+# benchmarks/cheetah_gradient_bc_300ep_run.jsonl line 1 (its checkpoint is
+# benchmarks/ckpt_gradient_bc_300): HalfCheetah S=18, U=6, a 5-member 3x256 tanh Gaussian-head
+# ensemble, mean, H=15, two agents, Gradient with 32 restarts and 20 Adam steps, a (64, 64)
+# proposer; CEM-GD as cheetah_cemgd_run.jsonl line 1 (population 510, 5 iterations, 50 elites,
+# the GD defaults). Seeded weights, made-up stats.
+GBC_NET = dict(PETS_NET, propagation="mean")
+GBC_HORIZON, GBC_AGENTS = 15, 2
+FIRST_ORDER = {"Gradient": dict(population=32, max_iterations=20),
+               "CEM-GD": dict(population=510, max_iterations=ITERS, num_elite=50)}
+BC_HIDDEN = (64, 64)
+# remat against plain: the same operations computed again, relative to max |plain gradient|.
+REMAT_TOLERANCE = 1e-6
+# One adam_polish on the card, at each plan it visits: the gradient of the return, card against
+# CPU, relative to its largest element (backpropagation through 15 model steps: float32
+# differences grow with the model's expansion, 1.0e-4 measured against JAX on the CPU for the
+# committed checkpoint's model); Adam's update from the same gradient, absolute (at most a few
+# lr = 0.1).
+POLISH_GRAD_TOLERANCE, ADAM_TOLERANCE = 1e-3, 1e-6
+# Part B: PSO and SPSA on "kernel" at the flagship, K2 rows per launch.
+KERNEL_SOLVERS = {"PSO": ROWS, "SPSA": 2 * ROWS}
+# Part C: the pipeline on fused CEM at the flagship width on the native pendulum; the padded
+# env's step time.
+PIPE_STEPS, PAD_MS = 10, 40.0
+
+
+def first_order_drives(device) -> dict:
+    """Part A: ``act()`` of Gradient (with and without a proposer) and CEM-GD on ``"eager"``:
+    each ``act()`` median, no kernel launched, one traced ``act()`` waiting at most twice;
+    ``"kernel"`` and ``"fused"`` refuse both solvers; remat on and off give the gradients
+    within REMAT_TOLERANCE, with each's peak memory; one ``adam_polish`` on the card, held
+    against the CPU at every plan it visits: the gradients within POLISH_GRAD_TOLERANCE and
+    Adam's updates from the same gradients within ADAM_TOLERANCE."""
+    import numpy as np
+    import torch
+
+    from blackbox_mpc_torch import DynamicsHandler, LearnedDynamicsConfig, MPCPolicy
+    from blackbox_mpc_torch.core.spaces import BoxSpace
+    from blackbox_mpc_torch.core.types import Bounds
+    from blackbox_mpc_torch.learning.proposer import PolicyProposer, ProposerConfig
+    from blackbox_mpc_torch.rollout.evaluator import make_trajectory_evaluator
+    from blackbox_mpc_torch.solvers.base import AdamState, adam_polish, adam_update
+
+    config = LearnedDynamicsConfig(**GBC_NET)
+    handler = DynamicsHandler(config, seed=0, device=device)
+    handler.set_params(pets_params(config, device))
+    space = BoxSpace.of(-1.0, 1.0, dim=config.dim_u)
+    bounds = Bounds.from_space(space)
+    proposer = PolicyProposer(ProposerConfig(dim_s=config.dim_s, dim_u=config.dim_u,
+                                             hidden=BC_HIDDEN), bounds, seed=0, device=device)
+
+    def policy(name, backend="eager", **kw):
+        return MPCPolicy(space, cheetah_reward, handler, solver_name=name,
+                         num_agents=GBC_AGENTS, planning_horizon=GBC_HORIZON,
+                         rollout_backend=backend, seed=0, device=device, **FIRST_ORDER[name],
+                         **kw)
+
+    res = {"first_order": "eager", "card": nvidia_smi(), "refusals": {}, "drives": {}}
+    for name in FIRST_ORDER:
+        for backend, words in (("kernel", "no VJP"), ("fused", "solver family")):
+            try:
+                policy(name, backend)
+            except ValueError as err:
+                if words not in str(err):
+                    raise AssertionError(f"{name} on {backend!r}: refused for another reason: "
+                                         f"{err}") from err
+                res["refusals"][f"{name} {backend}"] = str(err)
+            else:
+                raise AssertionError(f"{name}: rollout_backend={backend!r} did not refuse")
+    obs = np.zeros((GBC_AGENTS, config.dim_s), np.float32)
+    for label, pol in (("Gradient", policy("Gradient")),
+                       ("Gradient + proposer", policy("Gradient", proposer=proposer)),
+                       ("CEM-GD", policy("CEM-GD"))):
+        pol.act(obs)  # warm-up
+        times, launches, plain_calls, (_, nxt, _) = timed_acts(pol, obs, STEPS, label)
+        if any(launches.values()) or any(plain_calls.values()):
+            raise AssertionError(f"{label}: kernels launched {launches}; the first-order path "
+                                 "launches none")
+        trace = trace_act(pol, nxt, label)
+        gate_waits(trace, label)
+        res["drives"][label] = {
+            "act_ms": times, "act_ms_median": float(np.median(times)), "launches": launches,
+            "stream_syncs": trace["stream_syncs"], "device_idle_share": trace["device_idle_share"],
+            "device_ops": trace["device_ops"], "traced_act_window_us": trace["act_window_us"]}
+
+    # remat: the gradient of the Gradient solver's objective over its restarts' shape.
+    dp, dyn = handler.dynamics_params, handler.dynamics_fn
+    g = torch.Generator(device=device).manual_seed(5)
+    restarts = FIRST_ORDER["Gradient"]["population"]
+    plans = torch.rand((restarts, GBC_AGENTS, GBC_HORIZON, config.dim_u), generator=g,
+                       device=device) * 1.8 - 0.9
+    s0 = torch.randn((GBC_AGENTS, config.dim_s), generator=g, device=device)
+    grads, peak = {}, {}
+    for remat in (False, True):
+        evaluate = make_trajectory_evaluator(lambda s, a: dyn(dp, s, a), cheetah_reward,
+                                             remat=remat, device=device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        held = torch.cuda.memory_allocated(device)
+        leaf = plans.clone().requires_grad_(True)
+        (grads[remat],) = torch.autograd.grad(-evaluate(s0, leaf).mean(), leaf)
+        torch.cuda.synchronize()
+        peak[remat] = torch.cuda.max_memory_allocated(device) - held
+    err = float((grads[True] - grads[False]).abs().max())
+    scale = float(grads[False].abs().max())
+    if not (scale > 0 and err <= REMAT_TOLERANCE * scale):
+        raise AssertionError(f"remat gradients differ: {err} > {REMAT_TOLERANCE} * {scale}")
+    res["remat"] = {"rows": restarts * GBC_AGENTS, "grad_rel_err": err / scale,
+                    "peak_bytes_plain": peak[False], "peak_bytes_remat": peak[True]}
+
+    # One adam_polish (the Gradient solver's 20 steps at its learning rate) on the card. At each
+    # plan it visits, the gradient of the return on the card and on the CPU, and Adam's update
+    # from the same gradients on both; the whole step and the free-running result are printed:
+    # Adam divides each gradient by its own running scale, so an element whose gradient is small
+    # beside the terms summed into it turns their rounding into a relative error of its update
+    # (a step differed by 1.9e-4 of max(1, max|plan|) in the second chip run of this phase).
+    lr, steps = 0.1, FIRST_ORDER["Gradient"]["max_iterations"]
+    cpu = torch.device("cpu")
+    evaluate_on = {where: make_trajectory_evaluator(lambda s, a, p=params: dyn(p, s, a),
+                                                    cheetah_reward, device=on)
+                   for where, on, params in (("card", device, dp), ("cpu", cpu, dp.to(cpu)))}
+    points = []
+
+    def card_objective(p):
+        points.append(p.detach().clone())
+        return evaluate_on["card"](s0, p)
+
+    t0 = time.perf_counter()
+    polished = adam_polish(card_objective, bounds, lr, plans, steps)
+    torch.cuda.synchronize()
+    res["polish_card_s"] = time.perf_counter() - t0
+    if not bool(torch.isfinite(polished).all()):
+        raise AssertionError("adam_polish on the card: plans not finite")
+    states = {where: AdamState.zeros_like([plans.to(on)]) for where, on in (("card", device),
+                                                                             ("cpu", cpu))}
+    worst = {"grad": 0.0, "update": 0.0, "step": 0.0}
+    for k, here in enumerate(points):
+        grads = {}
+        for where, on in (("card", device), ("cpu", cpu)):
+            leaf = here.to(on).requires_grad_(True)
+            (grads[where],) = torch.autograd.grad(
+                -evaluate_on[where](s0.to(on), leaf).mean(), leaf)
+        want = grads["cpu"]
+        worst["grad"] = max(worst["grad"], float((grads["card"].cpu() - want).abs().max())
+                            / float(want.abs().max()))
+        updates = {}
+        for where, on in (("card", device), ("cpu", cpu)):
+            states[where], (updates[where],) = adam_update(states[where], [want.to(on)], lr)
+        worst["update"] = max(worst["update"],
+                              float((updates["card"].cpu() - updates["cpu"]).abs().max()))
+        nxt = points[k + 1] if k + 1 < len(points) else polished
+        step = bounds.clip(here.cpu() + updates["cpu"])
+        worst["step"] = max(worst["step"], float((nxt.cpu() - step).abs().max())
+                            / max(1.0, float(step.abs().max())))
+    res["polish_card_vs_cpu"] = {"grad_rel_err": worst["grad"],
+                                 "update_abs_err": worst["update"],
+                                 "step_rel_err": worst["step"]}
+    if worst["grad"] > POLISH_GRAD_TOLERANCE or worst["update"] > ADAM_TOLERANCE:
+        raise AssertionError(f"adam_polish card vs CPU: {res['polish_card_vs_cpu']}")
+    free = adam_polish(lambda p: evaluate_on["cpu"](s0.cpu(), p), bounds, lr, plans.cpu(), steps)
+    res["polish_card_vs_cpu"]["free_running_abs_err"] = float((free - polished.cpu()).abs().max())
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def kernel_solver_drives(device) -> dict:
+    """Part B: PSO and SPSA on ``"kernel"`` at the flagship (K2 once per iteration at 1000
+    and 2000 rows, nothing else; at most two waits), K2 against its plain version on an SPSA
+    2P batch; fused CEM seeded by a proposer (K4 and K6 as without it; the unroll's host
+    time); CEM on ``"eager"`` time-major against the standard layout."""
+    import numpy as np
+    import torch
+
+    from blackbox_mpc_torch import DynamicsHandler, LearnedDynamicsConfig, MPCPolicy
+    from blackbox_mpc_torch.core.spaces import BoxSpace
+    from blackbox_mpc_torch.core.types import Bounds
+    from blackbox_mpc_torch.learning.proposer import PolicyProposer, ProposerConfig
+    from blackbox_mpc_torch.ops import rollout_kernel as rk
+    from blackbox_mpc_torch.solvers.spsa import rademacher
+
+    config = LearnedDynamicsConfig(**FLAGSHIP, propagation="mean")
+    handler = DynamicsHandler(config, seed=0, device=device)
+    handler.set_params(flagship_params(config, device))
+    space = BoxSpace.of(-1.0, 1.0, dim=config.dim_u)
+    obs = np.zeros(config.dim_s, np.float32)
+
+    def policy(name, backend, **kw):
+        return MPCPolicy(space, reward_fn, handler, solver_name=name, rollout_backend=backend,
+                         planning_horizon=HORIZON, population=ROWS, max_iterations=ITERS, seed=0,
+                         device=device, **kw)
+
+    res = {"kernel_solvers": "flagship", "card": nvidia_smi(), "drives": {}}
+    for name, rows in KERNEL_SOLVERS.items():
+        pol = policy(name, "kernel")
+        pol.act(obs)  # warm-up
+        times, launches, plain_calls, (_, nxt, _) = timed_acts(pol, obs, STEPS, name)
+        expected = {k: STEPS * ITERS if k == "rollout_states" else 0 for k in launches}
+        if launches != expected or any(plain_calls.values()):
+            raise AssertionError(f"{name}: kernel launches {launches}, expected {expected}")
+        launched_rows = []
+        counted = rk.rollout_states
+
+        def spy(config_, ops, acts, s0, member, counted=counted):
+            launched_rows.append(acts.shape[1])
+            return counted(config_, ops, acts, s0, member)
+
+        spy.launches = 0  # the wrapper counts through its module name, here the spy
+        rk.rollout_states = spy
+        try:
+            pol.act(nxt)
+        finally:
+            rk.rollout_states = counted
+        padded = -(-rows // rk.TILE_MEAN) * rk.TILE_MEAN
+        if launched_rows != [padded] * ITERS:
+            raise AssertionError(f"{name}: K2 launched on {launched_rows} rows, expected "
+                                 f"{ITERS} x {padded} ({rows} padded to the tile)")
+        trace = trace_act(pol, nxt, name)
+        gate_waits(trace, name)
+        res["drives"][name] = {
+            "act_ms": times, "act_ms_median": float(np.median(times)), "launches": launches,
+            "k2_rows": rows, "stream_syncs": trace["stream_syncs"],
+            "device_idle_share": trace["device_idle_share"], "device_ops": trace["device_ops"]}
+
+    # K2 on SPSA's first 2P batch: the midpoint (0) plus and minus c_0 * Rademacher, clipped.
+    g = torch.Generator(device=device).manual_seed(3)
+    delta = rademacher(g, (HORIZON, ROWS, config.dim_u))
+    batch = torch.cat([(0.3 * delta).clamp(-1, 1), (-0.3 * delta).clamp(-1, 1)], dim=1)
+    s0 = torch.randn((2 * ROWS, config.dim_s), generator=g, device=device)
+    res["k2_spsa_batch"] = kernel_vs_plain(device, "mean", "float32",
+                                           inputs=(batch.contiguous(), s0),
+                                           label=" (SPSA 2P batch)")
+
+    # Fused CEM seeded by a proposer.
+    bounds = Bounds.from_space(space)
+    proposer = PolicyProposer(ProposerConfig(dim_s=config.dim_s, dim_u=config.dim_u,
+                                             hidden=BC_HIDDEN), bounds, seed=0, device=device)
+    label = "fused CEM + proposer"
+    pol = policy("CEM", "fused", num_elite=50, proposer=proposer)
+    pol.act(obs)
+    times, launches, plain_calls, (_, nxt, _) = timed_acts(pol, obs, STEPS, label)
+    expected = {k: STEPS * BACKEND_KERNELS["fused"].get(k, 0) for k in launches}
+    if launches != expected or any(plain_calls.values()):
+        raise AssertionError(f"{label}: kernel launches {launches}, expected {expected}")
+    trace = trace_act(pol, nxt, label)
+    gate_waits(trace, label)
+    if trace["k6_kernels"] != ITERS:
+        raise AssertionError(f"{label}: {trace['k6_kernels']} K6 kernels in one act()")
+    obs_dev = torch.zeros((1, config.dim_s), device=device)
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        pol._propose(proposer.params, handler.dynamics_params, obs_dev)
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    res["drives"][label] = {
+        "act_ms": times, "act_ms_median": float(np.median(times)), "launches": launches,
+        "stream_syncs": trace["stream_syncs"], "device_idle_share": trace["device_idle_share"],
+        "unroll_host_ms": host, "unroll_host_ms_median": float(np.median(host))}
+
+    # CEM on "eager": time-major against the standard layout.
+    for tm in (False, True):
+        label = "eager CEM" + (", time-major" if tm else "")
+        pol = policy("CEM", "eager", num_elite=50, time_major=tm)
+        pol.act(obs)
+        times, launches, _, _ = timed_acts(pol, obs, STEPS, label)
+        if any(launches.values()):
+            raise AssertionError(f"{label}: kernels launched {launches}")
+        res["drives"][label] = {"act_ms": times, "act_ms_median": float(np.median(times))}
+    print(json.dumps(res), flush=True)
+    return res
+
+
+class PaddedEnv:
+    """An env whose step takes ``step_s`` seconds of host time: the wrapped env's step, then a
+    sleep in ``step_wait`` up to ``step_s`` from ``step_async``."""
+
+    def __init__(self, env, step_s: float):
+        self._env, self._step_s, self._t0 = env, step_s, 0.0
+        self.num_envs = env.num_envs
+        self.action_space, self.observation_space = env.action_space, env.observation_space
+
+    def reset(self):
+        return self._env.reset()
+
+    def step_async(self, actions):
+        self._t0 = time.perf_counter()
+        self._env.step_async(actions)
+
+    def step_wait(self):
+        out = self._env.step_wait()
+        time.sleep(max(0.0, self._step_s - (time.perf_counter() - self._t0)))
+        return out
+
+    def step(self, actions):
+        self.step_async(actions)
+        return self.step_wait()
+
+
+class PipelinedAct:
+    """``act(obs)`` of a speculative pipeline at consecutive steps, for ``trace_act``."""
+
+    def __init__(self, pipe, t: int):
+        self._pipe, self._t = pipe, t
+
+    def act(self, obs, exploration_noise: bool = False):
+        self._t += 1
+        return self._pipe.act(obs, self._t)[:3]
+
+
+def pipeline_runs(device) -> dict:
+    """Part C: the speculative pipeline on fused CEM at the flagship width (5 x 3x500, CEM
+    population 1000, H=50) on the native pendulum with two agents. Gates: ``spec_tol=None``
+    gives the bits of the synchronous per-step-seeded run, so does ``spec_tol=0`` (every step
+    a miss); K4 and K6 launch once per iteration of every solve, speculative and exact; one
+    traced pipelined step waits at most twice. Printed: the hit rate and the wall time per
+    step with overlap off and on, on the native env and on one padded to PAD_MS."""
+    import numpy as np
+    import torch
+
+    from blackbox_mpc_torch import (DynamicsHandler, LearnedDynamicsConfig, MPCPolicy,
+                                    perform_rollouts)
+    from blackbox_mpc_torch.envs import NativePendulumVecEnv
+    from blackbox_mpc_torch.models.analytic import pendulum_reward
+    from blackbox_mpc_torch.policies.pipeline import SpeculativePipeline
+
+    config = LearnedDynamicsConfig(dim_s=3, dim_u=1, hidden=FLAGSHIP["hidden"],
+                                   ensemble_size=FLAGSHIP["ensemble_size"], propagation="mean")
+    handler = DynamicsHandler(config, seed=0, device=device)
+    handler.set_params(flagship_params(config, device))
+
+    def env(steps=PIPE_STEPS):
+        return NativePendulumVecEnv(num_envs=MBRL["num_envs"], seed=0, max_episode_steps=steps)
+
+    def policy():
+        return MPCPolicy(env().action_space, pendulum_reward, handler, solver_name="CEM",
+                         rollout_backend="fused", num_agents=MBRL["num_envs"],
+                         planning_horizon=HORIZON, population=ROWS, num_elite=50,
+                         max_iterations=ITERS, seed=0, device=device)
+
+    def synchronous():
+        pol, e = policy(), env()
+        pipe = SpeculativePipeline(pol, spec_tol=None)
+        pipe.reset()  # the episode seed, as the pipelined runs draw it
+        obs, actions = e.reset(), []
+        for t in range(PIPE_STEPS):
+            action, pol._solver_state, _, _, _ = pol._step(
+                pol._solver_state, torch.as_tensor(obs, device=device), t,
+                *pipe.step_generators(t), False)
+            actions.append(action.cpu().numpy())
+            obs = e.step(actions[-1])[0]
+        return actions
+
+    def pipelined(tol):
+        pipe, e = SpeculativePipeline(policy(), spec_tol=tol), env()
+        pipe.reset()
+        obs, actions = e.reset(), []
+        for t in range(PIPE_STEPS):
+            actions.append(pipe.act(obs, t)[0])
+            e.step_async(actions[-1])
+            obs = e.step_wait()[0]
+        return actions, pipe
+
+    exact = synchronous()
+    prefetch, _ = pipelined(None)
+    counters = launch_counters()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    with plain_rng_on_cuda() as plain_calls:
+        missed, pipe = pipelined(0.0)
+    launches = {name: wrapper.launches for name, wrapper in counters.items()}
+    for label, actions in (("spec_tol=None", prefetch), ("spec_tol=0 (every step a miss)", missed)):
+        if not all(same_bits(a, b) for a, b in zip(actions, exact)):
+            raise AssertionError(f"pipeline {label}: actions differ from the synchronous "
+                                 "per-step-seeded run")
+    if (pipe.hits, pipe.misses) != (0, PIPE_STEPS - 1):
+        raise AssertionError(f"pipeline spec_tol=0: {pipe.hits} hits, {pipe.misses} misses")
+    solves = PIPE_STEPS + PIPE_STEPS  # one speculation per step; an exact solve per step
+    expected = {name: solves * BACKEND_KERNELS["fused"].get(name, 0) for name in launches}
+    if launches != expected or any(plain_calls.values()):
+        raise AssertionError(f"pipeline: kernel launches {launches}, expected {expected}")
+    res = {"pipeline": "fused CEM, flagship width, pendulum", "card": nvidia_smi(),
+           "bit_for_bit": ["spec_tol=None", "spec_tol=0"], "launches_20_solves": launches}
+
+    pol = policy()
+    pol.act(env().reset())  # warm-up
+    runs = {}
+    for env_label, make in (("native", env), (f"padded to {PAD_MS} ms",
+                                              lambda: PaddedEnv(env(), PAD_MS / 1e3))):
+        for mode, overlap, tol in (("sync", False, None), ("overlap, spec_tol 0.05", True, 0.05),
+                                   ("overlap, every step adopted", True, float("inf"))):
+            t0 = time.perf_counter()
+            out = perform_rollouts(make(), pol, rollout_horizon=PIPE_STEPS, overlap=overlap,
+                                   spec_tol=tol)
+            runs[f"{env_label}, {mode}"] = {
+                "ms_per_step": (time.perf_counter() - t0) * 1e3 / PIPE_STEPS,
+                "act_ms_p50": out["latency"]["p50_s"] * 1e3,
+                "spec_hit_rate": out["spec_hit_rate"]}
+    res["runs"] = runs
+    pipe = SpeculativePipeline(pol, spec_tol=float("inf"))
+    pipe.reset()
+    obs = env().reset()
+    for t in range(2):  # warm-up: a speculation in flight
+        pipe.act(obs, t)
+    trace = trace_act(PipelinedAct(pipe, 1), obs, "pipelined step, fused CEM")
+    waits = trace["stream_syncs"] + trace["event_syncs"]
+    if waits > MAX_SYNCS:
+        raise AssertionError(f"pipelined step: {waits} waits, more than {MAX_SYNCS}")
+    res["pipelined_step"] = {"stream_syncs": trace["stream_syncs"],
+                             "event_syncs": trace["event_syncs"],
+                             "device_idle_share": trace["device_idle_share"]}
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def bc_loop(device) -> dict:
+    """Part D: phase 6's loop on ``"fused"`` with ``behavior_cloning=True, overlap=True``.
+    Gates: every behaviour-cloning ``train()`` lowers the proposer's error on the replay; K4
+    and K6 launch alike, a whole number of solves, nothing else; the checkpoint holds the
+    handler and the proposer bit for bit and ``resume=True`` restores both."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from blackbox_mpc_torch import (DynamicsHandler, LearnedDynamicsConfig, MetricsWriter,
+                                    learn_dynamics_iteratively_w_mpc)
+    from blackbox_mpc_torch.envs import NativePendulumVecEnv
+    from blackbox_mpc_torch.learning.proposer import PolicyProposer
+    from blackbox_mpc_torch.models.analytic import pendulum_reward
+
+    label = "MBRL fused + BC + overlap"
+    config = LearnedDynamicsConfig(dim_s=3, dim_u=1, hidden=FLAGSHIP["hidden"],
+                                   ensemble_size=FLAGSHIP["ensemble_size"], propagation="mean")
+    solver = dict(solver_name="CEM", planning_horizon=HORIZON, population=ROWS, num_elite=50,
+                  max_iterations=ITERS, rollout_backend="fused", seed=0)
+    loop = dict(number_of_rollouts_per_refinement=1, rollout_horizon=MBRL["episode_steps"],
+                epochs=MBRL["epochs"], batch_size=MBRL["batch_size"], behavior_cloning=True,
+                bc_hidden=BC_HIDDEN, overlap=True, device=device, **solver)
+    env = NativePendulumVecEnv(num_envs=MBRL["num_envs"], seed=0,
+                               max_episode_steps=MBRL["episode_steps"])
+    writer = MetricsWriter()
+    bc = []
+    train = PolicyProposer.train
+
+    def measured_train(self, replay, *args, **kwargs):
+        s, a, _ = replay.arrays(validation=False)
+        a = np.clip(a, self.bounds.lower, self.bounds.upper)
+        before = float(np.mean(np.square(self.act(s) - a)))
+        t0 = time.perf_counter()
+        out = train(self, replay, *args, **kwargs)
+        after = float(np.mean(np.square(self.act(s) - a)))
+        bc.append({"mse_before": before, "mse_after": after, "bc_loss": out["bc_loss"],
+                   "pairs": out["num_pairs"], "train_s": time.perf_counter() - t0})
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="bc_") as ckpt:
+        counters = launch_counters()
+        for wrapper in counters.values():
+            wrapper.launches = 0
+        PolicyProposer.train = measured_train
+        try:
+            t0 = time.perf_counter()
+            handler, policy = learn_dynamics_iteratively_w_mpc(
+                env, pendulum_reward, number_of_initial_rollouts=MBRL["initial_rollouts"],
+                number_of_refinement_steps=MBRL["refinements"], metrics_writer=writer,
+                checkpoint_dir=ckpt, handler=DynamicsHandler(config, seed=0, device=device),
+                **loop)
+            loop_s = time.perf_counter() - t0
+        finally:
+            PolicyProposer.train = train
+        launches = {name: wrapper.launches for name, wrapper in counters.items()}
+        k4 = launches["fused_rollout"]
+        if (k4 == 0 or k4 % ITERS or launches["elite_moments"] != k4
+                or any(n for name, n in launches.items()
+                       if name not in ("fused_rollout", "elite_moments"))):
+            raise AssertionError(f"{label}: kernel launches {launches}")
+        if len(bc) != 1 + MBRL["refinements"] or not all(
+                b["mse_after"] < b["mse_before"] for b in bc):
+            raise AssertionError(f"{label}: behaviour cloning did not lower the error: {bc}")
+        written = [v for _, v in writer.history.get("proposer/bc_loss", [])]
+        if len(written) != MBRL["refinements"] or not np.all(np.isfinite(written)):
+            raise AssertionError(f"{label}: proposer/bc_loss written {written}")
+        saved = torch.load(f"{ckpt}/proposer/proposer.pt", map_location=device)
+        current = policy.proposer.state_dict()
+        pairs = [(x, y) for a, b in zip(saved["params"], current["params"]) for k in a
+                 for x, y in ((a[k], b[k]),)]
+        for name in ("exp_avg", "exp_avg_sq"):
+            pairs += list(zip(saved["adam"][name], current["adam"][name]))
+        if saved["adam"]["step"] != current["adam"]["step"] or not all(
+                same_bits(x, y) for x, y in pairs):
+            raise AssertionError(f"{label}: the proposer's checkpoint differs")
+        loaded = DynamicsHandler.load(f"{ckpt}/handler", device=device)
+        checkpoint_matches(handler, loaded)
+        resumed_handler, resumed = learn_dynamics_iteratively_w_mpc(
+            env, pendulum_reward, number_of_refinement_steps=MBRL["refinements"],
+            checkpoint_dir=ckpt, resume=True, **loop)
+        checkpoint_matches(handler, resumed_handler)
+        again = resumed.proposer.state_dict()
+        if again["adam"]["step"] != current["adam"]["step"] or not all(
+                same_bits(x, y) for x, y in zip(
+                    [v for layer in again["params"] for v in layer.values()]
+                    + again["adam"]["exp_avg"] + again["adam"]["exp_avg_sq"],
+                    [v for layer in current["params"] for v in layer.values()]
+                    + current["adam"]["exp_avg"] + current["adam"]["exp_avg_sq"])):
+            raise AssertionError(f"{label}: the resumed proposer differs")
+    history = writer.history
+    res = {"mbrl": label, "card": nvidia_smi(), "loop_s": loop_s, "launches": launches,
+           "behaviour_cloning": bc, "bc_loss_written": written,
+           "act_ms_p50": [1e3 * v for _, v in history["perf/act_latency_p50_s"]],
+           "spec_hit_rate": [v for _, v in history.get("perf/spec_hit_rate", [])],
+           "checkpoint": "bit for bit, proposer included", "resumed": "bit for bit"}
+    print(json.dumps(res), flush=True)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1594,6 +2135,13 @@ def main() -> int:
     pets = {label: pets_act(device, label) for label in PETS_DRIVES}
     pets_rollout_card_vs_cpu(device)
     pets_loop(device)
+    first_order = first_order_drives(device)
+    on_kernels = kernel_solver_drives(device)
+    pipeline_runs(device)
+    bc_loop(device)
+    print(json.dumps({"phase8_act_ms_median": {
+        label: run["act_ms_median"] for part in (first_order, on_kernels)
+        for label, run in part["drives"].items()}, "card": smi}), flush=True)
     print(json.dumps({"pets_act_ms_median": {label: run["act_ms_median"]
                                              for label, run in pets.items()},
                       "card": smi}), flush=True)

@@ -139,9 +139,23 @@ def test_with_state_dtype_bf16_roundtrip():
 
 @pytest.mark.parametrize("solver", ["CEM", "PI2", "MPPI", "RandomSearch"])
 def test_unported_cem_options_raise(solver):
-    """The time-major candidate layout is what is left of the options that raise."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        make_solver(solver, TBounds.of(-1.0, 1.0, dim=U), t_evaluate, time_major=True)
+    """The time-major candidate layout, once the last option that raised, now builds and
+    solves: candidates ``[H, P, A, U]`` into a time-major evaluator (held against the standard
+    layout in ``tests/test_torch_time_major.py``)."""
+    seen = []
+
+    def tm_evaluate(obs, samples):  # [H, P, A, U] -> [P, A]
+        seen.append(samples.shape)
+        return t_evaluate(obs, samples.permute(1, 2, 0, 3))
+
+    kw = dict(num_elite=4) if solver == "CEM" else {}
+    s = make_solver(solver, TBounds.of(-1.0, 1.0, dim=U), tm_evaluate, time_major=True,
+                    planning_horizon=H, population=P, num_agents=A, max_iterations=2, **kw)
+    action, _, aux = s.solve(s.init(torch.Generator()), torch.zeros(A, 4), 0,
+                             torch.Generator().manual_seed(0))
+    assert seen and all(shape == (H, P, A, U) for shape in seen)
+    assert action.shape == (A, U) and aux.plan.shape == (A, H, U)
+    assert bool((action.abs() <= 1.0).all())
 
 
 @pytest.mark.parametrize("options,match", [
@@ -265,8 +279,18 @@ def test_colored_synthesis_basis_and_penalty_match_jax(rng):
 
 
 def test_registry_errors():
+    """An unknown name is a KeyError; the four names that once raised build and solve, and the
+    registry holds the JAX package's nine."""
+    from blackbox_mpc_tpu.solvers import SOLVER_REGISTRY as J_REGISTRY
+    from blackbox_mpc_torch.solvers import SOLVER_REGISTRY
+
     with pytest.raises(KeyError, match="available"):
         make_solver("bogus", TBounds.of(-1.0, 1.0, dim=U), t_evaluate)
+    assert sorted(SOLVER_REGISTRY) == sorted(J_REGISTRY)
     for name in ("PSO", "SPSA", "Gradient", "CEM-GD"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            make_solver(name, TBounds.of(-1.0, 1.0, dim=U), t_evaluate)
+        kw = dict(num_elite=4, gd_candidates=2, gd_iterations=2) if name == "CEM-GD" else {}
+        s = make_solver(name, TBounds.of(-1.0, 1.0, dim=U), t_evaluate, planning_horizon=H,
+                        population=P, num_agents=A, max_iterations=2, **kw)
+        action, _, _ = s.solve(s.init(torch.Generator()), torch.zeros(A, 4), 0,
+                               torch.Generator().manual_seed(0))
+        assert s.name == name and action.shape == (A, U)

@@ -404,7 +404,7 @@ def test_kernels_errors_kept_from_jax():
     with pytest.raises(ValueError, match="num_elite"):
         tc.make_fused_cem(TCEMConfig(population=10, num_elite=20), TBounds.of(-1.0, 1.0, dim=U),
                           tcfg, None, t_reward)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(ValueError, match=r"candidate contract is \[P, A, H, U\]"):
         tc.make_fused_cem(TCEMConfig(time_major=True), TBounds.of(-1.0, 1.0, dim=U), tcfg, None,
                           t_reward)
     for option, value in (("keep_elites", 51), ("population_decay", 0.0)):

@@ -166,17 +166,19 @@ def test_iterative_mbrl_improves_over_random_and_resumes(tmp_path):
 
 def test_iterative_mbrl_refusals(tmp_path):
     env = NativePendulumVecEnv(num_envs=1)
-    for flag in ("overlap", "behavior_cloning"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            tpkg.learn_dynamics_iteratively_w_mpc(env, pendulum_reward, device="cpu",
-                                                  **{flag: True})
+    # overlap and behavior_cloning run (tests/test_torch_pipeline.py); cloning needs a replay.
+    with pytest.raises(ValueError, match="learned-dynamics handler"):
+        tpkg.learn_dynamics_iteratively_w_mpc(
+            env, pendulum_reward, device="cpu", number_of_initial_rollouts=0,
+            behavior_cloning=True, handler=true_policy(env).dynamics_handler)
     with pytest.raises(ValueError, match="checkpoint_dir"):
         tpkg.learn_dynamics_iteratively_w_mpc(env, pendulum_reward, resume=True, device="cpu")
     with pytest.raises(ValueError, match="pre-trained handler"):
         tpkg.learn_dynamics_iteratively_w_mpc(env, pendulum_reward, device="cpu",
                                               number_of_initial_rollouts=0)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tpkg.perform_rollouts(env, true_policy(env), overlap=True)
+    with pytest.raises(ValueError, match="model-based"):
+        tpkg.perform_rollouts(env, tpkg.RandomPolicy(env.action_space, num_agents=1),
+                              overlap=True)
 
 
 def test_record_rollout_writes_frames(tmp_path):
