@@ -12,9 +12,13 @@ with particles, the uncertainty penalty, and the heads' calibration after each t
 nine solvers of the JAX registry run, the sampled ones in both candidate layouts; the
 first-order Gradient and CEM-GD differentiate through the eager rollout. A behaviour-cloned
 policy proposer seeds the solver's plan, and a speculative pipeline overlaps the next solve
-with the env step (``perform_rollouts(overlap=True)``).
+with the env step (``perform_rollouts(overlap=True)``). ``rollout_backend="auto"`` picks the
+backend by a rule measured on the H100; a policy exports to a ``.bbmpc`` artifact
+(``torch.export``) that :class:`ServingPolicy` serves without the package; and
+``python -m blackbox_mpc_torch`` runs the JAX package's command line.
 """
 from blackbox_mpc_torch.core.types import Bounds
+from blackbox_mpc_torch.deploy import ServingPolicy, export_dynamics, export_policy_artifact
 from blackbox_mpc_torch.learning.handler import DynamicsHandler
 from blackbox_mpc_torch.models.dynamics import DynamicsParams, LearnedDynamicsConfig
 from blackbox_mpc_torch.policies.mpc_policy import MPCPolicy
@@ -25,6 +29,8 @@ from blackbox_mpc_torch.workflows.iterative_mpc import learn_dynamics_iterativel
 from blackbox_mpc_torch.workflows.recording import record_rollout
 from blackbox_mpc_torch.workflows.rollouts import perform_rollouts
 
+__version__ = "0.1.0"
+
 __all__ = [
     "Bounds",
     "DynamicsHandler",
@@ -33,8 +39,12 @@ __all__ = [
     "MPCPolicy",
     "MetricsWriter",
     "RandomPolicy",
+    "ServingPolicy",
+    "export_dynamics",
+    "export_policy_artifact",
     "learn_dynamics_from_policy",
     "learn_dynamics_iteratively_w_mpc",
     "perform_rollouts",
     "record_rollout",
+    "__version__",
 ]

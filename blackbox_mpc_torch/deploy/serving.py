@@ -1,0 +1,345 @@
+"""Standalone serving runtime for exported MPC policy artifacts.
+
+Counterpart of ``blackbox_mpc_tpu/deploy/serving.py``. This module is **self-contained**: it
+imports only the standard library, numpy and torch, never the rest of ``blackbox_mpc_torch``.
+Copy this one file into a serving container together with a ``.bbmpc`` artifact written by
+:func:`blackbox_mpc_torch.deploy.export_policy_artifact` and it runs the whole MPC control
+step (solver iterations, rollouts, exploration noise, one-step lookahead) without the package
+or its solver code: the artifact carries the step as a ``torch.export`` program.
+
+Artifact layout (one zip file, conventional suffix ``.bbmpc``), the JAX package's with
+``torch.export`` programs in place of ``*.jaxexport``::
+
+    meta.json            solver, shapes, the generator algorithm, the draws (format_version 1)
+    <device>/step.pt2    the solve step for one device type ("cuda", "cpu"), torch.export.save
+    <device>/reset.pt2   the per-episode solver-state reset for that device type (none for
+                         a solver without state)
+    state/...            solver-state leaves (manifest.json + <i>.bin raw tensors)
+    params/...           dynamics-parameter leaves (none for a true model)
+    proposer/...         proposer-parameter leaves (none without a proposer)
+    key/...              the exporting policy's generator states: the solver's, then the
+                         rollout noise's (the stream's resume point)
+
+Tensors are raw little-endian bytes plus a manifest of shapes and dtype names, the layout of
+the JAX package's ``pack_tensors`` (bfloat16 goes by its name), so a group packed by one
+package is read by the other.
+
+**The random stream.** ``torch.export`` would turn a generator the step draws from into a
+constant of the program, out of reach of ``reset``/``reseed``. So the programs draw nothing:
+every random tensor of the step is an input, listed in ``meta["draws"]`` (which generator,
+which function, its arguments), and :class:`ServingPolicy` draws them from generators of its
+own, in the order and with the calls the exporting ``MPCPolicy`` makes. Its stream then
+advances exactly as the policy's does: the exploration noise is drawn only when ``act`` is
+asked for it, and the rollout noise of sampled propagation is drawn from the noise
+generator's state at the start of the step for every evaluation (common random numbers), as
+``MPCPolicy`` does.
+"""
+from __future__ import annotations
+
+import dataclasses
+import io
+import json
+import zipfile
+from collections.abc import Mapping
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+
+__all__ = ["ServingPolicy", "pack_tensors", "unpack_tensors", "tree_leaves", "write_artifact",
+           "FORMAT_VERSION", "SUPPORTED_FORMAT_VERSIONS"]
+
+# Version 1: single-device artifacts, as in the JAX package. Its version 2 (topology-pinned
+# sharded artifacts) is not ported (ROADMAP Queue 1 item 9).
+FORMAT_VERSION = 1
+SUPPORTED_FORMAT_VERSIONS = (1,)
+# The generator algorithm of each device type (what JAX's rng_impl names).
+RNG_IMPLS = {"cuda": "philox4x32-10", "cpu": "mt19937"}
+# The random functions a step may draw through, and the generators it draws from.
+DRAW_FUNCTIONS = ("rand", "randn", "randint")
+GENERATORS = ("solver", "noise")
+# MPCPolicy seeds its rollout-noise generator this far from the solver's.
+NOISE_SEED_OFFSET = 0x5EED
+_COMPILED_CACHE = ("an ahead-of-time compiled cache (an AOTInductor package, the counterpart of "
+                   "the JAX package's XLA executable cache) is not ported (ROADMAP: not ported, "
+                   "by decision)")
+
+
+def _dtype_name(dtype) -> str:
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).removeprefix("torch.")
+    return np.dtype(dtype).name
+
+
+def _as_cpu(leaf) -> torch.Tensor:
+    if torch.is_tensor(leaf):
+        return leaf.detach().to("cpu").contiguous()
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(leaf)))
+
+
+def pack_tensors(zf: zipfile.ZipFile, group: str, leaves: Sequence[Any]) -> None:
+    """Writes flat tensor (or array) leaves as ``<group>/manifest.json`` + ``<group>/<i>.bin``."""
+    manifest = []
+    for i, leaf in enumerate(leaves):
+        t = _as_cpu(leaf)
+        manifest.append({"shape": list(t.shape), "dtype": _dtype_name(t.dtype)})
+        zf.writestr(f"{group}/{i}.bin", t.reshape(-1).view(torch.uint8).numpy().tobytes())
+    zf.writestr(f"{group}/manifest.json", json.dumps(manifest))
+
+
+def unpack_tensors(zf: zipfile.ZipFile, group: str) -> list[torch.Tensor]:
+    """The leaves of ``group`` as CPU tensors."""
+    manifest = json.loads(zf.read(f"{group}/manifest.json"))
+    leaves = []
+    for i, spec in enumerate(manifest):
+        dtype = getattr(torch, spec["dtype"])
+        buf = zf.read(f"{group}/{i}.bin")
+        flat = (torch.frombuffer(bytearray(buf), dtype=torch.uint8).view(dtype) if buf
+                else torch.empty(0, dtype=dtype))
+        leaves.append(flat.reshape(spec["shape"]).clone())
+    return leaves
+
+
+def tree_leaves(tree) -> list:
+    """The tensor leaves of ``tree`` in a fixed order: dataclass fields in declaration order,
+    mapping values by sorted key (as ``jax.tree`` orders a dict), sequences in order; other
+    values (None, Python scalars) hold no leaf."""
+    if torch.is_tensor(tree) or isinstance(tree, np.ndarray):
+        return [tree]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [x for f in dataclasses.fields(tree) for x in tree_leaves(getattr(tree, f.name))]
+    if isinstance(tree, Mapping):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for item in tree for x in tree_leaves(item)]
+    return []
+
+
+def _resolve_device(device) -> torch.device:
+    """None -> ``cuda``, as every entry point of the package (a copy of its
+    ``core/device.py::resolve_device``, which this module may not import)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {str(dev)!r} requested but CUDA is not available; "
+                               "pass device='cpu' to run on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _load_program(data: bytes):
+    return torch.export.load(io.BytesIO(data)).module()
+
+
+class ServingPolicy:
+    """Loads a ``.bbmpc`` artifact and serves ``act()`` / ``reset()`` from it.
+
+    The behavioral contract matches ``MPCPolicy``: ``act`` accepts an unbatched ``[S]``
+    observation (tiled across agents) or a batched ``[num_agents, S]`` array and returns
+    ``(action, predicted_next_obs, predicted_reward)``, un-batched iff the input was. The
+    artifact holds the exporting policy's solver state and generator states, so a loaded
+    ServingPolicy on the same device type continues bit for bit where that ``MPCPolicy``
+    stood.
+    """
+
+    def __init__(self, meta: dict, step, reset, state, params, proposer, key_states,
+                 device: torch.device, seed: int | None = None) -> None:
+        self.meta = dict(meta)
+        self._num_agents = int(meta["num_agents"])
+        self._dim_s = int(meta["dim_s"])
+        self._device = device
+        self._step = step
+        self._reset = reset
+        self._draws = meta["draws"]
+        put = lambda leaves: tuple(t.to(device) for t in leaves)  # noqa: E731
+        self._state = put(state)
+        self._params = put(params)
+        self._proposer = put(proposer)
+        self._generators = {name: torch.Generator(device=device) for name in GENERATORS}
+        if seed is not None:
+            self.reseed(seed)
+        elif RNG_IMPLS.get(device.type) != meta["rng_impl"]:
+            raise ValueError(
+                f"the artifact's stream is {meta['rng_impl']!r} (exported on "
+                f"{meta['stream_device']}); {device.type} generators run "
+                f"{RNG_IMPLS.get(device.type)!r}, so the stream cannot continue here: pass "
+                "seed= to start a fresh one")
+        else:
+            for name, state_bytes in zip(GENERATORS, key_states):
+                self._generators[name].set_state(state_bytes)
+        # The exploration noise's inputs when act() is not asked for it: zeros, drawn never.
+        self._no_explore = tuple(self._zeros(spec) for spec in self._draws["explore"])
+        self._last_plan = None
+        self._last_expected_reward = None
+
+    # ------------------------------------------------------------------ construction
+
+    @classmethod
+    def load(cls, path: str, device=None, *, seed: int | None = None,
+             compiled_cache: str | None = None) -> "ServingPolicy":
+        """Loads an artifact onto ``device`` (None: ``cuda``), whose type must be one of the
+        artifact's ``platforms``. ``seed`` starts a fresh stream (see :meth:`reseed`) in place
+        of the stored one, which only a device of the exporting type can continue.
+        ``compiled_cache`` is not ported and raises."""
+        if compiled_cache is not None:
+            raise NotImplementedError(f"compiled_cache=: {_COMPILED_CACHE}")
+        with zipfile.ZipFile(path) as zf:
+            meta = json.loads(zf.read("meta.json"))
+            if meta.get("format_version") not in SUPPORTED_FORMAT_VERSIONS:
+                raise ValueError(
+                    f"artifact format_version {meta.get('format_version')} not in "
+                    f"supported {SUPPORTED_FORMAT_VERSIONS}"
+                )
+            kind = torch.device("cuda" if device is None else device).type
+            if kind not in meta["platforms"]:
+                raise ValueError(f"the artifact has programs for {meta['platforms']}, not "
+                                 f"{kind}: export it with platforms including {kind!r}")
+            dev = _resolve_device(device)
+            step = _load_program(zf.read(f"{kind}/step.pt2"))
+            reset = (_load_program(zf.read(f"{kind}/reset.pt2"))
+                     if f"{kind}/reset.pt2" in zf.namelist() else None)
+            groups = [unpack_tensors(zf, g) for g in ("state", "params", "proposer", "key")]
+        return cls(meta, step, reset, *groups, device=dev, seed=seed)
+
+    def precompile(self) -> "ServingPolicy":
+        raise NotImplementedError(f"precompile: {_COMPILED_CACHE}")
+
+    def save_compiled(self, path: str) -> None:
+        raise NotImplementedError(f"save_compiled: {_COMPILED_CACHE}")
+
+    # ------------------------------------------------------------------ the stream
+
+    def _zeros(self, spec) -> torch.Tensor:
+        return torch.zeros(spec["shape"], dtype=getattr(torch, spec["dtype"]),
+                           device=self._device)
+
+    def _draw(self, specs, noise_start=None) -> tuple:
+        """The random inputs of one program call, drawn as the exporting policy draws them;
+        every draw of the noise generator starts from ``noise_start``."""
+        out = []
+        for spec in specs:
+            generator = self._generators[spec["generator"]]
+            if spec["generator"] == "noise":
+                generator.set_state(noise_start)
+            fn = getattr(torch, spec["fn"])
+            out.append(fn(*spec["args"], generator=generator, device=self._device,
+                          dtype=getattr(torch, spec["dtype"])))
+        return tuple(out)
+
+    # ------------------------------------------------------------------ public API
+
+    @property
+    def solver_name(self) -> str:
+        return self.meta["solver_name"]
+
+    @property
+    def num_agents(self) -> int:
+        return self._num_agents
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    @torch.no_grad()
+    def act(self, observations, t: int = 0, exploration_noise: bool = False):
+        obs = np.asarray(observations, dtype=np.float32)
+        batched = obs.ndim > 1
+        if not batched:
+            obs = np.tile(obs[None], (self._num_agents, 1))
+        if obs.shape != (self._num_agents, self._dim_s):
+            raise ValueError(
+                f"observations shape {obs.shape} != ({self._num_agents}, {self._dim_s})"
+            )
+        noise_start = self._generators["noise"].get_state()
+        draws = self._draw(self._draws["step"], noise_start)
+        explore = bool(exploration_noise)
+        noise = self._draw(self._draws["explore"]) if explore else self._no_explore
+        action, self._state, expected, plan, next_obs, reward = self._step(
+            self._state, self._params, self._proposer, torch.as_tensor(obs, device=self._device),
+            torch.tensor(int(t), dtype=torch.int64, device=self._device),
+            torch.tensor(explore, device=self._device), draws, noise,
+        )
+        self._last_plan, self._last_expected_reward = plan, expected
+        flat = torch.cat([action.reshape(-1), next_obs.reshape(-1), reward.reshape(-1)])
+        flat = flat.float().cpu().numpy()
+        n_a, n_o = action.numel(), next_obs.numel()
+        action = flat[:n_a].reshape(action.shape)
+        next_obs = flat[n_a:n_a + n_o].reshape(next_obs.shape)
+        reward = flat[n_a + n_o:].reshape(reward.shape)
+        if batched:
+            return action, next_obs, reward
+        return action[0], next_obs[0], reward[0]
+
+    def plan(self):
+        """The last solve's refined plan ``[A, H, U]`` and expected reward ``[A]`` (None
+        before the first ``act``)."""
+        if self._last_plan is None:
+            return None, None
+        return self._last_plan.cpu().numpy(), self._last_expected_reward.cpu().numpy()
+
+    @torch.no_grad()
+    def reset(self) -> None:
+        """Per-episode solver-state reset, mirroring ``MPCPolicy.reset`` (a solver without
+        state has no reset program)."""
+        if self._reset is not None:
+            self._state = self._reset(self._state, self._draw(self._draws["reset"]))
+
+    def reseed(self, seed: int) -> None:
+        """Replaces the stored stream with a fresh one, the streams of an ``MPCPolicy`` built
+        with ``seed``: the solver's generator seeded with ``seed``, the rollout noise's with
+        ``seed + 0x5EED``."""
+        self._generators["solver"].manual_seed(seed)
+        self._generators["noise"].manual_seed(seed + NOISE_SEED_OFFSET)
+
+    def update_dynamics_params(self, params) -> None:
+        """Swaps the dynamics parameters without re-exporting.
+
+        Accepts a parameter tree (e.g. a freshly trained ``DynamicsHandler.dynamics_params``)
+        or a flat leaf sequence; the leaf count, shapes and dtypes must match the exported
+        ones, for which the program was traced.
+        """
+        leaves = (list(params) if isinstance(params, (list, tuple))
+                  and all(torch.is_tensor(x) or isinstance(x, np.ndarray) for x in params)
+                  else tree_leaves(params))
+        if len(leaves) != len(self._params):
+            raise ValueError(
+                f"got {len(leaves)} parameter leaves, artifact expects {len(self._params)}"
+            )
+        new = []
+        for i, (got, want) in enumerate(zip(leaves, self._params)):
+            t = got if torch.is_tensor(got) else torch.from_numpy(np.asarray(got))
+            if t.shape != want.shape or t.dtype != want.dtype:
+                raise ValueError(
+                    f"parameter leaf {i}: got {tuple(t.shape)}/{t.dtype}, artifact expects "
+                    f"{tuple(want.shape)}/{want.dtype}"
+                )
+            new.append(t.detach().to(self._device).clone())
+        self._params = tuple(new)
+
+    def __repr__(self) -> str:  # pragma: no cover - cosmetic
+        return (
+            f"ServingPolicy(solver={self.meta['solver_name']!r}, "
+            f"agents={self._num_agents}, horizon={self.meta['planning_horizon']}, "
+            f"device={self._device})"
+        )
+
+
+def write_artifact(path: str, meta: dict, programs: dict, state_leaves, params_leaves,
+                   proposer_leaves, key_states) -> None:
+    """Writes the zip layout of the module docstring; ``programs`` maps each device type to
+    its ``(step bytes, reset bytes or None)``. Lives here so that the format's reader and
+    writer stay in one self-contained file."""
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w", compression=zipfile.ZIP_DEFLATED) as zf:
+        zf.writestr("meta.json", json.dumps({**meta, "format_version": FORMAT_VERSION}))
+        for kind, (step_bytes, reset_bytes) in programs.items():
+            zf.writestr(f"{kind}/step.pt2", step_bytes)
+            if reset_bytes is not None:
+                zf.writestr(f"{kind}/reset.pt2", reset_bytes)
+        pack_tensors(zf, "state", state_leaves)
+        pack_tensors(zf, "params", params_leaves)
+        pack_tensors(zf, "proposer", proposer_leaves)
+        pack_tensors(zf, "key", key_states)
+    with open(path, "wb") as f:
+        f.write(buf.getvalue())

@@ -1,0 +1,134 @@
+"""The measured rule behind ``MPCPolicy(rollout_backend="auto")``.
+
+Counterpart of ``blackbox_mpc_tpu/ops/backend_select.py``, with its structure: the gates of
+:func:`~blackbox_mpc_torch.ops._kernel_common.check_kernel_support` and of the policy, then
+two measured regimes, each set by constants that a re-measurement on other hardware changes
+without touching the code.
+
+* ``"kernel"`` (K2 on the eager sampler: the same sampling law as ``"eager"``) for learned
+  MLPs up to ``KERNEL_MAX_WIDTH`` wide and ``KERNEL_MAX_ROWS`` candidate rows. These are the
+  JAX package's ``PALLAS_MAX_WIDTH``/``PALLAS_MAX_ROWS``, which are 0 there: on its TPU the
+  XLA path won every shape that fits in memory. On the H100 the CUDA kernel wins: ``act()``
+  at H=50 over populations 100-10 000 and hidden widths (64, 64) and (500, 500, 500),
+  ``chip_smoke.py`` phase 9 Part A (PERF.md section 5 has the table and the card).
+* ``"fused"`` (the generate-in-kernel family: CEM, PI2, MPPI, RandomSearch, CMA-ES with
+  ``diagonal=True``) only for capacity, as in JAX: when the candidate tensor ``[P, A, H, U]``
+  reaches ``FUSED_MIN_BYTES``, which the other two paths materialize. The fused family clips
+  its normals at +/-2 sigma where the other two paths draw the truncated normal
+  (``core/types.py::truncated_normal``), so it is not picked for speed. The capacity test
+  comes first here: the ``"kernel"`` path materializes the candidates as eager does, so a
+  population beyond memory cannot run there either (JAX tests its kernel regime first, which
+  it never enables).
+
+Everything else is ``"eager"``: a device other than ``cuda`` (the kernels are CUDA, so a CPU
+policy asked for ``auto`` is an eager policy), true models, probabilistic heads, propagation
+other than mean/ts1 with an ensemble, an activation or dtype the kernels refuse, the
+first-order solvers (the kernels have no backward) and the time-major layout.
+"""
+from __future__ import annotations
+
+import warnings
+from typing import Optional
+
+import torch
+
+from blackbox_mpc_torch.ops._kernel_common import check_kernel_support
+
+__all__ = ["choose_backend", "FUSED_FAMILY", "FUSED_MIN_BYTES", "KERNEL_MAX_ROWS",
+           "KERNEL_MAX_WIDTH"]
+
+# The "kernel" regime (JAX: PALLAS_MAX_WIDTH / PALLAS_MAX_ROWS, both 0 on its TPU). Set from
+# chip_smoke.py phase 9 Part A (NVIDIA H100 80GB HBM3, 700 W): "kernel" beat "eager" at every
+# measured shape, up to the 500-wide flagship and 10 000 rows, where the two nearly meet
+# (448.5 against 459.5 ms an act(); PERF.md section 5).
+KERNEL_MAX_WIDTH = 500
+KERNEL_MAX_ROWS = 10_000
+
+# The "fused" regime (JAX: FUSED_CEM_MIN_BYTES, 4 GiB for its 16 GB TPU). Set from
+# chip_smoke.py phase 9 Part A (NVIDIA H100 80GB HBM3, 700 W) at the flagship (H=50, U=6,
+# 5 x 3x500): the path that runs just below this threshold is "eager" (beyond
+# KERNEL_MAX_ROWS), whose peak memory grows by 21.4 KB per candidate row between 20 000 and
+# 60 000 rows (17.9 bytes per candidate byte; "kernel": 10.0 between 1000 and 3000 rows). At
+# 2.38e9 candidate bytes the eager peak would reach half of the card's 85.0 GB; one eager
+# act() at the largest population below this constant checks it on the card.
+FUSED_MIN_BYTES = 2_350_000_000
+
+# The fused solver family by registry name (CMA-ES with diagonal=True only).
+FUSED_FAMILY = ("CEM", "PI2", "MPPI", "RandomSearch", "CMA-ES")
+# The solvers that differentiate through the rollout: eager only.
+_FIRST_ORDER = ("Gradient", "CEM-GD")
+# The fused CEM's logical ts1 tile (ops/fused_cem.py::make_fused_cem_kernels' default).
+_FUSED_TILE = 256
+
+
+def _platform() -> str:
+    return "cuda" if torch.cuda.is_available() else "cpu"
+
+
+def choose_backend(
+    config,  # LearnedDynamicsConfig | None (None: a true model)
+    population: int,
+    num_agents: int,
+    mesh: Optional[object] = None,
+    platform: Optional[str] = None,
+    horizon: int = 0,
+    dim_u: int = 0,
+    solver_name: str = "",
+    solver_config: Optional[object] = None,
+) -> str:
+    """``"eager"``, ``"kernel"`` or ``"fused"`` for a solve configuration; never raises for
+    one the port runs.
+
+    ``platform`` is the policy's device type (``"cuda"``, ``"cpu"``); None means ``cuda``
+    where CUDA is available. ``mesh`` is not ported (ROADMAP Queue 1 item 9) and raises.
+    """
+    if mesh is not None:
+        raise NotImplementedError("mesh= is not ported yet (ROADMAP Queue 1 item 9)")
+    if platform is None:
+        platform = _platform()
+    if platform != "cuda" or config is None:
+        return "eager"
+    try:
+        check_kernel_support(config, "auto")
+    except ValueError:
+        return "eager"
+    if solver_name in _FIRST_ORDER:
+        return "eager"
+    time_major = bool(getattr(solver_config, "time_major", False))
+    rows = population * num_agents
+    ts1 = config.propagation == "ts1" and config.ensemble_size > 1
+    candidate_bytes = rows * horizon * dim_u * 4
+    rng_cols = (((horizon // 2 + 1) * 2) * dim_u
+                if getattr(solver_config, "colored_noise_beta", 0.0) > 0.0
+                else horizon * dim_u)
+    fused_family = solver_name in FUSED_FAMILY and (
+        solver_name != "CMA-ES" or getattr(solver_config, "diagonal", False))
+    if (
+        fused_family
+        and candidate_bytes >= FUSED_MIN_BYTES
+        and rows * rng_cols < 2**32  # the in-kernel RNG counter range
+        # ts1 gives every member at least one logical tile
+        and not (ts1 and -(-rows // _FUSED_TILE) < config.ensemble_size)
+    ):
+        if time_major:
+            # The time-major layout is an eager feature, and this population is beyond the
+            # capacity threshold: honour the layout (eager) but warn, as JAX does.
+            warnings.warn(
+                f"time_major=True forces the eager evaluator, but the candidate tensor "
+                f"({candidate_bytes / 2**30:.1f} GiB) is beyond the fused backend's "
+                f"threshold; the eager solve will likely run out of memory. Drop time_major "
+                f"(the fused backend never materializes candidates) or shrink the population.",
+                RuntimeWarning, stacklevel=2,
+            )
+            return "eager"
+        return "fused"
+    if (
+        not time_major  # the kernel's candidate contract is [P, A, H, U]
+        and KERNEL_MAX_WIDTH
+        and max(config.hidden, default=0) <= KERNEL_MAX_WIDTH
+        and rows <= KERNEL_MAX_ROWS
+        # the kernel evaluator's ts1 member-major blocks need rows % E == 0
+        and not (ts1 and rows % config.ensemble_size)
+    ):
+        return "kernel"
+    return "eager"

@@ -20,10 +20,18 @@ Rollout backends:
   ``"MPPI"``, ``"RandomSearch"`` and ``"CMA-ES"`` with ``diagonal=True``; undiscounted rewards
   and no smoothness penalty.
 
+* ``"auto"``: the measured rule of :mod:`blackbox_mpc_torch.ops.backend_select`, resolved
+  for each solver (again at ``switch_solver``): ``"kernel"`` for learned mean/ts1 MLPs within
+  the regime measured on the H100, ``"fused"`` for a fused-family population whose candidate
+  tensor is beyond the capacity threshold, ``"eager"`` otherwise and on any device but
+  ``cuda``.
+
 The first-order solvers (Gradient, CEM-GD) run on ``"eager"`` only, as in JAX: the CUDA
-rollout kernel has no backward. ``"auto"`` is not ported yet, and neither are the JAX options
-``mesh`` and ``rng_impl``. ``metrics_writer`` gets ``rewards/predicted_reward`` once per
-``act()``, from the host values ``act()`` returns.
+rollout kernel has no backward. ``mesh`` (sharding) is not ported yet. ``rng_impl`` has one
+value, None: a ``torch.Generator`` has one algorithm per device (Philox4x32-10 on CUDA,
+MT19937 on the CPU), which the policy records for the serving artifact.
+``metrics_writer`` gets ``rewards/predicted_reward`` once per ``act()``, from the host values
+``act()`` returns.
 
 ``proposer`` (a :class:`~blackbox_mpc_torch.learning.proposer.PolicyProposer`): before every
 solve its policy net is unrolled through the posterior-mean dynamics and the plan replaces the
@@ -48,19 +56,20 @@ import torch
 from blackbox_mpc_torch.core.device import resolve_device
 from blackbox_mpc_torch.core.spaces import BoxSpace, as_box_space
 from blackbox_mpc_torch.core.types import Bounds
+# One definition of the streams for the policy and its artifact: ServingPolicy's reseed and
+# its rng_impl gate hold only while the two agree.
+from blackbox_mpc_torch.deploy.serving import NOISE_SEED_OFFSET, RNG_IMPLS
 from blackbox_mpc_torch.learning.handler import DynamicsHandler
 from blackbox_mpc_torch.policies.base import ModelBasedPolicy
 from blackbox_mpc_torch.rollout.evaluator import make_trajectory_evaluator
-from blackbox_mpc_torch.solvers import SOLVER_REGISTRY, lookup
+from blackbox_mpc_torch.solvers import lookup
 from blackbox_mpc_torch.solvers.base import exploration_noise as _exploration_noise
 
 logger = logging.getLogger(__name__)
 
 __all__ = ["MPCPolicy", "ROLLOUT_BACKENDS"]
 
-ROLLOUT_BACKENDS = ("eager", "kernel", "fused")
-# Seeds the rollout-noise generator of stochastic dynamics apart from the solver's.
-_NOISE_SEED_OFFSET = 0x5EED
+ROLLOUT_BACKENDS = ("eager", "kernel", "fused", "auto")
 # The fused solver family, by registry name: the factory of ops/fused_cem.py behind each.
 _FUSED_FAMILY = {
     "CEM": "make_fused_cem",
@@ -94,6 +103,8 @@ class MPCPolicy(ModelBasedPolicy):
         action_smoothness_weight: float = 0.0,
         metrics_writer=None,
         device=None,
+        mesh=None,
+        rng_impl: str | None = None,
         **solver_kwargs,
     ):
         """``solver_kwargs`` are forwarded into the solver's config dataclass.
@@ -103,9 +114,18 @@ class MPCPolicy(ModelBasedPolicy):
         ``seed`` seeds the policy's ``torch.Generator``, which every solve draws from, and a
         host generator of its own (the episode seeds of ``policies/pipeline.py``).
         ``proposer`` needs a plan-carrying solver (CEM, CEM-GD, CMA-ES, Gradient, PI2, MPPI,
-        SPSA) on the policy's device.
+        SPSA) on the policy's device. ``rng_impl`` must be None (see the module docstring).
         """
+        if mesh is not None:
+            raise NotImplementedError("MPCPolicy(mesh=...) is not ported yet (ROADMAP Queue 1 "
+                                      "item 9)")
+        if rng_impl is not None:
+            raise ValueError(
+                f"rng_impl={rng_impl!r}: torch offers no choice of generator algorithm (a "
+                "torch.Generator runs Philox4x32-10 on CUDA and MT19937 on the CPU); pass "
+                "rng_impl=None")
         self._device = resolve_device(device)
+        self._rng_impl = RNG_IMPLS.get(self._device.type, self._device.type)
         if dynamics_handler.device != self._device:
             raise ValueError(
                 f"dynamics_handler lives on {dynamics_handler.device}, policy on {self._device}"
@@ -120,17 +140,12 @@ class MPCPolicy(ModelBasedPolicy):
         self._discount = discount
         if rollout_backend == "fused_cem":
             rollout_backend = "fused"
-        if rollout_backend == "auto":
-            raise NotImplementedError(
-                "rollout_backend='auto' is not ported yet (ROADMAP Queue 1 item 7: the "
-                "backend rule)"
-            )
         if rollout_backend not in ROLLOUT_BACKENDS:
             raise ValueError(
                 f"rollout_backend must be one of {ROLLOUT_BACKENDS} ('fused_cem' is an alias "
                 f"of 'fused'), got {rollout_backend!r}"
             )
-        kernel_backend = rollout_backend != "eager"
+        kernel_backend = rollout_backend in ("kernel", "fused")
         if kernel_backend and dynamics_handler.is_true_model:
             raise ValueError(f"rollout_backend={rollout_backend!r} requires learned MLP dynamics")
         dyn_cfg = dynamics_handler.config
@@ -148,6 +163,8 @@ class MPCPolicy(ModelBasedPolicy):
                 f"{dyn_cfg.propagation!r} (the fused kernels are deterministic); use the "
                 "'eager' backend"
             )
+        # "auto" resolves per solver config in _build (it needs the population).
+        self._requested_backend = rollout_backend
         self._rollout_backend = rollout_backend
         if action_smoothness_weight < 0:
             raise ValueError(
@@ -169,7 +186,7 @@ class MPCPolicy(ModelBasedPolicy):
         self._generator = torch.Generator(device=self._device)
         self._generator.manual_seed(seed)
         self._noise_generator = torch.Generator(device=self._device)
-        self._noise_generator.manual_seed(seed + _NOISE_SEED_OFFSET)
+        self._noise_generator.manual_seed(seed + NOISE_SEED_OFFSET)
         self._noise_start = None  # the noise generator's state at the start of the solve
         self._host_rng = np.random.default_rng(seed)
         if proposer is not None and proposer.device != self._device:
@@ -182,14 +199,43 @@ class MPCPolicy(ModelBasedPolicy):
 
     # ------------------------------------------------------------------ construction
 
-    def _build(self, solver_name: str, strict_kwargs: bool = False) -> None:
-        known = solver_name in SOLVER_REGISTRY  # an unknown name gets lookup's KeyError
-        if self._rollout_backend == "fused" and known and solver_name not in _FUSED_FAMILY:
-            raise ValueError(
-                "rollout_backend='fused' backs the generate-in-kernel solver family "
-                f"(CEM, PI2, MPPI, RandomSearch, CMA-ES with diagonal=True), not "
-                f"{solver_name}"
+    def _resolve_backend(self, solver_name: str, config) -> str:
+        """The backend of this solver: the explicit one, or ``"auto"``'s choice."""
+        if self._requested_backend != "auto":
+            return self._requested_backend
+        from blackbox_mpc_torch.ops.backend_select import choose_backend
+
+        handler = self._handler
+        if self._stochastic or self._penalized:
+            resolved = "eager"  # sampled propagation and the penalty run on eager only
+        else:
+            resolved = choose_backend(
+                None if handler.is_true_model else handler.config,
+                getattr(config, "population", 0), self._num_agents,
+                platform=self._device.type, horizon=self._planning_horizon,
+                dim_u=self._bounds.dim, solver_name=solver_name, solver_config=config,
             )
+        logger.info("rollout_backend auto -> %s", resolved)
+        if resolved == "fused":
+            # The fused family samples clipped (not truncated) normals: a change of sampling
+            # law where a population crosses the capacity threshold.
+            logger.info(
+                "auto-routing %s onto the fused generate-in-kernel backend: candidates are "
+                "clipped normals (+/-2 sigma), not the eager path's truncated normals",
+                solver_name)
+            if self._smoothness > 0:
+                raise ValueError(
+                    "rollout_backend='auto' selected the fused solver (a candidate tensor "
+                    "beyond the capacity threshold) but action_smoothness_weight needs the "
+                    "candidate tensor; pick a smaller population or drop the smoothness cost")
+            if self._discount != 1.0:
+                raise ValueError(
+                    "rollout_backend='auto' selected the fused solver (a candidate tensor "
+                    "beyond the capacity threshold) but the fused kernels sum undiscounted "
+                    "rewards; pick a smaller population or set discount=1.0")
+        return resolved
+
+    def _build(self, solver_name: str, strict_kwargs: bool = False) -> None:
         config_cls, factory = lookup(solver_name)
         valid = set(config_cls.__dataclass_fields__)
         kept = {k: v for k, v in self._solver_kwargs.items() if k in valid}
@@ -207,6 +253,13 @@ class MPCPolicy(ModelBasedPolicy):
         if getattr(config, "num_elite", 0) > config.population:
             raise ValueError(
                 f"num_elite ({config.num_elite}) must be <= population ({config.population})"
+            )
+        backend = self._resolve_backend(solver_name, config)
+        if backend == "fused" and solver_name not in _FUSED_FAMILY:
+            raise ValueError(
+                "rollout_backend='fused' backs the generate-in-kernel solver family "
+                f"(CEM, PI2, MPPI, RandomSearch, CMA-ES with diagonal=True), not "
+                f"{solver_name}"
             )
         field = None
         if self._proposer is not None:
@@ -227,18 +280,18 @@ class MPCPolicy(ModelBasedPolicy):
                     f"{solver_name} plan field '{field}' has size {size}, expected "
                     f"A*H*U={plan_size}"
                 )
-        if self._rollout_backend == "kernel" and solver_name in ("Gradient", "CEM-GD"):
+        if backend == "kernel" and solver_name in ("Gradient", "CEM-GD"):
             raise ValueError(
                 f"rollout_backend='kernel' cannot back the first-order {solver_name} solver "
                 "(the CUDA rollout kernel has no VJP); use the eager backend"
             )
         time_major = bool(getattr(config, "time_major", False))
-        if time_major and self._rollout_backend != "eager":
+        if time_major and backend != "eager":
             raise ValueError(
                 f"time_major=True requires the eager evaluator; the "
-                f"{self._rollout_backend!r} backend's candidate contract is [P, A, H, U]"
+                f"{backend!r} backend's candidate contract is [P, A, H, U]"
             )
-        if self._rollout_backend == "fused":
+        if backend == "fused":
             from blackbox_mpc_torch.ops import fused_cem
 
             # Each factory stores its state in config.dtype (base.with_state_dtype) and reads
@@ -248,8 +301,10 @@ class MPCPolicy(ModelBasedPolicy):
             solver = fused_factory(config, self._bounds, handler.config,
                                    lambda: handler.dynamics_params, self._reward_fn)
         else:
-            solver = factory(config, self._bounds, self._make_evaluate(time_major))
+            solver = factory(config, self._bounds, self._make_evaluate(time_major, backend))
+        self._rollout_backend = backend
         self._solver_name = solver_name
+        self._factory = factory
         self._config = config
         self._solver = solver
         self._solver_state = solver.init(self._generator)
@@ -261,21 +316,23 @@ class MPCPolicy(ModelBasedPolicy):
                 self._proposer.config, self._bounds, self._handler.mean_dynamics_fn,
                 self._planning_horizon)
 
-    def _make_evaluate(self, time_major: bool):
-        """The solver's ``evaluate(obs, candidates)``, reading the handler's current
-        parameters at every call."""
-        handler, reward_fn = self._handler, self._reward_fn
-        if self._rollout_backend == "kernel":
+    def _make_evaluate(self, time_major: bool, backend: str, params=None):
+        """The solver's ``evaluate(obs, candidates)``, reading the dynamics parameters at every
+        call: ``params()`` (default: the handler's current ones)."""
+        handler, reward_fn, device = self._handler, self._reward_fn, self._device
+        if params is None:
+            params = lambda: handler.dynamics_params  # noqa: E731
+        if backend == "kernel":
             from blackbox_mpc_torch.ops.rollout_kernel import make_rollout_kernel_evaluator
             from blackbox_mpc_torch.rollout.evaluator import action_smoothness_penalty
 
             kernel_evaluate = make_rollout_kernel_evaluator(
-                handler.config, reward_fn, discount=self._discount, device=self._device
+                handler.config, reward_fn, discount=self._discount, device=device
             )
             weight, discount = self._smoothness, self._discount
 
             def evaluate(obs, actions):
-                rewards = kernel_evaluate(handler.dynamics_params, obs, actions)
+                rewards = kernel_evaluate(params(), obs, actions)
                 if weight > 0:
                     rewards = rewards - action_smoothness_penalty(actions, weight, discount)
                 return rewards
@@ -286,10 +343,10 @@ class MPCPolicy(ModelBasedPolicy):
                        else handler.dynamics_fn)
         num_particles = handler.config.num_particles if self._stochastic else 1
         evaluate = make_trajectory_evaluator(
-            lambda s, a, noise=None: dynamics_fn(handler.dynamics_params, s, a, noise),
+            lambda s, a, noise=None: dynamics_fn(params(), s, a, noise),
             reward_fn, discount=self._discount, num_particles=num_particles,
             action_smoothness_weight=self._smoothness, dynamics_returns_penalty=self._penalized,
-            time_major=time_major, remat=self._remat, device=self._device,
+            time_major=time_major, remat=self._remat, device=device,
         )
         if not self._stochastic:
             return evaluate
@@ -301,15 +358,19 @@ class MPCPolicy(ModelBasedPolicy):
             generator.set_state(start)  # common random numbers within one solve
             rows = actions.shape[p_axis] * num_particles * obs.shape[0]
             return evaluate(obs, actions, rollout_noise(
-                generator, (actions.shape[h_axis], rows, dim_s), self._device))
+                generator, (actions.shape[h_axis], rows, dim_s), device))
 
         return stochastic_evaluate
 
-    def _step(self, solver_state, obs: torch.Tensor, t: int, generator: torch.Generator,
-              noise_generator: torch.Generator, add_noise: bool):
-        """One solve from ``solver_state`` (which it does not change), the optional
-        exploration noise and the one-step lookahead: ``(action, new_state, aux, next_obs,
-        pred_reward)``, all on the device."""
+    def _solve(self, solver_state, obs: torch.Tensor, t, generator: torch.Generator,
+               noise_generator: torch.Generator, solver=None, dynamics_params=None,
+               proposer_params=None):
+        """One solve from ``solver_state`` (which it does not change): ``(action, new_state,
+        aux)``. ``solver``, ``dynamics_params`` and ``proposer_params`` default to the
+        policy's own (``deploy/export.py`` passes those of the program it traces)."""
+        solver = self._solver if solver is None else solver
+        if dynamics_params is None:
+            dynamics_params = self._handler.dynamics_params
         if self._stochastic:
             # The noise generator's state lives on the host: reading and setting it waits for
             # nothing.
@@ -317,17 +378,29 @@ class MPCPolicy(ModelBasedPolicy):
         if self._proposer is not None:
             # POPLIN-style seeding: the policy net's unroll replaces the carried plan (reshaped
             # for CMA-ES's flat [A, H*U] mean).
-            proposed = self._propose(self._proposer.params, self._handler.dynamics_params, obs)
+            if proposer_params is None:
+                proposer_params = self._proposer.params
+            proposed = self._propose(proposer_params, dynamics_params, obs)
             current = getattr(solver_state, self._proposer_field)
             solver_state = dataclasses.replace(solver_state, **{
                 self._proposer_field: proposed.reshape(current.shape).to(current.dtype)})
-        action, new_state, aux = self._solver.solve(solver_state, obs, t, generator)
+        return solver.solve(solver_state, obs, t, generator)
+
+    def _lookahead(self, dynamics_params, obs: torch.Tensor, action: torch.Tensor):
+        """The one-step lookahead on the posterior-mean dynamics (the unpenalized head
+        means): ``(predicted next state, predicted reward)``."""
+        next_obs = self._handler.mean_dynamics_fn(dynamics_params, obs, action)
+        return next_obs, self._reward_fn(obs, action, next_obs)
+
+    def _step(self, solver_state, obs: torch.Tensor, t: int, generator: torch.Generator,
+              noise_generator: torch.Generator, add_noise: bool):
+        """One solve from ``solver_state`` (which it does not change), the optional
+        exploration noise and the one-step lookahead: ``(action, new_state, aux, next_obs,
+        pred_reward)``, all on the device."""
+        action, new_state, aux = self._solve(solver_state, obs, t, generator, noise_generator)
         if add_noise:
             action = _exploration_noise(generator, action, self._bounds, self._noise_scale)
-        # One-step lookahead on the posterior-mean dynamics (the unpenalized head means):
-        # predicted next state + reward.
-        next_obs = self._handler.mean_dynamics_fn(self._handler.dynamics_params, obs, action)
-        pred_reward = self._reward_fn(obs, action, next_obs)
+        next_obs, pred_reward = self._lookahead(self._handler.dynamics_params, obs, action)
         return action, new_state, aux, next_obs, pred_reward
 
     def _obs(self, observations) -> tuple[torch.Tensor, bool]:
@@ -358,6 +431,11 @@ class MPCPolicy(ModelBasedPolicy):
     @property
     def proposer(self):
         return self._proposer
+
+    @property
+    def rollout_backend(self) -> str:
+        """The backend the current solver runs on (``"auto"`` resolved)."""
+        return self._rollout_backend
 
     @torch.no_grad()
     def act(self, observations, t: int = 0, exploration_noise: bool = False):

@@ -97,8 +97,30 @@ It imports nothing of JAX and nothing of the JAX package. Phases, each fatal on 
    ``"fused"`` with ``behavior_cloning=True, overlap=True``: each cloning lowers the proposer's
    error, the checkpoint and ``resume=True`` keep handler and proposer bit for bit.
 
-The line before the last two is ``{"kernels": [...]}``; then the card's name and power
-limit; the last line is ``{"ok": true, "device": {...}}``.
+9. The single-card entry points. Part A, ``rollout_backend="auto"``: ``act()`` on ``"eager"``
+   and ``"kernel"`` at H=50 over populations 100-10 000 and hidden widths (64, 64) and
+   (500, 500, 500) (S=17, U=6, E=5), the grid behind ``ops/backend_select.py``'s constants; the
+   peak memory per candidate row of ``"kernel"`` at 1000 and 3000 rows and of ``"eager"`` at
+   20 000 and 60 000 rows (what ``auto`` runs above ``KERNEL_MAX_ROWS``), the capacity
+   threshold the larger gives at half the card's memory, and one ``act()`` of the largest
+   population ``auto`` sends to eager; ``auto`` at the flagship resolves to
+   ``"kernel"`` with its bits (K2 five times an ``act()``), and with ``FUSED_MIN_BYTES``
+   lowered to ``"fused"`` with its bits (K4 and K6 five times each). Part B,
+   ``evaluate_solver_on_model`` for 20 steps: fused CEM over the flagship model as the env (K4
+   and K6 five times a step) and eager CEM over the analytic pendulum, each with at most one
+   ``cudaStreamSynchronize`` (its readback) under ``utils/profiling.py::trace``, against a host
+   loop of ``act()``. Part C, an eager CEM ``MPCPolicy`` at the flagship exported after one
+   ``act()`` and served by ``ServingPolicy`` on the card: three ``act()``s (explore false, true,
+   false) and a reset bit for bit, swapped params as a policy given them, ``export_dynamics``
+   at two batch sizes; export and load seconds, both ``act()``s' ms. Part D, the command line
+   as subprocesses: ``solvers``, ``solve`` (pendulum, cart-pole), ``export`` of phase 6's
+   trained checkpoint and ``inspect``, ``serve`` (5 requests, a reset, a malformed line),
+   ``calibrate`` on phase 7's probabilistic handler; ``learn`` needs gymnasium and runs only
+   where it is installed.
+
+The line before the last two is ``{"kernels": [...]}`` (each kernel's launches on phase 5's
+main path, and ``launches_by_path`` on every path that runs it); then the card's name and
+power limit; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -920,10 +942,14 @@ def trace_act(policy, obs, label: str, exploration_noise: bool = False) -> dict:
     range around it, which ends in the copy of the action to the host) in which the device ran
     nothing, and the longest stretches of it, each with its start in the window and the device
     operation that ended it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    import tempfile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    from torch.autograd import DeviceType
+    from torch.profiler import record_function
+
+    from blackbox_mpc_torch.utils import profiling
+
+    with tempfile.TemporaryDirectory() as log_dir, profiling.trace(log_dir) as prof:
         with record_function("act"):
             policy.act(obs, exploration_noise=exploration_noise)
     events = prof.events()
@@ -1308,6 +1334,7 @@ def mbrl_loop(device, backend: str) -> dict:
         "trained_act_stream_syncs": trace["stream_syncs"],
     }
     print(json.dumps(res), flush=True)
+    res["handler"] = handler  # phase 9 exports it through the command line
     return res
 
 
@@ -1563,6 +1590,7 @@ def pets_loop(device) -> dict:
         "trained_act_device_idle_share": trace["device_idle_share"],
     }
     print(json.dumps(res), flush=True)
+    res["handler"] = handler  # phase 9 calibrates it through the command line
     return res
 
 
@@ -2082,7 +2110,459 @@ def bc_loop(device) -> dict:
     return res
 
 
+
+# Phase 9: the single-card entry points. Part A times act() on "eager" and "kernel" at H=50 over
+# these populations and hidden widths (S=17, U=6, E=5, mean, f32), the grid behind
+# ops/backend_select.py's constants, and measures the peak memory per candidate row of the
+# "kernel" and "eager" paths, each at two populations, for FUSED_MIN_BYTES.
+SWEEP_POPULATIONS = (100, 300, 1000, 3000, 10000)
+SWEEP_HIDDEN = ((64, 64), (500, 500, 500))
+SWEEP_STEPS = 3
+# FUSED_MIN_BYTES puts the peak of the path that runs below it at this share of the card's
+# memory. Peak memory per row is measured on "kernel" at these populations (up to
+# KERNEL_MAX_ROWS) and on "eager" at the two above it (what "auto" runs up to the threshold).
+FUSED_MEMORY_SHARE = 0.5
+KERNEL_PEAK_POPULATIONS = (1000, 3000)
+EAGER_PEAK_POPULATIONS = (20000, 60000)
+EPISODE_STEPS = 20  # Part B's device-resident episodes
+# Part C's export: the flagship CEM (H=50, population 1000, 5 iterations) at this horizon.
+EXPORT_HORIZON = HORIZON
+
+
+def zero_launches() -> dict:
+    counters = launch_counters()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    return counters
+
+
+def read_launches(counters: dict) -> dict:
+    return {name: wrapper.launches for name, wrapper in counters.items()}
+
+
+def flagship_handler(device, hidden=FLAGSHIP["hidden"]):
+    from blackbox_mpc_torch import DynamicsHandler, LearnedDynamicsConfig
+
+    config = LearnedDynamicsConfig(**{**FLAGSHIP, "hidden": hidden}, propagation="mean")
+    handler = DynamicsHandler(config, seed=0, device=device)
+    handler.set_params(flagship_params(config, device))
+    return handler
+
+
+def flagship_policy(device, handler, backend: str, population: int = ROWS, **kw):
+    from blackbox_mpc_torch import MPCPolicy
+    from blackbox_mpc_torch.core.spaces import BoxSpace
+
+    kw = {"planning_horizon": HORIZON, "max_iterations": ITERS, **kw}
+    return MPCPolicy(BoxSpace.of(-1.0, 1.0, dim=6), reward_fn, handler, solver_name="CEM",
+                     rollout_backend=backend, population=population, num_elite=50,
+                     seed=0, device=device, **kw)
+
+
+def act_peak_bytes(policy, obs) -> int:
+    """The peak memory of one ``act()`` above what the process held before it."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    policy.act(obs)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def fused_threshold(device, handler) -> dict:
+    """The capacity threshold ``FUSED_MIN_BYTES``: the peak memory per candidate row of
+    ``"kernel"`` (1000 and 3000 rows) and of ``"eager"`` (20 000 and 60 000 rows, above
+    ``KERNEL_MAX_ROWS``, where ``auto`` runs eager up to the threshold), each from the growth
+    between its two populations, and the candidate size at which the larger puts the peak at
+    FUSED_MEMORY_SHARE of the card. Gate: the largest population that ``auto`` sends to eager
+    under the committed constant runs, with a one-iteration ``act()`` (the peak is one
+    iteration's), at a peak within the card's memory."""
+    import numpy as np
+    import torch
+
+    from blackbox_mpc_torch.ops import backend_select
+
+    smi = nvidia_smi()
+    obs = np.zeros(17, np.float32)
+    candidate_row = HORIZON * 6 * 4
+    total = torch.cuda.get_device_properties(0).total_memory
+    peaks, per_byte = {}, {}
+    for backend, populations in (("kernel", KERNEL_PEAK_POPULATIONS),
+                                 ("eager", EAGER_PEAK_POPULATIONS)):
+        peaks[backend] = {}
+        for population in populations:
+            policy = flagship_policy(device, handler, backend, population)
+            policy.act(obs)  # warm-up
+            peaks[backend][population] = act_peak_bytes(policy, obs)
+            del policy
+        low, high = populations
+        per_row = (peaks[backend][high] - peaks[backend][low]) / (high - low)
+        per_byte[backend] = per_row / candidate_row
+    threshold = FUSED_MEMORY_SHARE * total / max(per_byte.values())
+    rows = backend_select.FUSED_MIN_BYTES // candidate_row - 1
+    resolved = backend_select.choose_backend(handler.config, rows, 1, platform="cuda",
+                                             horizon=HORIZON, dim_u=6, solver_name="CEM")
+    if resolved != "eager":
+        raise AssertionError(f"auto at {rows} rows resolved to {resolved!r}, expected 'eager'")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    edge = act_peak_bytes(flagship_policy(device, handler, "eager", rows, max_iterations=1), obs)
+    edge_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    if edge >= total:
+        raise AssertionError(f"eager at {rows} rows peaked at {edge} bytes of {total}")
+    memory = {"peak_bytes": peaks, "peak_per_candidate_byte": per_byte,
+              "candidate_bytes_per_row": candidate_row, "total_memory": total,
+              "share": FUSED_MEMORY_SHARE, "fused_min_bytes_measured": threshold,
+              "FUSED_MIN_BYTES": backend_select.FUSED_MIN_BYTES,
+              "largest_eager_rows": rows, "largest_eager_peak_bytes": edge,
+              "largest_eager_peak_share": edge / total, "largest_eager_act_s": edge_s,
+              "KERNEL_MAX_WIDTH": backend_select.KERNEL_MAX_WIDTH,
+              "KERNEL_MAX_ROWS": backend_select.KERNEL_MAX_ROWS}
+    print(json.dumps({"auto_memory": memory, "card": smi}), flush=True)
+    return memory
+
+
+def act_ms(policy, obs, steps: int = SWEEP_STEPS) -> list:
+    policy.act(obs)  # warm-up
+    times = []
+    for t in range(steps):
+        t0 = time.perf_counter()
+        policy.act(obs, t)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def auto_backend(device) -> dict:
+    """Part A: the sweep, the memory per row, and ``"auto"`` at the flagship: it must resolve
+    to ``"kernel"`` with the explicit backend's bits (K2 five times an ``act()``), and with
+    ``FUSED_MIN_BYTES`` lowered to ``"fused"`` with that backend's bits (K4 and K6 five times
+    each)."""
+    import numpy as np
+    import torch
+
+    from blackbox_mpc_torch.ops import backend_select
+
+    smi = nvidia_smi()
+    obs = np.zeros(17, np.float32)
+    table = []
+    for hidden in SWEEP_HIDDEN:
+        handler = flagship_handler(device, hidden)
+        for population in SWEEP_POPULATIONS:
+            row = {"hidden": list(hidden), "population": population}
+            for backend in ("eager", "kernel"):
+                times = act_ms(flagship_policy(device, handler, backend, population), obs)
+                row[f"{backend}_ms"] = float(np.median(times))
+            row["kernel_speedup"] = row["eager_ms"] / row["kernel_ms"]
+            table.append(row)
+            print(json.dumps({"auto_sweep": row, "card": smi}), flush=True)
+    handler = flagship_handler(device)
+    memory = fused_threshold(device, handler)
+
+    def same_bits_as(explicit: str, label: str) -> dict:
+        auto = flagship_policy(device, handler, "auto")
+        if auto.rollout_backend != explicit:
+            raise AssertionError(f"{label}: auto resolved to {auto.rollout_backend!r}, "
+                                 f"expected {explicit!r}")
+        ref = flagship_policy(device, handler, explicit)
+        counters = zero_launches()
+        got = [auto.act(obs, t)[0] for t in range(STEPS)]
+        launches = read_launches(counters)
+        want = [ref.act(obs, t)[0] for t in range(STEPS)]
+        if not all(same_bits(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{label}: auto's actions differ from {explicit!r}'s")
+        expected = {name: STEPS * BACKEND_KERNELS[explicit].get(name, 0) for name in launches}
+        if launches != expected:
+            raise AssertionError(f"{label}: launches {launches}, expected {expected}")
+        return launches
+
+    kernel = same_bits_as("kernel", "auto at the flagship")
+    lowered, backend_select.FUSED_MIN_BYTES = backend_select.FUSED_MIN_BYTES, 1
+    try:
+        fused = same_bits_as("fused", "auto with FUSED_MIN_BYTES lowered to 1")
+    finally:
+        backend_select.FUSED_MIN_BYTES = lowered
+    res = {"auto_table": table, "memory": memory, "auto_kernel_launches": kernel,
+           "auto_fused_launches": fused, "card": smi}
+    print(json.dumps({"auto": "kernel and fused bits as explicit", "launches":
+                      {"kernel": kernel, "fused": fused}}), flush=True)
+    return res
+
+
+def count_waits(fn) -> tuple:
+    """``fn()`` under ``utils/profiling.py::trace``: (its result, the host's
+    ``cudaStreamSynchronize`` calls, the device operations)."""
+    import tempfile
+
+    from torch.autograd import DeviceType
+
+    from blackbox_mpc_torch.utils import profiling
+
+    with tempfile.TemporaryDirectory() as log_dir, profiling.trace(log_dir) as prof:
+        out = fn()
+    events = prof.events()
+    syncs = sum(1 for e in events if e.name == "cudaStreamSynchronize"
+                and e.device_type == DeviceType.CPU)
+    ops = sum(1 for e in events if e.device_type == DeviceType.CUDA)
+    return out, syncs, ops
+
+
+def device_episodes(device) -> dict:
+    """Part B: ``evaluate_solver_on_model`` for EPISODE_STEPS steps, the fused CEM over the
+    flagship model as the env, and the eager CEM over the analytic pendulum. Gates: at most one
+    ``cudaStreamSynchronize`` for the episode with its readback, finite rewards, K4 and K6
+    five times a step (none for the eager one). Printed: ms per step against a host loop of
+    ``act()`` on the same solver and model."""
+    import numpy as np
+    import torch
+
+    from blackbox_mpc_torch import DynamicsHandler
+    from blackbox_mpc_torch.core.spaces import BoxSpace
+    from blackbox_mpc_torch.core.types import Bounds
+    from blackbox_mpc_torch.models.analytic import pendulum_dynamics, pendulum_reward
+    from blackbox_mpc_torch.ops.fused_cem import make_fused_cem
+    from blackbox_mpc_torch.rollout.evaluator import make_trajectory_evaluator
+    from blackbox_mpc_torch.solvers import CEMConfig, make_cem
+    from blackbox_mpc_torch.workflows import evaluate_solver_on_model
+
+    smi = nvidia_smi()
+    handler = flagship_handler(device)
+    dp = handler.dynamics_params
+    config = CEMConfig(planning_horizon=HORIZON, population=ROWS, num_elite=50,
+                       max_iterations=ITERS)
+    true = DynamicsHandler(true_model=pendulum_dynamics, device=device)
+    drives = {
+        "fused CEM, flagship model": (
+            make_fused_cem(config, Bounds.of(-1.0, 1.0, dim=6), handler.config, dp, reward_fn),
+            lambda s, a: handler.mean_dynamics_fn(dp, s, a), reward_fn, np.zeros(17, np.float32),
+            {"fused_rollout": ITERS, "elite_moments": ITERS}, handler, BoxSpace.of(-1.0, 1.0,
+                                                                                   dim=6)),
+        "eager CEM, analytic pendulum": (
+            make_cem(CEMConfig(planning_horizon=25, population=512, num_elite=50,
+                               max_iterations=ITERS), Bounds.of(-2.0, 2.0, dim=1),
+                     make_trajectory_evaluator(pendulum_dynamics, pendulum_reward,
+                                               device=device)),
+            pendulum_dynamics, pendulum_reward, np.array([-1.0, 0.0, 0.0], np.float32), {},
+            true, BoxSpace.of(-2.0, 2.0, dim=1)),
+    }
+    res = {}
+    for label, (solver, dynamics, reward, obs0, per_step, model, space) in drives.items():
+        initial = torch.as_tensor(obs0[None], device=device)
+
+        def episode(seed):
+            generator = torch.Generator(device=device).manual_seed(seed)
+            rewards, final, _ = evaluate_solver_on_model(solver, dynamics, reward, initial,
+                                                         EPISODE_STEPS, generator)
+            return torch.cat([rewards.reshape(-1), final.reshape(-1)]).cpu().numpy()
+
+        episode(0)  # warm-up
+        counters = zero_launches()
+        t0 = time.perf_counter()
+        out = episode(1)
+        wall = time.perf_counter() - t0
+        launches = read_launches(counters)
+        (_, syncs, ops) = count_waits(lambda: episode(2))
+        if syncs > 1:
+            raise AssertionError(f"{label}: {syncs} cudaStreamSynchronize calls in one "
+                                 "device-resident episode, more than 1 (the readback)")
+        if not np.all(np.isfinite(out)):
+            raise AssertionError(f"{label}: the episode's rewards or final obs are not finite")
+        expected = {name: EPISODE_STEPS * per_step.get(name, 0) for name in launches}
+        if launches != expected:
+            raise AssertionError(f"{label}: launches {launches}, expected {expected}")
+        # The host loop: MPCPolicy.act with the same solver settings, the model as the env.
+        backend = "fused" if per_step else "eager"
+        solver_kw = ({"planning_horizon": HORIZON, "population": ROWS} if per_step else
+                     {"planning_horizon": 25, "population": 512})
+        from blackbox_mpc_torch import MPCPolicy
+
+        policy = MPCPolicy(space, reward, model, solver_name="CEM", rollout_backend=backend,
+                           num_elite=50, max_iterations=ITERS, seed=0, device=device,
+                           **solver_kw)
+        obs = obs0
+        policy.act(obs)
+        t0 = time.perf_counter()
+        for t in range(EPISODE_STEPS):
+            _, obs, _ = policy.act(obs, t)
+        host = time.perf_counter() - t0
+        res[label] = {"device_episode_ms_per_step": 1e3 * wall / EPISODE_STEPS,
+                      "host_loop_act_ms_per_step": 1e3 * host / EPISODE_STEPS,
+                      "stream_syncs": syncs, "device_ops": ops, "launches": launches,
+                      "episode_return": float(out[:EPISODE_STEPS].sum())}
+        print(json.dumps({"device_episode": label, **res[label], "card": smi}), flush=True)
+    return res
+
+
+def serving_on_cuda(device, workdir: str) -> dict:
+    """Part C: an eager CEM ``MPCPolicy`` at the flagship width, exported after one ``act()``
+    and loaded as a ``ServingPolicy`` on the card, continues bit for bit for three ``act()``s
+    (explore false, true, false) and a reset; swapped params act as a policy given the same
+    params does; ``export_dynamics`` at two batch sizes against ``mean_dynamics_fn``. Printed:
+    export and load seconds, and ``ServingPolicy.act`` beside ``MPCPolicy.act``."""
+    import numpy as np
+    import torch
+
+    from blackbox_mpc_torch.deploy import ServingPolicy, export_dynamics, export_policy_artifact
+    from blackbox_mpc_torch.models.dynamics import map_params
+
+    smi = nvidia_smi()
+    obs = np.zeros(17, np.float32)
+    path = f"{workdir}/flagship.bbmpc"
+
+    def make(handler):
+        return flagship_policy(device, handler, "eager", planning_horizon=EXPORT_HORIZON)
+
+    policy = make(flagship_handler(device))
+    policy.act(obs)  # mid-episode: the artifact resumes the state and the stream
+    t0 = time.perf_counter()
+    meta = export_policy_artifact(policy, path)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    srv = ServingPolicy.load(path)
+    load_s = time.perf_counter() - t0
+    served = ServingPolicy.load(path)  # a second copy for the params swap
+    for t, explore in ((1, False), (2, True), (3, False)):
+        a = policy.act(obs, t, exploration_noise=explore)
+        b = srv.act(obs, t, exploration_noise=explore)
+        if not all(same_bits(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"serving: act(explore={explore}) differs from MPCPolicy's")
+    policy.reset()
+    srv.reset()
+    if not same_bits(policy.act(obs)[0], srv.act(obs)[0]):
+        raise AssertionError("serving: the first act() after reset differs")
+    times = {"MPCPolicy": act_ms(policy, obs), "ServingPolicy": act_ms(srv, obs)}
+    # The params swap: a policy with the same history, given the new params.
+    twin = make(flagship_handler(device))
+    twin.act(obs)
+    new = twin.dynamics_handler.dynamics_params
+    new = new.replace(params=map_params(lambda v: v + 0.01, new.params))
+    twin.dynamics_handler.set_params(new)
+    served.update_dynamics_params(new)
+    if not same_bits(twin.act(obs, 1)[0], served.act(obs, 1)[0]):
+        raise AssertionError("serving: the swapped params act otherwise than MPCPolicy's")
+    handler = policy.dynamics_handler
+    program = export_dynamics(handler, f"{workdir}/dynamics.pt2").module()
+    dyn_err = 0.0
+    for b in (3, 257):
+        g = np.random.default_rng(b)
+        s = torch.as_tensor(g.normal(size=(b, 17)), dtype=torch.float32, device=device)
+        a = torch.as_tensor(g.uniform(-1, 1, (b, 6)), dtype=torch.float32, device=device)
+        with torch.no_grad():
+            want = handler.mean_dynamics_fn(handler.dynamics_params, s, a)
+            got = program(s, a)
+        dyn_err = max(dyn_err, float((got - want).abs().max() / want.abs().max().clamp(min=1)))
+    if dyn_err > 1e-6:
+        raise AssertionError(f"export_dynamics differs from mean_dynamics_fn by {dyn_err}")
+    import os
+
+    res = {"serving": "bit for bit", "horizon": EXPORT_HORIZON, "export_s": export_s,
+           "load_s": load_s, "artifact_bytes": os.path.getsize(path),
+           "act_ms": {k: float(np.median(v)) for k, v in times.items()},
+           "act_ms_all": times, "export_dynamics_rel_err": dyn_err, "draws": {
+               k: len(v) for k, v in meta["draws"].items()}, "card": smi}
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def cli(args, stdin: str | None = None, timeout: int = 600) -> tuple:
+    """``python -m blackbox_mpc_torch <args>`` from the repository root: (exit code, the JSON
+    lines of its standard output, its standard error)."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    out = subprocess.run([sys.executable, "-m", "blackbox_mpc_torch", *args], input=stdin,
+                         capture_output=True, text=True, timeout=timeout, cwd=root, env=env)
+    lines = [json.loads(ln) for ln in out.stdout.splitlines() if ln.startswith("{")]
+    return out.returncode, lines, out.stderr
+
+
+def cli_gate(name: str, rc: int, lines: list, stderr: str, keys=(), want_rc: int = 0):
+    if rc != want_rc:
+        raise AssertionError(f"cli {name}: exit code {rc}, expected {want_rc}: {stderr[-2000:]}")
+    missing = [k for k in keys if not lines or k not in lines[-1]]
+    if missing:
+        raise AssertionError(f"cli {name}: the JSON line lacks {missing}: {lines[-1:]}")
+
+
+def cli_on_card(device, workdir: str, trained, probabilistic) -> dict:
+    """Part D: the command line on the card, each command a subprocess checked for its exit
+    code and JSON keys: ``solvers``; ``solve`` on the pendulum and the cart-pole; ``export`` of
+    phase 6's trained checkpoint and ``inspect``; ``serve`` answering 5 requests, a reset and a
+    malformed line; ``calibrate`` on phase 7's probabilistic handler. ``learn`` needs gymnasium
+    and runs where it is installed."""
+    import importlib.util
+
+    res = {}
+    t0 = time.perf_counter()
+    rc, _, err = cli(["solvers"])
+    cli_gate("solvers", rc, [{}], err)
+    for env in ("pendulum", "cartpole"):
+        rc, lines, err = cli(["solve", "--env", env, "--steps", "20", "--population", "128",
+                              "--planning-horizon", "15"])
+        cli_gate(f"solve {env}", rc, lines, err,
+                 ("env", "solver", "episode_rewards", "act_latency"))
+        res[f"solve {env}"] = {"episode_rewards": lines[-1]["episode_rewards"],
+                               "act_p50_ms": 1e3 * lines[-1]["act_latency"]["p50_s"]}
+    ckpt, artifact = f"{workdir}/trained", f"{workdir}/trained.bbmpc"
+    trained.save(ckpt)
+    rc, lines, err = cli(["export", "--env", "pendulum", "--checkpoint-dir", ckpt, "-o",
+                          artifact, "--population", "256", "--planning-horizon", "15",
+                          "--iterations", "3"])
+    cli_gate("export", rc, lines, err, ("artifact", "solver_name", "dim_s", "dim_u",
+                                        "rng_impl", "platforms", "nr_devices"))
+    if lines[-1]["platforms"] != ["cuda"] or lines[-1]["rng_impl"] != "philox4x32-10":
+        raise AssertionError(f"cli export: {lines[-1]['platforms']}, {lines[-1]['rng_impl']}")
+    rc, lines, err = cli(["inspect", artifact])
+    cli_gate("inspect", rc, lines, err, ("solver_name", "tensors", "program_bytes"))
+    if "cuda/step.pt2" not in lines[-1]["program_bytes"]:
+        raise AssertionError(f"cli inspect: {lines[-1]['program_bytes']}")
+    requests = [json.dumps({"obs": [0.5, 0.1, 0.0], "t": t, "explore": t == 2})
+                for t in range(5)]
+    requests[3:3] = [json.dumps({"cmd": "reset"}), "not json"]
+    rc, lines, err = cli(["serve", artifact], "\n".join(requests + ['{"cmd": "close"}']) + "\n")
+    cli_gate("serve", rc, lines, err)
+    kinds = ["ready" if "ready" in ln else "action" if "action" in ln else "ok" if "ok" in ln
+             else "error" for ln in lines]
+    if kinds != ["ready", "action", "action", "action", "ok", "error", "action", "action"]:
+        raise AssertionError(f"cli serve: answered {kinds}")
+    for ln in lines:
+        if "action" in ln and not (len(ln["action"]) == 1 and -2.0 <= ln["action"][0] <= 2.0):
+            raise AssertionError(f"cli serve: action {ln['action']}")
+    prob = f"{workdir}/probabilistic"
+    probabilistic.save(prob)
+    rc, lines, err = cli(["calibrate", prob])
+    cli_gate("calibrate", rc, lines, err, ("variance_ratio", "coverage_1sigma",
+                                           "coverage_2sigma", "per_dim_variance_ratio",
+                                           "verdict"))
+    res["calibrate"] = {k: lines[-1][k] for k in ("variance_ratio", "verdict")}
+    if importlib.util.find_spec("gymnasium") is None:
+        res["learn"] = "skipped: gymnasium is not installed here (learn runs on the CPU tests)"
+    else:
+        rc, lines, err = cli(["learn", "--env", "Pendulum-v1", "--steps", "10",
+                              "--initial-rollouts", "1", "--refinements", "1", "--epochs", "1",
+                              "--hidden", "16", "--population", "128", "--planning-horizon",
+                              "5", "--iterations", "1"])
+        cli_gate("learn", rc, lines, err, ("env", "replay_size", "done"))
+        res["learn"] = "ran"
+    res["cli_s"] = time.perf_counter() - t0
+    print(json.dumps({"cli": res, "card": nvidia_smi()}), flush=True)
+    return res
+
+
+def phase9(device, workdir: str, trained, probabilistic) -> dict:
+    """Phase 9, Parts A-D; ``trained`` and ``probabilistic`` are the handlers Part D saves
+    and runs the command line on."""
+    return {"auto": auto_backend(device), "episodes": device_episodes(device),
+            "serving": serving_on_cuda(device, workdir),
+            "cli": cli_on_card(device, workdir, trained, probabilistic)}
+
+
 def main() -> int:
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -2134,7 +2614,7 @@ def main() -> int:
     mbrl = {backend: mbrl_loop(device, backend) for backend in ("kernel", "fused")}
     pets = {label: pets_act(device, label) for label in PETS_DRIVES}
     pets_rollout_card_vs_cpu(device)
-    pets_loop(device)
+    pets_trained = pets_loop(device)["handler"]
     first_order = first_order_drives(device)
     on_kernels = kernel_solver_drives(device)
     pipeline_runs(device)
@@ -2148,6 +2628,16 @@ def main() -> int:
     print(json.dumps({"act_ms_median": {
         "kernel": kernel_run["act_ms_median"], "fused": fused_run["act_ms_median"],
         **{label: run["act_ms_median"] for label, run in family.items()}}}), flush=True)
+    with tempfile.TemporaryDirectory() as workdir:
+        ninth = phase9(device, workdir, mbrl["fused"]["handler"], pets_trained)
+    # The launches of each kernel on each path that runs it: phase 5's drives and phase 9's.
+    paths = {"kernel CEM act()": kernel_run["launches"],
+             "fused CEM act()": fused_run["launches"],
+             "fused iCEM act()": family["fused iCEM"]["launches"],
+             "auto -> kernel act()": ninth["auto"]["auto_kernel_launches"],
+             "auto -> fused act()": ninth["auto"]["auto_fused_launches"],
+             "device episode, fused CEM": ninth["episodes"]["fused CEM, flagship model"][
+                 "launches"]}
 
     # The first case of each kernel is mean/f32 (K6: the 50-elite mask; draw_rows: the iCEM
     # shape), as the policy ran. K6's and draw_rows' ms is the device's, host_ms the host's.
@@ -2171,6 +2661,8 @@ def main() -> int:
         "bound_by": case["bound_by"],
         "library_ms": None,
         **({"host_ms": case["host_ms"]} if "host_ms" in case else {}),
+        "launches_by_path": {path: counts[name] for path, counts in paths.items()
+                             if counts.get(name)},
     } for name, source, replaces, run, case in entries]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -347,8 +347,11 @@ def test_policy_fused_constructor_errors():
         build(solver_name="bogus")
     with pytest.raises(ValueError, match="keep_elites"):
         build(keep_elites=60)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        MPCPolicy(space, t_reward, th, device="cpu", rollout_backend="auto")
+    # "auto" on the CPU is the eager policy (the kernels are CUDA); mesh= stays unported
+    assert MPCPolicy(space, t_reward, th, device="cpu",
+                     rollout_backend="auto").rollout_backend == "eager"
+    with pytest.raises(NotImplementedError, match="item 9"):
+        MPCPolicy(space, t_reward, th, device="cpu", mesh=object())
     # ts1 at 4 tiles of 256 rows for 5 members raises, as in the JAX package
     ts1 = DynamicsHandler(tdyn.LearnedDynamicsConfig(dim_s=S, dim_u=U, hidden=(8,),
                                                       ensemble_size=5, propagation="ts1"),

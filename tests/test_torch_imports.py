@@ -11,7 +11,9 @@ ROOT = Path(__file__).resolve().parents[1]
 _PROBE = r"""
 import importlib, importlib.util, pkgutil, sys
 import blackbox_mpc_torch
-names = [m.name for m in pkgutil.walk_packages(blackbox_mpc_torch.__path__, "blackbox_mpc_torch.")]
+# __main__ runs the command line when imported; it is imported alone below.
+names = [m.name for m in pkgutil.walk_packages(blackbox_mpc_torch.__path__, "blackbox_mpc_torch.")
+         if not m.name.endswith("__main__")]
 for name in names:
     importlib.import_module(name)
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
@@ -35,9 +37,12 @@ def test_port_imports_no_jax():
     assert int(out.stdout.strip().splitlines()[-1]) >= 51  # every module was walked
 
 
-# The modules of the solver registry's rest and the POPLIN half, each imported on its own.
+# The modules of the solver registry's rest and the POPLIN half, and the single-card entry
+# points, each imported on its own.
 NEW_MODULES = ["solvers.gradient", "solvers.cem_gd", "solvers.pso", "solvers.spsa",
-               "learning.proposer", "policies.pipeline"]
+               "learning.proposer", "policies.pipeline", "ops.backend_select",
+               "utils.profiling", "workflows.device_episode", "deploy", "deploy.export",
+               "deploy.serving", "cli"]
 
 _ALONE = r"""
 import importlib, sys
@@ -53,3 +58,20 @@ def test_new_module_imports_no_jax(module):
     out = subprocess.run([sys.executable, "-c", _ALONE, f"blackbox_mpc_torch.{module}"],
                          cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_main_module_runs_the_cli_without_jax():
+    """``python -m blackbox_mpc_torch`` imports no JAX: ``solvers`` prints the registry."""
+    probe = ("import runpy, sys\n"
+             "sys.argv = ['blackbox_mpc_torch', 'solvers']\n"
+             "try:\n"
+             "    runpy.run_module('blackbox_mpc_torch', run_name='__main__')\n"
+             "except SystemExit as e:\n"
+             "    assert e.code == 0, e.code\n"
+             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
+             "'blackbox_mpc_tpu')))\n"
+             "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "CEM:" in out.stdout

@@ -97,8 +97,11 @@ def test_constructor_errors(monkeypatch):
 
     with pytest.raises(ValueError, match="rollout_backend"):
         build(rollout_backend="xla")
+    assert build(rollout_backend="auto").rollout_backend == "eager"  # no CUDA: eager
     with pytest.raises(NotImplementedError, match="not ported"):
-        build(rollout_backend="auto")
+        build(mesh=object())
+    with pytest.raises(ValueError, match="no choice of generator algorithm"):
+        build(rng_impl="rbg")
     # "fused" and its alias build (their errors are in test_torch_fused_cem.py)
     for name in ("fused", "fused_cem"):
         assert build(rollout_backend=name, **SOLVER).solver_name == "CEM"
