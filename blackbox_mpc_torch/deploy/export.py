@@ -22,8 +22,16 @@ policy's does for either value.
 
 Scope, as in JAX: the ``"eager"`` backend. The CUDA kernels of ``"kernel"``/``"fused"`` are
 ``ctypes`` calls that ``torch.export`` cannot capture, as JAX's Mosaic custom calls are not
-portable StableHLO; those policies raise here. Sharded artifacts (JAX's format 2) are not
-ported (ROADMAP Queue 1 item 9).
+portable StableHLO; those policies raise here.
+
+A policy sharded over a mesh of D > 1 ranks exports with its collectives in the program (the
+functional collectives of ``parallel/mesh.py``, recorded with their process group's name), so
+the artifact is topology-pinned, JAX's format 2: ``meta["nr_devices"]`` is D and
+``meta["mesh_axes"]`` is ``{"pop": D}``, beside ``shard_axis``, the group's name and this
+rank. The block a rank rolls out depends on its rank, so every rank exports its own artifact
+(all ranks call :func:`export_policy_artifact` together: its eager step runs the
+collectives), and a world of D ranks serves them, each rank its own. A policy over a process
+group of one rank holds the collectives too, and is stamped format 2 as well.
 """
 from __future__ import annotations
 
@@ -160,7 +168,9 @@ def export_policy_artifact(
     """Exports ``policy`` (an ``MPCPolicy``) to a ``.bbmpc`` serving artifact at ``path``.
 
     The artifact holds the policy's current solver state and generator states, so a loaded
-    :class:`ServingPolicy` on the same device type continues bit for bit from here.
+    :class:`ServingPolicy` on the same device type continues bit for bit from here. A policy
+    sharded over D > 1 ranks writes this rank's program (format 2; see the module docstring):
+    every rank calls this together, each with a path of its own.
 
     ``dim_s``: the observation dimension; required for true-model handlers, inferred from
     the learned-dynamics config otherwise. ``platforms``: the device types to write a
@@ -189,6 +199,7 @@ def export_policy_artifact(
             raise ValueError("platforms includes 'cuda' but CUDA is not available here")
 
     home = policy.device
+    mesh = policy.mesh
     state = policy._solver_state
     params = handler.dynamics_params
     prop = None if policy.proposer is None else policy.proposer.params
@@ -282,10 +293,12 @@ def export_policy_artifact(
         "platforms": list(platforms),
         "torch_version": torch.__version__,
         "package_version": pkg_version,
-        "nr_devices": 1,
-        "mesh_axes": None,
+        "nr_devices": 1 if mesh is None else mesh.size,
+        "mesh_axes": None if mesh is None else dict(mesh.shape),
         "draws": specs,
     }
+    if mesh is not None and mesh.group is not None:  # the program holds collectives
+        meta.update(shard_axis=policy.shard_axis, process_group=mesh.group_name, rank=mesh.rank)
     key_states = [policy._generator.get_state(), policy._noise_generator.get_state()]
     write_artifact(path, meta, programs, leaves[0], leaves[1], leaves[2], key_states)
     return meta

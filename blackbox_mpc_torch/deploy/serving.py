@@ -10,7 +10,8 @@ or its solver code: the artifact carries the step as a ``torch.export`` program.
 Artifact layout (one zip file, conventional suffix ``.bbmpc``), the JAX package's with
 ``torch.export`` programs in place of ``*.jaxexport``::
 
-    meta.json            solver, shapes, the generator algorithm, the draws (format_version 1)
+    meta.json            solver, shapes, the generator algorithm, the draws (format_version 1,
+                         2 for a sharded artifact)
     <device>/step.pt2    the solve step for one device type ("cuda", "cpu"), torch.export.save
     <device>/reset.pt2   the per-episode solver-state reset for that device type (none for
                          a solver without state)
@@ -19,6 +20,12 @@ Artifact layout (one zip file, conventional suffix ``.bbmpc``), the JAX package'
     proposer/...         proposer-parameter leaves (none without a proposer)
     key/...              the exporting policy's generator states: the solver's, then the
                          rollout noise's (the stream's resume point)
+
+**Sharded artifacts** (format 2, JAX's topology pin): the program of one rank of a policy
+sharded over ``meta["nr_devices"]`` ranks, with its collectives inside, recorded by the name of
+their process group (``meta["process_group"]``). It is served by a ``torch.distributed`` world
+of that many ranks in which the group of that name exists (the default group is ``"0"``), each
+rank loading the artifact of its own rank; :meth:`ServingPolicy.load` refuses another world.
 
 Tensors are raw little-endian bytes plus a manifest of shapes and dtype names, the layout of
 the JAX package's ``pack_tensors`` (bfloat16 goes by its name), so a group packed by one
@@ -47,12 +54,15 @@ import numpy as np
 import torch
 
 __all__ = ["ServingPolicy", "pack_tensors", "unpack_tensors", "tree_leaves", "write_artifact",
-           "FORMAT_VERSION", "SUPPORTED_FORMAT_VERSIONS"]
+           "FORMAT_VERSION", "SHARDED_FORMAT_VERSION", "SUPPORTED_FORMAT_VERSIONS"]
 
-# Version 1: single-device artifacts, as in the JAX package. Its version 2 (topology-pinned
-# sharded artifacts) is not ported (ROADMAP Queue 1 item 9).
+# Version 1: single-device artifacts. Version 2: topology-pinned sharded ones, whose programs
+# hold collectives (every policy sharded over nr_devices > 1 ranks, and one over a 1-rank
+# process group), stamped apart so that a loader from before sharding refuses them at the
+# version gate, as in the JAX package. Single-device artifacts stay version 1.
 FORMAT_VERSION = 1
-SUPPORTED_FORMAT_VERSIONS = (1,)
+SHARDED_FORMAT_VERSION = 2
+SUPPORTED_FORMAT_VERSIONS = (1, 2)
 # The generator algorithm of each device type (what JAX's rng_impl names).
 RNG_IMPLS = {"cuda": "philox4x32-10", "cpu": "mt19937"}
 # The random functions a step may draw through, and the generators it draws from.
@@ -128,6 +138,22 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
+def _check_world(meta: dict) -> None:
+    """A sharded artifact needs a world of ``nr_devices`` ranks, this one its exporter's."""
+    if meta.get("process_group") is None:  # no collectives in the program
+        return
+    nr = int(meta["nr_devices"])
+    dist = torch.distributed
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    if world != nr:
+        raise ValueError(
+            f"artifact is topology-pinned to {nr} ranks (mesh_axes={meta.get('mesh_axes')}), "
+            f"but this runtime's torch.distributed world has {world}")
+    if dist.get_rank() != meta["rank"]:
+        raise ValueError(f"this artifact holds rank {meta['rank']}'s program; this process is "
+                         f"rank {dist.get_rank()}: load that rank's artifact")
+
+
 def _load_program(data: bytes):
     return torch.export.load(io.BytesIO(data)).module()
 
@@ -191,6 +217,7 @@ class ServingPolicy:
                     f"artifact format_version {meta.get('format_version')} not in "
                     f"supported {SUPPORTED_FORMAT_VERSIONS}"
                 )
+            _check_world(meta)
             kind = torch.device("cuda" if device is None else device).type
             if kind not in meta["platforms"]:
                 raise ValueError(f"the artifact has programs for {meta['platforms']}, not "
@@ -332,7 +359,9 @@ def write_artifact(path: str, meta: dict, programs: dict, state_leaves, params_l
     writer stay in one self-contained file."""
     buf = io.BytesIO()
     with zipfile.ZipFile(buf, "w", compression=zipfile.ZIP_DEFLATED) as zf:
-        zf.writestr("meta.json", json.dumps({**meta, "format_version": FORMAT_VERSION}))
+        version = (FORMAT_VERSION if meta.get("process_group") is None
+                   else SHARDED_FORMAT_VERSION)
+        zf.writestr("meta.json", json.dumps({**meta, "format_version": version}))
         for kind, (step_bytes, reset_bytes) in programs.items():
             zf.writestr(f"{kind}/step.pt2", step_bytes)
             if reset_bytes is not None:

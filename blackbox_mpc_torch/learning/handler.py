@@ -96,13 +96,18 @@ class DynamicsHandler:
 
         ``refit_normalizer=False`` fits the normalizer at the first ``train()`` only; ``True``
         fits it again at every call. ``save_dir`` checkpoints every ``save_frequency``
-        ``train()`` calls. ``mesh`` (data-parallel training) is not ported yet and raises.
+        ``train()`` calls. ``mesh`` (a :class:`~blackbox_mpc_torch.parallel.mesh.PopMesh`)
+        trains data-parallel over its ranks (``learning/trainer.py``) on the mesh's device
+        (``device`` may be None or that device): every rank holds the same replay, fits the
+        same normalizer and draws the same epoch order, and reads the global losses.
         """
         if (config is None) == (true_model is None):
             raise ValueError("provide exactly one of config= or true_model=")
         if mesh is not None:
-            raise NotImplementedError(
-                "DynamicsHandler(mesh=...) is not ported yet (ROADMAP Queue 1 item 9)")
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"device={device!r}, but this rank's device of the mesh is "
+                                 f"{mesh.device}")
+            device = mesh.device
         self._device = resolve_device(device)
         self._writer = metrics_writer
         self._save_dir = save_dir
@@ -139,7 +144,7 @@ class DynamicsHandler:
             max_size=replay_max_size, seed=seed,
         )
         self._trainer_init, self._train_step, self._eval_step = make_trainer(
-            config, learning_rate=learning_rate)
+            config, learning_rate=learning_rate, mesh=mesh)
         self._train_state = self._trainer_init(self._params.params)
 
     # ------------------------------------------------------------------ properties

@@ -13,6 +13,11 @@ shared ``[S]`` bounds get every member's gradient. The optimizer is
 with ``eps_root=0``, elementwise.
 
 A step's losses stay on the device: the caller decides when to read them.
+
+Data-parallel training (``mesh``, JAX's minibatch sharding): each rank computes the loss on its
+block of the minibatch axis B of ``[E, B, .]``, weighted by its share of the global B, and the
+band regularizer divided by D; the gradients and the losses are then summed over the ranks in
+one flat buffer, and every rank takes the same Adam step, so the weights stay replicated.
 """
 from __future__ import annotations
 
@@ -32,6 +37,8 @@ from blackbox_mpc_torch.models.dynamics import (
 )
 from blackbox_mpc_torch.models.mlp import ensemble_forward
 from blackbox_mpc_torch.models.normalizer import NormalizerStats
+from blackbox_mpc_torch.parallel.mesh import all_reduce_sum
+from blackbox_mpc_torch.parallel.sharding import shard_population
 
 __all__ = ["TrainState", "flat_params", "make_trainer"]
 
@@ -71,12 +78,11 @@ def make_trainer(config: LearnedDynamicsConfig, learning_rate: float = 1e-3, mes
       ``[E, B, .]`` on the parameters' device; ``ts`` is updated in place and returned;
     * ``eval_step(params, stats, s, a, ns) -> member_losses [E]``, without autograd.
 
-    ``mesh`` is not ported yet and raises.
+    ``mesh`` (a :class:`~blackbox_mpc_torch.parallel.mesh.PopMesh`): ``train_step`` is
+    data-parallel over it, every rank passing the same whole minibatch; the losses it returns
+    are the global ones. ``eval_step`` is not sharded.
     """
     check_config(config)
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel training over a mesh is not ported yet (ROADMAP Queue 1 item 9)")
     mlp_cfg = config.mlp
     dim_s = config.dim_s
     transform = (transforms.delta_transform if config.predict_delta
@@ -112,11 +118,35 @@ def make_trainer(config: LearnedDynamicsConfig, learning_rate: float = 1e-3, mes
     def train_step(ts: TrainState, stats: NormalizerStats, s, a, ns
                    ) -> Tuple[TrainState, torch.Tensor]:
         ts.optimizer.zero_grad(set_to_none=True)
-        member_losses = losses(ts.params, stats, s, a, ns)
-        (member_losses.sum() + bound_regularizer(ts.params)).backward()
+        if mesh is None:
+            member_losses = losses(ts.params, stats, s, a, ns)
+            (member_losses.sum() + bound_regularizer(ts.params)).backward()
+        else:
+            member_losses = sharded_backward(ts.params, stats, s, a, ns)
         ts.optimizer.step()
         ts.step += 1
         return ts, member_losses.detach()
+
+    def sharded_backward(params, stats, s, a, ns) -> torch.Tensor:
+        """This rank's share of the loss, backward, then one sum all-reduce of the gradients
+        and the member losses; the global gradients are left in ``.grad``."""
+        batch = s.shape[1]
+        block = [shard_population(mesh, x, axis=1) for x in (s, a, ns)]
+        share = block[0].shape[1] / batch
+        tensors = flat_params(params)
+        member_losses = torch.zeros(config.ensemble_size, device=s.device)
+        if share:
+            member_losses = losses(params, stats, *block) * share
+        total = member_losses.sum() + bound_regularizer(params) / mesh.size
+        if total.requires_grad:
+            total.backward()
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in tensors]
+        flat = all_reduce_sum(mesh, torch.cat([g.reshape(-1) for g in grads]
+                                              + [member_losses.detach()]))
+        for p, g in zip(tensors, torch.split(flat[:-config.ensemble_size],
+                                             [g.numel() for g in grads])):
+            p.grad = g.view_as(p).clone()
+        return flat[-config.ensemble_size:]
 
     @torch.no_grad()
     def eval_step(params, stats: NormalizerStats, s, a, ns) -> torch.Tensor:

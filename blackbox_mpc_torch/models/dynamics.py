@@ -22,6 +22,8 @@ the bounds shared by every member; otherwise they are the layer list itself.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import functools
 from collections.abc import Mapping
@@ -36,9 +38,9 @@ from blackbox_mpc_torch.models.mlp import MLPConfig, ensemble_apply, ensemble_in
 from blackbox_mpc_torch.models.normalizer import NormalizerStats, identity_stats
 
 __all__ = [
-    "DynamicsParams", "LearnedDynamicsConfig", "bound_logvar", "logvar_bounds",
-    "make_learned_dynamics", "make_penalized_dynamics", "map_params", "member_permutation",
-    "net_layers", "true_model_dynamics", "ts_member_ids",
+    "DynamicsParams", "LearnedDynamicsConfig", "RowBlock", "bound_logvar", "global_rows",
+    "logvar_bounds", "make_learned_dynamics", "make_penalized_dynamics", "map_params",
+    "member_permutation", "net_layers", "true_model_dynamics", "ts_member_ids",
 ]
 
 # Soft logvar bounds of the probabilistic head (PETS): keep the NLL well-conditioned.
@@ -69,6 +71,58 @@ def member_permutation(n: int, ensemble: int, device: torch.device):
     perm = np.argsort(ts_member_ids(n, ensemble), kind="stable")
     return (torch.as_tensor(perm, device=device),
             torch.as_tensor(np.argsort(perm), device=device))
+
+
+class RowBlock:
+    """The rows ``row_ids`` ([B] ints, numpy) of a batch of ``total`` rows: the block that one
+    rank rolls out (``parallel/sharding.py``). Under :func:`global_rows`, ts1/ts_inf give the
+    batch's row ``i`` the member of row ``row_ids[i]`` of the whole batch, as JAX's partitioner
+    keeps the whole batch's assignment."""
+
+    def __init__(self, total: int, row_ids: np.ndarray):
+        self.total = total
+        self.row_ids = np.asarray(row_ids, dtype=np.int64)
+        self._partitions = {}
+
+    def partition(self, ensemble: int, device: torch.device):
+        """``(perm, inv, width)`` on ``device``, made once per ``(E, device)``: ``perm``
+        ([E * width]) lays the block's rows out member-major, each member's group padded to
+        the largest (``width``) with row 0, and ``inv`` ([B]) takes each row's output back.
+        The block's members need not be balanced: the padding is all the extra work."""
+        key = (ensemble, device)
+        if key not in self._partitions:
+            total = self.total + (-self.total) % ensemble
+            members = ts_member_ids(total, ensemble)[self.row_ids]
+            counts = np.bincount(members, minlength=ensemble)
+            width = max(int(counts.max(initial=0)), 1)
+            order = np.argsort(members, kind="stable")
+            starts = np.cumsum(counts) - counts
+            perm = np.zeros((ensemble, width), dtype=np.int64)
+            inv = np.empty(len(members), dtype=np.int64)
+            for e in range(ensemble):
+                rows = order[starts[e]:starts[e] + counts[e]]
+                perm[e, :counts[e]] = rows
+                inv[rows] = e * width + np.arange(counts[e])
+            self._partitions[key] = (torch.as_tensor(perm.reshape(-1), device=device),
+                                     torch.as_tensor(inv, device=device), width)
+        return self._partitions[key]
+
+
+# The RowBlock of the batch being rolled out, set by global_rows. A context, because the
+# evaluator's dynamics contract is (state, action[, noise]): the block reaches the model
+# without every dynamics function taking one more argument.
+_ROW_BLOCK = contextvars.ContextVar("global_rows", default=None)
+
+
+@contextlib.contextmanager
+def global_rows(block: RowBlock):
+    """Within the block, ts1/ts_inf assign members by the rows of the whole batch
+    (:class:`RowBlock`)."""
+    token = _ROW_BLOCK.set(block)
+    try:
+        yield
+    finally:
+        _ROW_BLOCK.reset(token)
 
 
 def net_layers(params) -> list:
@@ -254,8 +308,18 @@ def make_learned_dynamics(
         return mu + torch.sqrt(var) * noise
 
     def _member_partitioned(layers, x: torch.Tensor) -> torch.Tensor:
-        """Row i of x through member ts_member_ids(B, E)[i] (see the JAX counterpart)."""
+        """Row i of x through member ts_member_ids(B, E)[i] (see the JAX counterpart); inside
+        :func:`global_rows`, through the member of its row of the whole batch."""
         batch = x.shape[0]
+        block = _ROW_BLOCK.get()
+        if block is not None:
+            if len(block.row_ids) != batch:
+                raise ValueError(f"global_rows names {len(block.row_ids)} rows, the batch has "
+                                 f"{batch}")
+            perm, inv, width = block.partition(ensemble, x.device)
+            raw_groups = ensemble_apply(layers, x[perm].reshape(ensemble, width, -1),
+                                        config=mlp_cfg)
+            return raw_groups.reshape(ensemble * width, -1)[inv]
         pad = (-batch) % ensemble
         if pad:
             x = torch.cat([x, x[-1:].expand(pad, -1)], dim=0)

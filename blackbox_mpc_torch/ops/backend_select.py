@@ -24,6 +24,14 @@ Everything else is ``"eager"``: a device other than ``cuda`` (the kernels are CU
 policy asked for ``auto`` is an eager policy), true models, probabilistic heads, propagation
 other than mean/ts1 with an ensemble, an activation or dtype the kernels refuse, the
 first-order solvers (the kernels have no backward) and the time-major layout.
+
+With a ``mesh`` of D devices: never ``"kernel"`` (K2 is single-device, as JAX's ``pallas``).
+The capacity threshold applies to the whole candidate tensor, where JAX divides it by D: JAX
+shards the candidates, but every rank of this port's sharded eager solve draws and holds all
+of them (``parallel/sharding.py``) and rolls out only its block, so its peak is no smaller
+than the single-device eager peak at the same population less the other blocks' rollout.
+Past the threshold, a population that D does not divide and the injected-candidate features,
+which the sharded fused solvers refuse, stay eager with a warning, as ``time_major`` does.
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ from typing import Optional
 import torch
 
 from blackbox_mpc_torch.ops._kernel_common import check_kernel_support
+from blackbox_mpc_torch.parallel.mesh import POP_AXIS
 
 __all__ = ["choose_backend", "FUSED_FAMILY", "FUSED_MIN_BYTES", "KERNEL_MAX_ROWS",
            "KERNEL_MAX_WIDTH"]
@@ -80,10 +89,9 @@ def choose_backend(
     one the port runs.
 
     ``platform`` is the policy's device type (``"cuda"``, ``"cpu"``); None means ``cuda``
-    where CUDA is available. ``mesh`` is not ported (ROADMAP Queue 1 item 9) and raises.
+    where CUDA is available. ``mesh``: anything with ``shape["pop"]`` (a
+    :class:`~blackbox_mpc_torch.parallel.mesh.PopMesh`).
     """
-    if mesh is not None:
-        raise NotImplementedError("mesh= is not ported yet (ROADMAP Queue 1 item 9)")
     if platform is None:
         platform = _platform()
     if platform != "cuda" or config is None:
@@ -95,8 +103,11 @@ def choose_backend(
     if solver_name in _FIRST_ORDER:
         return "eager"
     time_major = bool(getattr(solver_config, "time_major", False))
+    devices = 1 if mesh is None else int(mesh.shape[POP_AXIS])
     rows = population * num_agents
+    local_rows = -(-rows // devices)  # each rank's block of a sharded fused solve
     ts1 = config.propagation == "ts1" and config.ensemble_size > 1
+    # The whole tensor: the eager path holds it on every rank of a mesh.
     candidate_bytes = rows * horizon * dim_u * 4
     rng_cols = (((horizon // 2 + 1) * 2) * dim_u
                 if getattr(solver_config, "colored_noise_beta", 0.0) > 0.0
@@ -106,24 +117,35 @@ def choose_backend(
     if (
         fused_family
         and candidate_bytes >= FUSED_MIN_BYTES
-        and rows * rng_cols < 2**32  # the in-kernel RNG counter range
+        and local_rows * rng_cols < 2**32  # the in-kernel RNG counter range
         # ts1 gives every member at least one logical tile
-        and not (ts1 and -(-rows // _FUSED_TILE) < config.ensemble_size)
+        and not (ts1 and -(-local_rows // _FUSED_TILE) < config.ensemble_size)
     ):
+        # What keeps such a population on the eager path, which will likely run out of
+        # memory: honour it, but warn, as JAX does for the time-major layout.
         if time_major:
-            # The time-major layout is an eager feature, and this population is beyond the
-            # capacity threshold: honour the layout (eager) but warn, as JAX does.
-            warnings.warn(
-                f"time_major=True forces the eager evaluator, but the candidate tensor "
-                f"({candidate_bytes / 2**30:.1f} GiB) is beyond the fused backend's "
-                f"threshold; the eager solve will likely run out of memory. Drop time_major "
-                f"(the fused backend never materializes candidates) or shrink the population.",
-                RuntimeWarning, stacklevel=2,
-            )
-            return "eager"
-        return "fused"
+            why, cure = ("time_major=True forces the eager evaluator",
+                         "Drop time_major (the fused backend never materializes candidates)")
+        elif population % devices:
+            why, cure = (f"the sharded fused solvers need a population ({population}) that "
+                         f"the mesh's {devices} devices divide",
+                         f"Round the population to a multiple of {devices}")
+        elif mesh is not None and any(getattr(solver_config, name, False) for name in
+                                      ("keep_elites", "mean_as_candidate", "execute_best")):
+            why, cure = ("the sharded fused solvers refuse keep_elites/mean_as_candidate/"
+                         "execute_best", "Drop them")
+        else:
+            return "fused"
+        warnings.warn(
+            f"{why}, but the candidate tensor ({candidate_bytes / 2**30:.1f} GiB) is beyond "
+            f"the fused backend's threshold; the eager solve will likely run out of memory. "
+            f"{cure} or shrink the population.",
+            RuntimeWarning, stacklevel=2,
+        )
+        return "eager"
     if (
-        not time_major  # the kernel's candidate contract is [P, A, H, U]
+        mesh is None  # K2 is single-device
+        and not time_major  # the kernel's candidate contract is [P, A, H, U]
         and KERNEL_MAX_WIDTH
         and max(config.hidden, default=0) <= KERNEL_MAX_WIDTH
         and rows <= KERNEL_MAX_ROWS

@@ -799,6 +799,8 @@ def make_fused_cem(
     *,
     tile: int = 256,
     streamed: bool = False,
+    _kernels: Callable[[int], tuple] | None = None,
+    _round_to: int = 1,
 ) -> Solver:
     """CEM over the fused kernels, with the update rules and state of ``solvers/cem.py``.
 
@@ -815,6 +817,11 @@ def make_fused_cem(
     mean first, then the carried elites), whose values :func:`draw_rows` draws again from the
     elite indices; ``population_decay`` builds one kernel pair per distinct population;
     ``execute_best`` acts with the best candidate seen over all iterations.
+
+    ``_kernels(population)`` builds the ``(rollout_rewards, elite_moments)`` pair over that
+    global population in place of :func:`make_fused_cem_kernels`, and each decayed population
+    is rounded up to a multiple of ``_round_to``: the hooks the sharded solver reuses this
+    update through (``ops/fused_sharded.py``).
     """
     check_config(config)
     check_candidate_layout(config)
@@ -829,6 +836,8 @@ def make_fused_cem(
     extra_slots = keep + (1 if config.mean_as_candidate else 0)
 
     def build_kernels(pop_i: int):
+        if _kernels is not None:
+            return _kernels(pop_i)
         return make_fused_cem_kernels(
             dyn_config, reward_fn, horizon=horizon, agents=agents, population=pop_i, tile=tile,
             streamed=streamed, colored_noise_beta=config.colored_noise_beta,
@@ -836,7 +845,8 @@ def make_fused_cem(
         )
 
     # Population decay: one kernel pair per distinct per-iteration population.
-    pops = iteration_populations(config) or [pop] * config.max_iterations
+    pops = [-(-p // _round_to) * _round_to
+            for p in iteration_populations(config) or [pop] * config.max_iterations]
     kernels_by_pop = {pop: build_kernels(pop)}
     for pop_i in set(pops) - {pop}:
         kernels_by_pop[pop_i] = build_kernels(pop_i)
@@ -951,6 +961,7 @@ def make_fused_pi2(
     reward_fn: Callable,
     *,
     tile: int = 256,
+    _kernels=None,
 ) -> Solver:
     """PI2/MPPI over the fused kernels, with the update of ``solvers/pi2.py``.
 
@@ -959,12 +970,14 @@ def make_fused_pi2(
     and ``sum w (x - mean)^2`` without the candidates. MPPI's control cost is K4's dot output
     ``<mean / variance, centered>``. As in the eager solver the candidates are clipped to the
     bounds inside the kernels and the squared violation is subtracted from each row's reward.
-    What differs: z is clipped at +/-2, not resampled.
+    What differs: z is clipped at +/-2, not resampled. ``_kernels`` injects
+    ``(rollout_rewards, weighted_moments)`` over the global population, as in
+    :func:`make_fused_sep_cma`.
     """
     check_candidate_layout(config)
     horizon, agents, pop = config.planning_horizon, config.num_agents, config.population
     lamda = config.lamda
-    rollout_rewards, weighted_moments = make_fused_cem_kernels(
+    rollout_rewards, weighted_moments = _kernels or make_fused_cem_kernels(
         dyn_config, reward_fn, horizon=horizon, agents=agents, population=pop, tile=tile,
         colored_noise_beta=config.colored_noise_beta, aux_dot=config.control_cost,
         clip_bounds=(bounds.lower, bounds.upper),
@@ -1019,17 +1032,30 @@ def make_fused_random_search(
     reward_fn: Callable,
     *,
     tile: int = 256,
+    _kernels=None,
+    _name: str = "RandomSearch-Fused",
 ) -> Solver:
     """RandomSearch over the fused kernels: K4 draws uniform-in-bounds candidates
     (``sampling="uniform"`` around the midpoint with the half range as std) and only the
-    rewards ``[P, A]`` come back; :func:`draw_rows` draws the per-agent argmax row again."""
+    rewards ``[P, A]`` come back; :func:`draw_rows` draws the per-agent argmax row again.
+
+    ``_kernels`` injects ``(rollout_rewards, draw_winners)`` over the global population, with
+    ``draw_winners(seed, best_idx [A], agent_ids [A]) -> z [A, H*U]`` drawing each agent's
+    winning row again: the hook a sharded solver reuses this solve through."""
     check_candidate_layout(config)
     horizon, agents, pop = config.planning_horizon, config.num_agents, config.population
     n_flat = horizon * bounds.dim
-    rollout_rewards, _ = make_fused_cem_kernels(
-        dyn_config, reward_fn, horizon=horizon, agents=agents, population=pop, tile=tile,
-        sampling="uniform",
-    )
+    if _kernels is not None:
+        rollout_rewards, draw_winners = _kernels
+    else:
+        rollout_rewards, _ = make_fused_cem_kernels(
+            dyn_config, reward_fn, horizon=horizon, agents=agents, population=pop, tile=tile,
+            sampling="uniform",
+        )
+
+        def draw_winners(seed, best_idx, agent_ids):
+            return draw_rows(seed, best_idx * agents + agent_ids, n_flat, sampling="uniform")
+
     current = _current(dp)
 
     def box(device):
@@ -1050,7 +1076,7 @@ def make_fused_random_search(
         rewards = _nan_guard(rollout_rewards(current(), obs, mid, half, seed))  # [P, A]
         best_idx = torch.argmax(rewards, dim=0)  # [A]
         agent_ids = torch.arange(agents, device=obs.device)
-        z = draw_rows(seed, best_idx * agents + agent_ids, n_flat, sampling="uniform")
+        z = draw_winners(seed, best_idx, agent_ids)
         best_plan = (mid.reshape(agents, n_flat) + half.reshape(agents, n_flat) * z).reshape(
             agents, horizon, bounds.dim)
         aux = SolverAux(expected_reward=rewards[best_idx, agent_ids], plan=best_plan)
@@ -1061,7 +1087,7 @@ def make_fused_random_search(
         return state
 
     return base.with_state_dtype(
-        Solver(init=init, solve=solve, reset=reset, name="RandomSearch-Fused"), config.dtype)
+        Solver(init=init, solve=solve, reset=reset, name=_name), config.dtype)
 
 
 def make_fused_sep_cma(

@@ -27,11 +27,19 @@ Rollout backends:
   ``cuda``.
 
 The first-order solvers (Gradient, CEM-GD) run on ``"eager"`` only, as in JAX: the CUDA
-rollout kernel has no backward. ``mesh`` (sharding) is not ported yet. ``rng_impl`` has one
-value, None: a ``torch.Generator`` has one algorithm per device (Philox4x32-10 on CUDA,
-MT19937 on the CPU), which the policy records for the serving artifact.
+rollout kernel has no backward. ``rng_impl`` has one value, None: a ``torch.Generator`` has
+one algorithm per device (Philox4x32-10 on CUDA, MT19937 on the CPU), which the policy records
+for the serving artifact.
 ``metrics_writer`` gets ``rewards/predicted_reward`` once per ``act()``, from the host values
 ``act()`` returns.
+
+``mesh`` (a :class:`~blackbox_mpc_torch.parallel.mesh.PopMesh`) shards the solve over its
+ranks: ``"eager"`` through the sharded evaluator (``shard_axis="population"`` splits the
+candidates, ``"agents"`` gives each rank whole agents), ``"fused"`` through the sharded fused
+solvers (population only), never ``"kernel"``. The policy runs on the mesh's device. Every rank
+builds the same policy with the same seed and acts on the same observations: the draws, the
+actions and the solver state are then the same on every rank, and every rank runs the same
+collectives in the same order.
 
 ``proposer`` (a :class:`~blackbox_mpc_torch.learning.proposer.PolicyProposer`): before every
 solve its policy net is unrolled through the posterior-mean dynamics and the plan replaces the
@@ -60,6 +68,7 @@ from blackbox_mpc_torch.core.types import Bounds
 # its rng_impl gate hold only while the two agree.
 from blackbox_mpc_torch.deploy.serving import NOISE_SEED_OFFSET, RNG_IMPLS
 from blackbox_mpc_torch.learning.handler import DynamicsHandler
+from blackbox_mpc_torch.parallel.sharding import SHARD_AXES, make_sharded_evaluator
 from blackbox_mpc_torch.policies.base import ModelBasedPolicy
 from blackbox_mpc_torch.rollout.evaluator import make_trajectory_evaluator
 from blackbox_mpc_torch.solvers import lookup
@@ -70,7 +79,8 @@ logger = logging.getLogger(__name__)
 __all__ = ["MPCPolicy", "ROLLOUT_BACKENDS"]
 
 ROLLOUT_BACKENDS = ("eager", "kernel", "fused", "auto")
-# The fused solver family, by registry name: the factory of ops/fused_cem.py behind each.
+# The fused solver family, by registry name: the factory of ops/fused_cem.py behind each, and
+# of ops/fused_sharded.py with a mesh ("make_sharded_" in place of "make_").
 _FUSED_FAMILY = {
     "CEM": "make_fused_cem",
     "PI2": "make_fused_pi2",
@@ -104,6 +114,7 @@ class MPCPolicy(ModelBasedPolicy):
         metrics_writer=None,
         device=None,
         mesh=None,
+        shard_axis: str = "population",
         rng_impl: str | None = None,
         **solver_kwargs,
     ):
@@ -115,15 +126,23 @@ class MPCPolicy(ModelBasedPolicy):
         host generator of its own (the episode seeds of ``policies/pipeline.py``).
         ``proposer`` needs a plan-carrying solver (CEM, CEM-GD, CMA-ES, Gradient, PI2, MPPI,
         SPSA) on the policy's device. ``rng_impl`` must be None (see the module docstring).
+        ``mesh`` and ``shard_axis``: see the module docstring; ``device`` may then be None or
+        the mesh's device.
         """
-        if mesh is not None:
-            raise NotImplementedError("MPCPolicy(mesh=...) is not ported yet (ROADMAP Queue 1 "
-                                      "item 9)")
         if rng_impl is not None:
             raise ValueError(
                 f"rng_impl={rng_impl!r}: torch offers no choice of generator algorithm (a "
                 "torch.Generator runs Philox4x32-10 on CUDA and MT19937 on the CPU); pass "
                 "rng_impl=None")
+        if shard_axis not in SHARD_AXES:
+            raise ValueError(f"shard_axis must be one of {SHARD_AXES}, got {shard_axis!r}")
+        if mesh is not None:
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"device={device!r}, but this rank's device of the mesh is "
+                                 f"{mesh.device}")
+            device = mesh.device
+        self._mesh = mesh
+        self._shard_axis = shard_axis
         self._device = resolve_device(device)
         self._rng_impl = RNG_IMPLS.get(self._device.type, self._device.type)
         if dynamics_handler.device != self._device:
@@ -163,6 +182,15 @@ class MPCPolicy(ModelBasedPolicy):
                 f"{dyn_cfg.propagation!r} (the fused kernels are deterministic); use the "
                 "'eager' backend"
             )
+        if rollout_backend == "kernel" and mesh is not None:
+            raise ValueError(
+                "rollout_backend='kernel' and mesh= are mutually exclusive (the rollout kernel "
+                "is single-device; shard with the 'eager' backend, or use rollout_backend="
+                "'fused', whose solver family shards over the mesh)")
+        if rollout_backend == "fused" and mesh is not None and shard_axis != "population":
+            raise ValueError(
+                "the sharded fused solvers shard the population axis by construction; "
+                "shard_axis='agents' is an 'eager'-backend layout")
         # "auto" resolves per solver config in _build (it needs the population).
         self._requested_backend = rollout_backend
         self._rollout_backend = rollout_backend
@@ -212,7 +240,7 @@ class MPCPolicy(ModelBasedPolicy):
             resolved = choose_backend(
                 None if handler.is_true_model else handler.config,
                 getattr(config, "population", 0), self._num_agents,
-                platform=self._device.type, horizon=self._planning_horizon,
+                mesh=self._mesh, platform=self._device.type, horizon=self._planning_horizon,
                 dim_u=self._bounds.dim, solver_name=solver_name, solver_config=config,
             )
         logger.info("rollout_backend auto -> %s", resolved)
@@ -233,6 +261,15 @@ class MPCPolicy(ModelBasedPolicy):
                     "rollout_backend='auto' selected the fused solver (a candidate tensor "
                     "beyond the capacity threshold) but the fused kernels sum undiscounted "
                     "rewards; pick a smaller population or set discount=1.0")
+            if self._mesh is not None and self._shard_axis != "population":
+                # The fused path was picked because the candidate tensor is beyond the
+                # capacity threshold; every rank of the sharded evaluator would hold it.
+                raise ValueError(
+                    "rollout_backend='auto' selected the fused solver (a candidate tensor "
+                    f"beyond the capacity threshold) but shard_axis="
+                    f"{self._shard_axis!r} shards the agents, which the fused solvers do not; "
+                    "use shard_axis='population', a smaller population, or "
+                    "rollout_backend='eager' to accept the materialized candidates")
         return resolved
 
     def _build(self, solver_name: str, strict_kwargs: bool = False) -> None:
@@ -292,14 +329,19 @@ class MPCPolicy(ModelBasedPolicy):
                 f"{backend!r} backend's candidate contract is [P, A, H, U]"
             )
         if backend == "fused":
-            from blackbox_mpc_torch.ops import fused_cem
+            from blackbox_mpc_torch.ops import fused_cem, fused_sharded
 
             # Each factory stores its state in config.dtype (base.with_state_dtype) and reads
             # the handler's current parameters at every solve.
             handler = self._handler
-            fused_factory = getattr(fused_cem, _FUSED_FAMILY[solver_name])
-            solver = fused_factory(config, self._bounds, handler.config,
-                                   lambda: handler.dynamics_params, self._reward_fn)
+            name = _FUSED_FAMILY[solver_name]
+            args = (config, self._bounds, handler.config, lambda: handler.dynamics_params,
+                    self._reward_fn)
+            if self._mesh is None:
+                solver = getattr(fused_cem, name)(*args)
+            else:
+                solver = getattr(fused_sharded, name.replace("make_", "make_sharded_"))(
+                    *args, self._mesh)
         else:
             solver = factory(config, self._bounds, self._make_evaluate(time_major, backend))
         self._rollout_backend = backend
@@ -342,12 +384,16 @@ class MPCPolicy(ModelBasedPolicy):
         dynamics_fn = (handler.penalized_dynamics_fn if self._penalized
                        else handler.dynamics_fn)
         num_particles = handler.config.num_particles if self._stochastic else 1
-        evaluate = make_trajectory_evaluator(
-            lambda s, a, noise=None: dynamics_fn(params(), s, a, noise),
-            reward_fn, discount=self._discount, num_particles=num_particles,
-            action_smoothness_weight=self._smoothness, dynamics_returns_penalty=self._penalized,
-            time_major=time_major, remat=self._remat, device=device,
-        )
+        options = dict(discount=self._discount, num_particles=num_particles,
+                       action_smoothness_weight=self._smoothness,
+                       dynamics_returns_penalty=self._penalized, time_major=time_major,
+                       remat=self._remat)
+        step = lambda s, a, noise=None: dynamics_fn(params(), s, a, noise)  # noqa: E731
+        if self._mesh is None:
+            evaluate = make_trajectory_evaluator(step, reward_fn, device=device, **options)
+        else:
+            evaluate = make_sharded_evaluator(step, reward_fn, self._mesh,
+                                              shard_axis=self._shard_axis, **options)
         if not self._stochastic:
             return evaluate
         dim_s = handler.config.dim_s
@@ -427,6 +473,14 @@ class MPCPolicy(ModelBasedPolicy):
     @property
     def device(self) -> torch.device:
         return self._device
+
+    @property
+    def mesh(self):
+        return self._mesh
+
+    @property
+    def shard_axis(self) -> str:
+        return self._shard_axis
 
     @property
     def proposer(self):

@@ -117,6 +117,27 @@ It imports nothing of JAX and nothing of the JAX package. Phases, each fatal on 
    trained checkpoint and ``inspect``, ``serve`` (5 requests, a reset, a malformed line),
    ``calibrate`` on phase 7's probabilistic handler; ``learn`` needs gymnasium and runs only
    where it is installed.
+10. The parallel layer (``parallel/``, ``ops/fused_sharded.py``) at the flagship: fused CEM,
+   iCEM with colored noise and ``population_decay``, PI2, MPPI, RandomSearch, sep-CMA-ES and
+   eager CEM with ``mesh=``. Part A, a 1-rank NCCL world on the card: each drive's ``act()``s
+   bit for bit with the unsharded policy's, its kernel launches (K4 and K6 once per
+   iteration, ``draw_rows`` once per RandomSearch ``act()``), at most 2 waits in a traced
+   sharded fused CEM ``act()``, and a data-parallel ``train()`` on phase 6's replay bit for bit
+   with the unsharded one; the ``act()`` medians of both. Part B, two ranks sharing the card
+   over gloo (spawned; NCCL refuses two ranks on one card): every drive, both ranks' ``act()``s
+   bit for bit with each other and their launches; each rank's K4 rewards and K6 moments at
+   its own seed against their plain versions (phase 3's tolerances), and the 2-rank card
+   result (gathered rewards, reduced moments) against the same ranks on CPU tensors (the plain
+   versions), 1e-4 of max(1, max|cpu|); medians and each rank's waits, printed. Part C,
+   BASELINE config #5's scale: one warm sep-CMA-ES ``act()`` at population 100 000 (5 000
+   elites) at one rank (NCCL) and at two (gloo), its seconds and peak memory, the actions
+   finite and in bounds. Part B also measures each rank's peak memory in a sharded eager CEM
+   ``act()`` per byte of the whole candidate tensor, which every rank holds (gated: no more
+   than phase 9's unsharded eager figure, which sets ``FUSED_MIN_BYTES``), and times phase 7's
+   ``ts_inf`` drive sharded over both ranks beside it unsharded on rank 0 alone. Part D, the
+   sharded artifact: each rank of the gloo world exports an
+   eager CEM policy (H=10, population 200) and its ``ServingPolicy`` continues bit for bit
+   (greedy, noisy, after a reset); a process outside a 2-rank world is refused it.
 
 The line before the last two is ``{"kernels": [...]}`` (each kernel's launches on phase 5's
 main path, and ``launches_by_path`` on every path that runs it); then the card's name and
@@ -2560,6 +2581,376 @@ def phase9(device, workdir: str, trained, probabilistic) -> dict:
             "cli": cli_on_card(device, workdir, trained, probabilistic)}
 
 
+# Phase 10: the parallel layer at the flagship (CEM H=50, population 1000, 5 iterations, 50
+# elites, E=5 x 3x500 tanh, S=17, U=6, f32, seeded weights). Part A in a 1-rank NCCL world on
+# this card; Part B in two ranks sharing the card over gloo (NCCL refuses two ranks on one
+# card); Part C at BASELINE config #5's scale (benchmarks/scaling.py: population 100 000, elites
+# population // 20); Part D the sharded artifact.
+SHARDED_DRIVES = {
+    "CEM": ("CEM", dict(num_elite=50, max_iterations=ITERS), BACKEND_KERNELS["fused"]),
+    "iCEM decay": ("CEM", dict(num_elite=50, max_iterations=ITERS,
+                               colored_noise_beta=COLORED_BETA, population_decay=0.8),
+                   BACKEND_KERNELS["fused"]),
+    "PI2": ("PI2", dict(max_iterations=ITERS), BACKEND_KERNELS["fused"]),
+    "MPPI": ("MPPI", dict(max_iterations=ITERS), BACKEND_KERNELS["fused"]),
+    "RandomSearch": ("RandomSearch", dict(), {"fused_rollout": 1, "draw_rows": 1}),
+    "sep-CMA-ES": ("CMA-ES", dict(num_elite=50, max_iterations=ITERS, diagonal=True),
+                   BACKEND_KERNELS["fused"]),
+    "eager CEM": ("CEM", dict(num_elite=50, max_iterations=ITERS), {}),
+}
+CAPACITY = dict(population=100_000, num_elite=5_000, max_iterations=ITERS, diagonal=True)
+# Part D's exported policy: the flagship model under a shorter eager CEM (the export traces
+# every rollout step of every iteration).
+ARTIFACT = dict(planning_horizon=10, population=200, num_elite=20, max_iterations=2)
+PART_B_RANKS = 2
+# The 2-rank card result against the same 2-rank run on CPU tensors (the plain versions),
+# relative to max(1, max |cpu|).
+CARD_VS_CPU_TOLERANCE = 1e-4
+
+
+def sharded_policy(device, handler, label: str, mesh, **changes):
+    """The drive ``label`` of SHARDED_DRIVES at the flagship over ``mesh`` (None: unsharded)."""
+    from blackbox_mpc_torch import MPCPolicy
+    from blackbox_mpc_torch.core.spaces import BoxSpace
+
+    solver_name, kwargs, _ = SHARDED_DRIVES[label]
+    kwargs = {"planning_horizon": HORIZON, "population": ROWS, **kwargs, **changes}
+    return MPCPolicy(BoxSpace.of(-1.0, 1.0, dim=6), reward_fn, handler, solver_name=solver_name,
+                     rollout_backend="eager" if label.startswith("eager") else "fused",
+                     mesh=mesh, seed=0, device=device, **kwargs)
+
+
+def sharded_acts(policy, label: str, steps: int = STEPS) -> dict:
+    """A warm-up ``act()``, then ``steps`` closed-loop ones: all their outputs (for the bits),
+    their ms, each kernel's launches over exactly those steps (gated against the drive's
+    counts) and the plain RNG's calls on CUDA tensors (none)."""
+    import numpy as np
+
+    obs = np.zeros(17, np.float32)
+    policy.act(obs)
+    counters = zero_launches()
+    outs, times = [], []
+    with plain_rng_on_cuda() as plain_calls:
+        for t in range(steps):
+            t0 = time.perf_counter()
+            out = policy.act(obs, t)
+            times.append((time.perf_counter() - t0) * 1e3)
+            if not (np.all(np.isfinite(out[0])) and np.all(np.abs(out[0]) <= 1.0)):
+                raise AssertionError(f"{label}: action out of bounds or not finite: {out[0]}")
+            outs.append(np.concatenate([np.ravel(x) for x in out]))
+            obs = out[1]
+    launches = read_launches(counters)
+    expected = {name: steps * SHARDED_DRIVES[label.split(": ")[-1]][2].get(name, 0)
+                for name in launches}
+    if launches != expected:
+        raise AssertionError(f"{label}: kernel launches {launches}, expected {expected}")
+    if any(plain_calls.values()):
+        raise AssertionError(f"{label}: the plain RNG ran on CUDA tensors: {plain_calls}")
+    return {"outs": np.stack(outs), "act_ms": times, "act_ms_median": float(np.median(times)),
+            "launches": launches}
+
+
+def capacity_act(device, handler, mesh) -> dict:
+    """Part C: one warm sep-CMA-ES ``act()`` at population 100 000 over ``mesh``: its seconds,
+    the peak memory above what the process held before it, an action finite and in bounds."""
+    import numpy as np
+    import torch
+
+    policy = sharded_policy(device, handler, "sep-CMA-ES", mesh, **CAPACITY)
+    obs = np.zeros(17, np.float32)
+    policy.act(obs)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    action, _, _ = policy.act(obs)
+    seconds = time.perf_counter() - t0
+    if not (np.all(np.isfinite(action)) and np.all(np.abs(action) <= 1.0)):
+        raise AssertionError(f"sep-CMA-ES at {CAPACITY['population']}, D={mesh.size}: {action}")
+    return {"ranks": mesh.size, "candidates_per_rank": CAPACITY["population"] // mesh.size,
+            "act_s": seconds, "peak_bytes": torch.cuda.max_memory_allocated() - base}
+
+
+def pair_card_vs_cpu(device, handler, mesh) -> dict:
+    """Part B: this rank's K4 rewards and K6 moments at its seed against their plain versions
+    (phase 3's tolerances), and the sharded pair's result on the card (the gathered rewards,
+    the reduced moments) against the same ranks' run on CPU tensors (the plain versions),
+    CARD_VS_CPU_TOLERANCE. Rank 1's seed wraps in int32."""
+    import numpy as np
+    import torch
+
+    from blackbox_mpc_torch.ops import fused_cem as fc
+    from blackbox_mpc_torch.ops import fused_sharded as fs
+
+    config, p_loc = handler.config, ROWS // mesh.size
+    g = np.random.default_rng(6)
+    hu = HORIZON * config.dim_u
+    host = [g.normal(0, 1, (1, config.dim_s)), g.uniform(-0.3, 0.3, (1, hu)),
+            g.uniform(0.2, 0.5, (1, hu))]
+    seed = 1234567891
+    mask = None
+    got = []  # the card's run, then the CPU's
+    for where in (device, torch.device("cpu")):
+        dp = handler.dynamics_params.to(where)
+        s0, mean, std = (torch.as_tensor(v, dtype=torch.float32, device=where) for v in host)
+        rollout, moments = fs._sharded_pair(fc.make_fused_cem_kernels(
+            config, reward_fn, horizon=HORIZON, agents=1, population=p_loc), mesh)
+        rewards = rollout(dp, s0, mean, std, seed)
+        if mask is None:  # the card's 50 elites: both runs reduce the same rows
+            mask = np.zeros((ROWS, 1), np.float32)
+            mask[np.argsort(-rewards[:, 0].cpu().numpy(), kind="stable")[:50]] = 1.0
+        weights = torch.as_tensor(mask, device=where)
+        rank_seed = fs.device_seed(torch.tensor([seed], dtype=torch.int32, device=where),
+                                   mesh.rank)
+        block = weights[mesh.rank * p_loc:(mesh.rank + 1) * p_loc].reshape(-1).contiguous()
+        got.append([x.cpu().numpy() for x in (
+            rollout.local(dp, s0, mean, std, rank_seed),
+            *fc.elite_moments(std.reshape(1, -1), block, rank_seed, mean.reshape(1, -1)),
+            rewards, *moments(mean, std, seed, weights))])
+
+    def rel(a, b):
+        return float(np.max(np.abs(a - b))) / max(1.0, float(np.max(np.abs(b))))
+
+    card, cpu = got
+    errs = {"local K4 rewards": (rel(card[0], cpu[0]), TOLERANCE["float32"]),
+            "local K6 moments": (max(rel(card[1], cpu[1]), rel(card[2], cpu[2])),
+                                 MOMENT_TOLERANCE),
+            "gathered rewards": (rel(card[3], cpu[3]), CARD_VS_CPU_TOLERANCE),
+            "reduced moments": (max(rel(card[4], cpu[4]), rel(card[5], cpu[5])),
+                                CARD_VS_CPU_TOLERANCE)}
+    for what, (err, tol) in errs.items():
+        if err > tol:
+            raise AssertionError(f"rank {mesh.rank}: card vs CPU, {what}: {err} > {tol}")
+    return {what: err for what, (err, _) in errs.items()}
+
+
+def sharded_eager_peak(device, handler, mesh) -> dict:
+    """Part B: this rank's peak memory in a one-iteration sharded eager CEM ``act()`` (the
+    peak is one iteration's) at EAGER_PEAK_POPULATIONS, per byte of the whole candidate
+    tensor: every rank draws and holds all of it and rolls out its block. The growth between
+    the two populations, as phase 9 measures the unsharded eager path."""
+    import numpy as np
+
+    obs = np.zeros(17, np.float32)
+    peaks = {}
+    for population in EAGER_PEAK_POPULATIONS:
+        policy = sharded_policy(device, handler, "eager CEM", mesh, population=population,
+                                max_iterations=1)
+        policy.act(obs)  # warm-up
+        peaks[population] = act_peak_bytes(policy, obs)
+        del policy
+    low, high = EAGER_PEAK_POPULATIONS
+    per_row = (peaks[high] - peaks[low]) / (high - low)
+    return {"peak_bytes": peaks, "peak_per_candidate_byte": per_row / (HORIZON * 6 * 4)}
+
+
+def sharded_ts_inf(device, mesh) -> dict:
+    """Part B: phase 7's ``ts_inf`` drive (20 400 rows a step, E=5) sharded over the ranks,
+    each rank's block grouped by the members of its rows of the whole batch
+    (``models/dynamics.py::RowBlock``), and unsharded on rank 0 alone while the other ranks
+    wait: the ``act()`` ms of each. No kernel launches on this path."""
+    import numpy as np
+    import torch
+
+    from blackbox_mpc_torch import DynamicsHandler, LearnedDynamicsConfig, MPCPolicy
+    from blackbox_mpc_torch.core.spaces import BoxSpace
+
+    config = LearnedDynamicsConfig(**PETS_NET, **PETS_DRIVES["ts_inf"])
+    handler = DynamicsHandler(config, seed=0, device=device)
+    handler.set_params(pets_params(config, device))
+    obs = np.zeros((PETS_AGENTS, config.dim_s), np.float32)
+
+    def timed(m, label):
+        policy = MPCPolicy(BoxSpace.of(-1.0, 1.0, dim=config.dim_u), cheetah_reward, handler,
+                           num_agents=PETS_AGENTS, rollout_backend="eager", mesh=m, seed=0,
+                           device=device, **PETS_SOLVER)
+        policy.act(obs)  # warm-up
+        times, launches, plain_calls, out = timed_acts(policy, obs, STEPS, label)
+        if any(launches.values()) or any(plain_calls.values()):
+            raise AssertionError(f"{label}: kernels launched {launches}, plain RNG on CUDA "
+                                 f"{plain_calls}")
+        return times, out[0]
+
+    res = {}
+    if mesh.rank == 0:
+        res["single_act_ms"], _ = timed(None, "ts_inf unsharded")
+    torch.distributed.barrier()
+    res["sharded_act_ms"], res["action"] = timed(mesh, f"rank {mesh.rank}: sharded ts_inf")
+    return res
+
+
+def artifact_round_trip(device, handler, mesh, workdir: str) -> dict:
+    """Part D: an eager CEM policy sharded over ``mesh`` acts once and exports this rank's
+    artifact; the ServingPolicy loaded from it goes on beside it bit for bit: a greedy, a
+    noisy and a post-reset ``act()``."""
+    import numpy as np
+
+    from blackbox_mpc_torch.deploy import ServingPolicy, export_policy_artifact
+
+    live = sharded_policy(device, handler, "eager CEM", mesh, **ARTIFACT)
+    obs = np.zeros(17, np.float32)
+    live.act(obs)
+    path = f"{workdir}/artifact.rank{mesh.rank}.bbmpc"
+    t0 = time.perf_counter()
+    meta = export_policy_artifact(live, path)
+    export_s = time.perf_counter() - t0
+    served = ServingPolicy.load(path, device=device)
+    outs = []
+    for policy in (live, served):
+        steps = [policy.act(obs, 1), policy.act(obs, 2, exploration_noise=True)]
+        policy.reset()
+        steps.append(policy.act(obs, 3))
+        outs.append(np.concatenate([np.ravel(x) for step in steps for x in step]))
+    if not np.array_equal(*outs):
+        raise AssertionError(f"rank {mesh.rank}: the served artifact left its live policy")
+    if (served.meta["format_version"], meta["nr_devices"], meta["mesh_axes"]) != (
+            2, mesh.size, {"pop": mesh.size}):
+        raise AssertionError(f"rank {mesh.rank}: artifact meta {served.meta}")
+    return {"path": path, "export_s": export_s}
+
+
+def part_b_rank(rank: int, workdir: str, device: str) -> None:
+    """One rank of Part B, and of Parts C and D at two ranks: a gloo world of PART_B_RANKS
+    ranks on ``device``, the one card; the results go to ``<workdir>/rank<rank>.pkl``."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from blackbox_mpc_torch.parallel import initialize_multihost, make_pop_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions run in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(device)
+    initialize_multihost(f"file://{workdir}/gloo-store", PART_B_RANKS, rank, device=device,
+                         backend="gloo")
+    mesh = make_pop_mesh(device=device)
+    handler = flagship_handler(device)
+    res = {"drives": {label: sharded_acts(sharded_policy(device, handler, label, mesh),
+                                          f"rank {rank}: {label}")
+                      for label in SHARDED_DRIVES}}
+    trace = trace_act(sharded_policy(device, handler, "CEM", mesh), np.zeros(17, np.float32),
+                      f"rank {rank}: sharded fused CEM over gloo")
+    res["waits"] = trace["stream_syncs"]
+    res["card_vs_cpu"] = pair_card_vs_cpu(device, handler, mesh)
+    res["capacity"] = capacity_act(device, handler, mesh)
+    res["eager_peak"] = sharded_eager_peak(device, handler, mesh)
+    res["ts_inf"] = sharded_ts_inf(device, mesh)
+    res["artifact"] = artifact_round_trip(device, handler, mesh, workdir)
+    with open(f"{workdir}/rank{rank}.pkl", "wb") as f:
+        pickle.dump(res, f)
+    torch.distributed.destroy_process_group()
+
+
+def phase10(device, trained, workdir: str, eager_per_byte: float) -> dict:
+    """Phase 10, Parts A-D; ``trained`` is phase 6's handler, whose replay Part A trains on;
+    ``eager_per_byte`` is phase 9's unsharded eager peak per candidate byte."""
+    import copy
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from blackbox_mpc_torch import DynamicsHandler
+    from blackbox_mpc_torch.deploy import ServingPolicy
+    from blackbox_mpc_torch.learning.trainer import flat_params
+    from blackbox_mpc_torch.parallel import initialize_multihost, make_pop_mesh
+
+    smi = nvidia_smi()
+    # Part A: a 1-rank NCCL world; every sharded drive against its unsharded twin, bit for bit.
+    initialize_multihost(f"file://{workdir}/nccl-store", 1, 0, device=device)
+    mesh = make_pop_mesh(device=device)
+    handler = flagship_handler(device)
+    part_a = {}
+    try:
+        for label in SHARDED_DRIVES:
+            single = sharded_acts(sharded_policy(device, handler, label, None), label)
+            policy = sharded_policy(device, handler, label, mesh)
+            sharded = sharded_acts(policy, f"1-rank NCCL: {label}")
+            if not np.array_equal(single["outs"], sharded["outs"]):
+                raise AssertionError(f"1-rank NCCL: {label}: act() differs from the "
+                                     "single-device one")
+            part_a[label] = {"act_ms_median": sharded["act_ms_median"],
+                             "single_device_act_ms_median": single["act_ms_median"],
+                             "launches": sharded["launches"]}
+            if label == "CEM":
+                trace = trace_act(policy, np.zeros(17, np.float32),
+                                  "1-rank NCCL: sharded fused CEM")
+                gate_waits(trace, "1-rank NCCL: sharded fused CEM")
+                part_a[label]["stream_syncs"] = trace["stream_syncs"]
+                part_a[label]["device_idle_share"] = trace["device_idle_share"]
+        # A data-parallel train() on phase 6's replay, bit for bit with the unsharded one.
+        runs = []
+        for m in (None, mesh):
+            h = DynamicsHandler(trained.config, seed=0, device=device, mesh=m)
+            h._replay = copy.deepcopy(trained.replay)
+            info = h.train(epochs=5, batch_size=128)
+            runs.append((info["train_loss"], info["val_loss"],
+                         [t.cpu() for t in flat_params(h.dynamics_params.params)]))
+        (loss, val, params), (s_loss, s_val, s_params) = runs
+        if (loss, val) != (s_loss, s_val) or not all(
+                torch.equal(a, b) for a, b in zip(params, s_params)):
+            raise AssertionError("1-rank NCCL: data-parallel train() differs from the "
+                                 "unsharded one")
+        part_a["train"] = {"bitwise": True, "train_loss": s_loss, "val_loss": s_val}
+        part_c = {"D=1": capacity_act(device, handler, mesh)}
+    finally:
+        torch.distributed.destroy_process_group()
+    print(json.dumps({"phase10_part_a": part_a, "card": smi}), flush=True)
+
+    # Part B, and Parts C and D at D=2: two ranks on this card over gloo.
+    t0 = time.perf_counter()
+    mp.spawn(part_b_rank, args=(workdir, str(device)), nprocs=PART_B_RANKS, join=True)
+    ranks = []
+    for r in range(PART_B_RANKS):
+        with open(f"{workdir}/rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    for label in SHARDED_DRIVES:
+        if not np.array_equal(ranks[0]["drives"][label]["outs"],
+                              ranks[1]["drives"][label]["outs"]):
+            raise AssertionError(f"gloo 2 ranks: {label}: the ranks' act()s differ")
+    part_b = {label: {"act_ms_median": [r["drives"][label]["act_ms_median"] for r in ranks],
+                      "launches_per_rank": ranks[0]["drives"][label]["launches"]}
+              for label in SHARDED_DRIVES}
+    part_b["waits_per_traced_act"] = [r["waits"] for r in ranks]  # gloo: through the host
+    part_b["card_vs_cpu"] = [r["card_vs_cpu"] for r in ranks]
+    # The sharded eager path holds the whole candidate tensor on every rank: the capacity
+    # threshold, set from the unsharded eager peak, holds for it only if no rank peaks higher.
+    per_byte = [r["eager_peak"]["peak_per_candidate_byte"] for r in ranks]
+    if max(per_byte) > eager_per_byte:
+        raise AssertionError(f"gloo 2 ranks: sharded eager peaks at {per_byte} bytes per "
+                             f"candidate byte, above the unsharded {eager_per_byte}")
+    total = torch.cuda.get_device_properties(0).total_memory
+    part_b["eager_peak"] = {
+        "peak_bytes": [r["eager_peak"]["peak_bytes"] for r in ranks],
+        "peak_per_candidate_byte": per_byte, "unsharded_per_candidate_byte": eager_per_byte,
+        "fused_min_bytes_measured": FUSED_MEMORY_SHARE * total / max(per_byte)}
+    if not np.array_equal(ranks[0]["ts_inf"]["action"], ranks[1]["ts_inf"]["action"]):
+        raise AssertionError("gloo 2 ranks: sharded ts_inf: the ranks' act()s differ")
+    part_b["ts_inf"] = {
+        "single_act_ms_median": float(np.median(ranks[0]["ts_inf"]["single_act_ms"])),
+        "sharded_act_ms_median": [float(np.median(r["ts_inf"]["sharded_act_ms"]))
+                                  for r in ranks]}
+    part_b["seconds"] = time.perf_counter() - t0
+    part_c["D=2"] = [r["capacity"] for r in ranks]
+    print(json.dumps({"phase10_part_b": part_b, "card": smi}), flush=True)
+    print(json.dumps({"phase10_part_c": part_c, "card": smi}), flush=True)
+    # Part D: each rank's artifact served bit for bit (gated in the ranks); a world of
+    # another size is refused.
+    try:
+        ServingPolicy.load(ranks[0]["artifact"]["path"], device=device)
+    except ValueError as e:
+        if "topology-pinned" not in str(e):
+            raise
+    else:
+        raise AssertionError("a 2-rank artifact loaded outside a 2-rank world")
+    part_d = {"export_s": [r["artifact"]["export_s"] for r in ranks],
+              "served_bitwise": True, "wrong_world_refused": True}
+    print(json.dumps({"phase10_part_d": part_d, "card": smi}), flush=True)
+    return {"part_a": part_a, "part_b": part_b, "part_c": part_c, "part_d": part_d}
+
+
 def main() -> int:
     import tempfile
 
@@ -2630,14 +3021,21 @@ def main() -> int:
         **{label: run["act_ms_median"] for label, run in family.items()}}}), flush=True)
     with tempfile.TemporaryDirectory() as workdir:
         ninth = phase9(device, workdir, mbrl["fused"]["handler"], pets_trained)
-    # The launches of each kernel on each path that runs it: phase 5's drives and phase 9's.
+    with tempfile.TemporaryDirectory() as workdir:
+        tenth = phase10(device, mbrl["fused"]["handler"], workdir,
+                        ninth["auto"]["memory"]["peak_per_candidate_byte"]["eager"])
+    # The launches of each kernel on each path that runs it: phase 5's drives, phase 9's and
+    # phase 10's.
     paths = {"kernel CEM act()": kernel_run["launches"],
              "fused CEM act()": fused_run["launches"],
              "fused iCEM act()": family["fused iCEM"]["launches"],
              "auto -> kernel act()": ninth["auto"]["auto_kernel_launches"],
              "auto -> fused act()": ninth["auto"]["auto_fused_launches"],
              "device episode, fused CEM": ninth["episodes"]["fused CEM, flagship model"][
-                 "launches"]}
+                 "launches"],
+             "sharded fused CEM act() (1-rank NCCL)": tenth["part_a"]["CEM"]["launches"],
+             "sharded fused RandomSearch act() (1-rank NCCL)":
+                 tenth["part_a"]["RandomSearch"]["launches"]}
 
     # The first case of each kernel is mean/f32 (K6: the 50-elite mask; draw_rows: the iCEM
     # shape), as the policy ran. K6's and draw_rows' ms is the device's, host_ms the host's.

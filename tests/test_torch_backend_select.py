@@ -17,6 +17,7 @@ from blackbox_mpc_tpu.models.dynamics import LearnedDynamicsConfig as JConfig
 from blackbox_mpc_tpu.solvers import SOLVER_REGISTRY as J_REGISTRY
 from blackbox_mpc_torch import DynamicsHandler, LearnedDynamicsConfig, MPCPolicy
 from blackbox_mpc_torch.core.spaces import BoxSpace
+from blackbox_mpc_torch.parallel import PopMesh
 from blackbox_mpc_torch.solvers import SOLVER_REGISTRY
 
 torch.set_num_threads(1)
@@ -103,7 +104,7 @@ def test_jax_gates_route_port_to_eager(open_regimes, monkeypatch, kernel_regime)
 
 def test_port_only_gates():
     """Gates of the port beyond JAX's: a device other than cuda, a compute dtype the kernels
-    refuse, the first-order solvers, and mesh (not ported)."""
+    refuse, the first-order solvers; and with a mesh never "kernel" (JAX's rule for pallas)."""
     _, cfg = configs((False, "mean"), "tanh", "float32")
     kw = dict(horizon=H, dim_u=U, solver_name="CEM")
     assert tsel.choose_backend(cfg, 64, 1, platform="cuda", **kw) == "kernel"
@@ -121,8 +122,9 @@ def test_port_only_gates():
     _, ts1 = configs((False, "ts1"), "tanh", "float32")
     assert tsel.choose_backend(ts1, 63, 1, platform="cuda", **kw) == "eager"
     assert tsel.choose_backend(ts1, 64, 1, platform="cuda", **kw) == "kernel"
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tsel.choose_backend(cfg, 64, 1, mesh=object(), platform="cuda", **kw)
+    two = PopMesh(group=None, size=2, rank=0, device=torch.device("cpu"))
+    assert tsel.choose_backend(cfg, 64, 1, mesh=two, platform="cuda", **kw) == "eager"
+    assert tsel.choose_backend(ts1, 64, 1, mesh=two, platform="cuda", **kw) == "eager"
 
 
 def test_capacity_routes_fused_before_kernel():

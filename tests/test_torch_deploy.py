@@ -261,8 +261,11 @@ def test_format_version_gate(tmp_path):
     _rewrite_meta(path, bad, format_version=999)
     with pytest.raises(ValueError, match="format_version"):
         ServingPolicy.load(bad, device="cpu")
-    _rewrite_meta(path, bad, format_version=2)  # JAX's sharded format: not ported
-    with pytest.raises(ValueError, match="format_version"):
+    # JAX's sharded format 2 is read: pinned to 2 ranks, a process outside such a world
+    # refuses it (tests/test_torch_parallel.py serves real ones)
+    _rewrite_meta(path, bad, format_version=2, nr_devices=2, mesh_axes={"pop": 2}, rank=0,
+                  process_group="0")
+    with pytest.raises(ValueError, match="topology-pinned to 2 ranks"):
         ServingPolicy.load(bad, device="cpu")
 
 

@@ -31,6 +31,7 @@ from blackbox_mpc_torch.models import dynamics as tdyn
 from blackbox_mpc_torch.models.convert import dynamics_params_from_numpy
 from blackbox_mpc_torch.models.normalizer import STATS_FIELDS
 from blackbox_mpc_torch.ops import rollout_kernel as rk
+from blackbox_mpc_torch.parallel import make_pop_mesh
 from blackbox_mpc_torch.solvers.cem import CEMConfig as TCEMConfig
 
 S, U = 3, 2
@@ -347,11 +348,14 @@ def test_policy_fused_constructor_errors():
         build(solver_name="bogus")
     with pytest.raises(ValueError, match="keep_elites"):
         build(keep_elites=60)
-    # "auto" on the CPU is the eager policy (the kernels are CUDA); mesh= stays unported
+    # "auto" on the CPU is the eager policy (the kernels are CUDA); mesh= takes the sharded
+    # fused solvers (tests/test_torch_fused_sharded.py), and refuses the kernel backend
     assert MPCPolicy(space, t_reward, th, device="cpu",
                      rollout_backend="auto").rollout_backend == "eager"
-    with pytest.raises(NotImplementedError, match="item 9"):
-        MPCPolicy(space, t_reward, th, device="cpu", mesh=object())
+    mesh = make_pop_mesh(device="cpu")
+    assert build(mesh=mesh)._solver.name == "CEM-Fused-Sharded"
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        MPCPolicy(space, t_reward, th, device="cpu", mesh=mesh, rollout_backend="kernel")
     # ts1 at 4 tiles of 256 rows for 5 members raises, as in the JAX package
     ts1 = DynamicsHandler(tdyn.LearnedDynamicsConfig(dim_s=S, dim_u=U, hidden=(8,),
                                                       ensemble_size=5, propagation="ts1"),

@@ -34,15 +34,16 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 51  # every module was walked
+    assert int(out.stdout.strip().splitlines()[-1]) >= 56  # every module was walked
 
 
-# The modules of the solver registry's rest and the POPLIN half, and the single-card entry
-# points, each imported on its own.
+# The modules of the solver registry's rest and the POPLIN half, the single-card entry points
+# and the parallel layer, each imported on its own.
 NEW_MODULES = ["solvers.gradient", "solvers.cem_gd", "solvers.pso", "solvers.spsa",
                "learning.proposer", "policies.pipeline", "ops.backend_select",
                "utils.profiling", "workflows.device_episode", "deploy", "deploy.export",
-               "deploy.serving", "cli"]
+               "deploy.serving", "cli", "parallel", "parallel.mesh", "parallel.multihost",
+               "parallel.sharding", "ops.fused_sharded"]
 
 _ALONE = r"""
 import importlib, sys

@@ -19,9 +19,11 @@ from blackbox_mpc_tpu.learning.replay import ReplayBuffer as JReplay
 from blackbox_mpc_tpu.learning.trainer import make_trainer as j_make_trainer
 from blackbox_mpc_tpu.models.dynamics import LearnedDynamicsConfig as JConfig
 from blackbox_mpc_torch.learning import DynamicsHandler, ReplayBuffer, make_trainer
+from blackbox_mpc_torch.learning.trainer import flat_params
 from blackbox_mpc_torch.models.convert import dynamics_params_from_numpy, handler_from_numpy
 from blackbox_mpc_torch.models.dynamics import LearnedDynamicsConfig
 from blackbox_mpc_torch.models.normalizer import STATS_FIELDS
+from blackbox_mpc_torch.parallel import make_pop_mesh
 
 # Tolerances of the trainer's float32 path: per-step losses rtol 1e-4, parameters after 20
 # Adam steps 1e-4 absolute (the two sides reduce in other orders; Adam divides by sqrt(nu)).
@@ -189,16 +191,26 @@ def test_trainer_matches_jax(ensemble, dtype):
 
 
 def test_trainer_refuses_what_is_not_ported():
-    """The Gaussian NLL is ported (tests/test_torch_probabilistic.py); ``mesh`` is not."""
+    """Nothing is refused any more: the Gaussian NLL is ported
+    (tests/test_torch_probabilistic.py), and so is ``mesh`` (data-parallel training,
+    tests/test_torch_parallel.py), whose one-device mesh trains bit for bit as without it; a
+    handler's ``device`` must be the mesh's."""
     cfg = LearnedDynamicsConfig(dim_s=3, dim_u=1, hidden=(8,), probabilistic=True)
-    init, step, _ = make_trainer(cfg)
     dp = DynamicsHandler(cfg, device="cpu").dynamics_params
-    s, a, ns = (torch.zeros(1, 4, d) for d in (3, 1, 3))
-    assert step(init(dp.params), dp.stats, s, a, ns)[1].shape == (1,)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make_trainer(configs(1)[1], mesh=object())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        DynamicsHandler(configs(1)[1], device="cpu", mesh=object())
+    s, a, ns = (torch.rand(1, 4, d, generator=torch.Generator().manual_seed(d))
+                for d in (3, 1, 3))
+    mesh = make_pop_mesh(device="cpu")
+    results = []
+    for m in (None, mesh):
+        init, step, _ = make_trainer(cfg, mesh=m)
+        ts, losses = step(init(dp.params), dp.stats, s, a, ns)
+        assert losses.shape == (1,)
+        results.append([losses] + flat_params(ts.params))
+    for x, y in zip(*results):
+        assert torch.equal(x, y)
+    assert DynamicsHandler(configs(1)[1], device="cpu", mesh=mesh).device == mesh.device
+    with pytest.raises(ValueError, match="device of the mesh"):
+        DynamicsHandler(configs(1)[1], device="meta", mesh=mesh)
 
 
 # ------------------------------------------------------------------ handler.train

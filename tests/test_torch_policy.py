@@ -18,6 +18,7 @@ from blackbox_mpc_torch.core.spaces import BoxSpace
 from blackbox_mpc_torch.models.convert import dynamics_params_from_numpy
 from blackbox_mpc_torch.models.normalizer import STATS_FIELDS
 from blackbox_mpc_torch.ops import rollout_kernel as rk
+from blackbox_mpc_torch.parallel import make_pop_mesh
 
 S, U, P, H, E = 4, 2, 32, 6, 2
 SOLVER = dict(planning_horizon=H, population=P, num_elite=4, max_iterations=3)
@@ -98,8 +99,10 @@ def test_constructor_errors(monkeypatch):
     with pytest.raises(ValueError, match="rollout_backend"):
         build(rollout_backend="xla")
     assert build(rollout_backend="auto").rollout_backend == "eager"  # no CUDA: eager
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build(mesh=object())
+    # mesh= is ported: a one-device mesh builds, the kernel backend refuses any mesh
+    assert build(mesh=make_pop_mesh(device="cpu")).mesh.size == 1
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        build(mesh=make_pop_mesh(device="cpu"), rollout_backend="kernel")
     with pytest.raises(ValueError, match="no choice of generator algorithm"):
         build(rng_impl="rbg")
     # "fused" and its alias build (their errors are in test_torch_fused_cem.py)
