@@ -1,6 +1,6 @@
 """Command-line interface: quick MPC runs without writing a script.
 
-Counterpart of ``blackbox_mpc_torch/cli.py``, with its subcommands, flags, exit codes and JSON
+Counterpart of ``blackbox_mpc_tpu/cli.py``, with its subcommands, flags, exit codes and JSON
 lines. Every command runs on ``cuda`` unless ``--cpu`` is given.
 
     python -m blackbox_mpc_torch solve --env pendulum --solver CEM --steps 100
@@ -365,18 +365,24 @@ def cmd_serve(args):
       {"cmd": "reset"}                          -> {"ok": true}
       {"cmd": "close"}                          -> exits 0
     A request that fails gets one ``{"error": ...}`` line and the server goes on.
-    ``--compiled-cache`` is not ported (an AOTInductor package would be its counterpart) and
-    exits 2.
+    The first line is served by the artifact's programs as loaded, or, with
+    ``--compiled-cache``, by their AOTInductor compilation: loaded from the cache when it
+    exists and matches, compiled and written there otherwise.
     """
+    import os
+
     import numpy as np
 
     from blackbox_mpc_torch.deploy.serving import ServingPolicy
 
+    cache = args.compiled_cache
     srv = ServingPolicy.load(args.artifact, device=_device(args),
-                             compiled_cache=args.compiled_cache)
+                             compiled_cache=cache if cache and os.path.exists(cache) else None)
+    if cache and not srv.used_compiled_cache:
+        srv.save_compiled(cache)
     print(json.dumps({"ready": True, "solver": srv.solver_name,
                       "num_agents": srv.num_agents,
-                      "used_compiled_cache": False}), flush=True)
+                      "used_compiled_cache": srv.used_compiled_cache}), flush=True)
     for line in sys.stdin:
         line = line.strip()
         if not line:
@@ -478,7 +484,9 @@ def main(argv=None) -> int:
     p.add_argument("--cpu", action="store_true", help="run on the CPU (default: cuda)")
     p.add_argument(
         "--compiled-cache", default=None,
-        help="an ahead-of-time compiled cache: not ported (exits 2)",
+        help="an AOTInductor cache of the artifact's programs for this device: loaded when "
+             "present and matching (no compile at start), written after compiling otherwise. "
+             "It holds compiled code, so only point this at trusted files",
     )
     p.set_defaults(fn=cmd_serve)
 

@@ -40,12 +40,27 @@ advances exactly as the policy's does: the exploration noise is drawn only when 
 asked for it, and the rollout noise of sampled propagation is drawn from the noise
 generator's state at the start of the step for every evaluation (common random numbers), as
 ``MPCPolicy`` does.
+
+**The compiled cache** (the JAX package's XLA executable cache, read for PyTorch). A loaded
+artifact runs its ``torch.export`` graphs op by op from Python. :meth:`ServingPolicy.precompile`
+compiles the step and reset programs for the serving device with AOTInductor
+(``torch._inductor.aoti_compile_and_package``); :meth:`ServingPolicy.save_compiled` writes
+those packages into one cache file (a zip of ``fingerprint.json``, ``step.pt2`` and
+``reset.pt2``), and ``ServingPolicy.load(..., compiled_cache=path)`` loads them and compiles
+nothing. The fingerprint pins the cache to the torch and CUDA versions, the device kind and
+the artifact's programs (``program_hash``); a missing, corrupt or stale cache is ignored with a
+``RuntimeWarning`` and the uncompiled program serves. The draws stay inputs of the compiled
+programs, so the stream is the same. The compiled code is loaded as a shared library: treat a
+cache with the same trust as the artifact itself.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import io
 import json
+import os
+import warnings
 import zipfile
 from collections.abc import Mapping
 from typing import Any, Sequence
@@ -70,9 +85,8 @@ DRAW_FUNCTIONS = ("rand", "randn", "randint")
 GENERATORS = ("solver", "noise")
 # MPCPolicy seeds its rollout-noise generator this far from the solver's.
 NOISE_SEED_OFFSET = 0x5EED
-_COMPILED_CACHE = ("an ahead-of-time compiled cache (an AOTInductor package, the counterpart of "
-                   "the JAX package's XLA executable cache) is not ported (ROADMAP: not ported, "
-                   "by decision)")
+# The programs of an artifact, and the members of a compiled cache beside its fingerprint.
+PROGRAMS = ("step", "reset")
 
 
 def _dtype_name(dtype) -> str:
@@ -154,8 +168,26 @@ def _check_world(meta: dict) -> None:
                          f"rank {dist.get_rank()}: load that rank's artifact")
 
 
-def _load_program(data: bytes):
-    return torch.export.load(io.BytesIO(data)).module()
+def _device_kind(device: torch.device) -> dict:
+    """What a compiled package is pinned to on ``device``: the card's name and compute
+    capability, or the CPU's vector instruction set."""
+    if device.type == "cuda":
+        return {"device_kind": torch.cuda.get_device_name(device),
+                "capability": list(torch.cuda.get_device_capability(device))}
+    return {"device_kind": torch.backends.cpu.get_cpu_capability()}
+
+
+def _compile_package(program) -> bytes:
+    """An AOTInductor package of ``program`` (an ``ExportedProgram``), as bytes."""
+    buf = io.BytesIO()
+    torch._inductor.aoti_compile_and_package(program, package_path=buf)
+    return buf.getvalue()
+
+
+def _load_package(data: bytes, device: torch.device):
+    """The runner of an AOTInductor package: called as the program's module is."""
+    index = device.index if device.type == "cuda" else -1
+    return torch._inductor.aoti_load_package(io.BytesIO(data), device_index=index)
 
 
 class ServingPolicy:
@@ -169,14 +201,26 @@ class ServingPolicy:
     stood.
     """
 
-    def __init__(self, meta: dict, step, reset, state, params, proposer, key_states,
-                 device: torch.device, seed: int | None = None) -> None:
+    def __init__(self, meta: dict, programs: dict, state, params, proposer, key_states,
+                 device: torch.device, seed: int | None = None,
+                 compiled_cache: str | None = None) -> None:
         self.meta = dict(meta)
         self._num_agents = int(meta["num_agents"])
         self._dim_s = int(meta["dim_s"])
         self._device = device
-        self._step = step
-        self._reset = reset
+        # {"step": bytes, "reset": bytes or None}: the artifact's torch.export programs for
+        # this device type, deserialized only where they run (op by op) or are compiled.
+        self._program_bytes = programs
+        self._program_hash = hashlib.sha256(
+            b"".join(b for b in programs.values() if b is not None)).hexdigest()
+        self._programs = None
+        self._packages = None  # the AOTInductor packages, once compiled or loaded
+        self.used_compiled_cache = False
+        if compiled_cache is not None:
+            self._load_compiled_cache(compiled_cache)
+        if self._packages is None:
+            self._step, self._reset = (None if p is None else p.module()
+                                       for p in self._exported().values())
         self._draws = meta["draws"]
         put = lambda leaves: tuple(t.to(device) for t in leaves)  # noqa: E731
         self._state = put(state)
@@ -207,9 +251,10 @@ class ServingPolicy:
         """Loads an artifact onto ``device`` (None: ``cuda``), whose type must be one of the
         artifact's ``platforms``. ``seed`` starts a fresh stream (see :meth:`reseed`) in place
         of the stored one, which only a device of the exporting type can continue.
-        ``compiled_cache`` is not ported and raises."""
-        if compiled_cache is not None:
-            raise NotImplementedError(f"compiled_cache=: {_COMPILED_CACHE}")
+        ``compiled_cache``: a file written by :meth:`save_compiled`; when its fingerprint
+        matches this runtime and artifact, the compiled programs serve from the first ``act``
+        and nothing is compiled (``used_compiled_cache`` is True). Otherwise it is ignored with
+        a ``RuntimeWarning`` and the uncompiled programs serve."""
         with zipfile.ZipFile(path) as zf:
             meta = json.loads(zf.read("meta.json"))
             if meta.get("format_version") not in SUPPORTED_FORMAT_VERSIONS:
@@ -223,17 +268,89 @@ class ServingPolicy:
                 raise ValueError(f"the artifact has programs for {meta['platforms']}, not "
                                  f"{kind}: export it with platforms including {kind!r}")
             dev = _resolve_device(device)
-            step = _load_program(zf.read(f"{kind}/step.pt2"))
-            reset = (_load_program(zf.read(f"{kind}/reset.pt2"))
-                     if f"{kind}/reset.pt2" in zf.namelist() else None)
+            programs = {name: zf.read(f"{kind}/{name}.pt2")
+                        if f"{kind}/{name}.pt2" in zf.namelist() else None
+                        for name in PROGRAMS}
             groups = [unpack_tensors(zf, g) for g in ("state", "params", "proposer", "key")]
-        return cls(meta, step, reset, *groups, device=dev, seed=seed)
+        return cls(meta, programs, *groups, device=dev, seed=seed, compiled_cache=compiled_cache)
+
+    # ------------------------------------------------------------------ compiled cache
+
+    def _fingerprint(self) -> dict:
+        """The validity domain of a compiled cache: the torch and CUDA versions and the
+        device kind the packages were compiled for, and, through ``program_hash`` (sha256 of
+        the artifact's step and reset programs for this device type), the programs they were
+        compiled from, so a cache saved against one artifact is refused after a re-export
+        with other settings."""
+        return {
+            "torch_version": torch.__version__,
+            "cuda_version": torch.version.cuda,
+            "platform": self._device.type,
+            **_device_kind(self._device),
+            "solver_name": self.meta["solver_name"],
+            "num_agents": self._num_agents,
+            "dim_s": self._dim_s,
+            "nr_devices": int(self.meta.get("nr_devices", 1)),
+            "rank": self.meta.get("rank"),
+            "program_hash": self._program_hash,
+        }
+
+    def _exported(self) -> dict:
+        """``{"step": ExportedProgram, "reset": ExportedProgram or None}``."""
+        if self._programs is None:
+            self._programs = {name: None if data is None
+                              else torch.export.load(io.BytesIO(data))
+                              for name, data in self._program_bytes.items()}
+        return self._programs
+
+    def _use_packages(self, packages: dict) -> None:
+        runners = {name: None if data is None else _load_package(data, self._device)
+                   for name, data in packages.items()}
+        self._step, self._reset = runners["step"], runners["reset"]
+        self._packages = packages
 
     def precompile(self) -> "ServingPolicy":
-        raise NotImplementedError(f"precompile: {_COMPILED_CACHE}")
+        """Compiles the step and reset programs for this device with AOTInductor now, and
+        serves through them from here on (a no-op once compiled or loaded from a cache).
+        A sharded (format 2) program keeps its collectives, which run on the process group
+        of the artifact's name, so each rank compiles and caches its own. Returns ``self``."""
+        if self._packages is None:
+            self._use_packages({name: None if p is None else _compile_package(p)
+                                for name, p in self._exported().items()})
+        return self
 
     def save_compiled(self, path: str) -> None:
-        raise NotImplementedError(f"save_compiled: {_COMPILED_CACHE}")
+        """Precompiles, then writes the compiled cache to ``path``: a zip of
+        ``fingerprint.json``, ``step.pt2`` and ``reset.pt2`` (the AOTInductor packages). A
+        later ``ServingPolicy.load(artifact, compiled_cache=path)`` with the same torch, CUDA
+        and device kind starts serving with no compile. The file is published atomically."""
+        if self.used_compiled_cache:
+            raise RuntimeError(
+                "this ServingPolicy was itself loaded from a compiled cache; the cache "
+                "file already exists: copy it instead of writing it again")
+        self.precompile()
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with zipfile.ZipFile(tmp, "w") as zf:
+            zf.writestr("fingerprint.json", json.dumps(self._fingerprint()))
+            for name, data in self._packages.items():
+                if data is not None:
+                    zf.writestr(f"{name}.pt2", data)
+        os.replace(tmp, path)
+
+    def _load_compiled_cache(self, path: str) -> None:
+        try:
+            with zipfile.ZipFile(path) as zf:
+                got, want = json.loads(zf.read("fingerprint.json")), self._fingerprint()
+                if got != want:
+                    raise ValueError(f"compiled cache fingerprint {got} != this runtime's "
+                                     f"{want}")
+                packages = {name: None if data is None else zf.read(f"{name}.pt2")
+                            for name, data in self._program_bytes.items()}
+            self._use_packages(packages)
+            self.used_compiled_cache = True
+        except Exception as e:  # noqa: BLE001 - a stale cache must never block serving
+            warnings.warn(f"ignoring compiled cache {path!r} ({type(e).__name__}: {e}); "
+                          "serving the uncompiled program", RuntimeWarning, stacklevel=4)
 
     # ------------------------------------------------------------------ the stream
 
@@ -348,7 +465,7 @@ class ServingPolicy:
         return (
             f"ServingPolicy(solver={self.meta['solver_name']!r}, "
             f"agents={self._num_agents}, horizon={self.meta['planning_horizon']}, "
-            f"device={self._device})"
+            f"device={self._device}, compiled={self._packages is not None})"
         )
 
 

@@ -193,6 +193,38 @@ class DynamicsHandler:
         """The trainer's state: trainable params, the Adam optimizer and the step count."""
         return self._train_state
 
+    def _tensor(self, x) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x, np.float32) if not torch.is_tensor(x) else x,
+                               dtype=torch.float32, device=self._device)
+
+    @torch.no_grad()
+    def predict(self, states, actions) -> torch.Tensor:
+        """One-step posterior-mean prediction through the whole normalize/denormalize chain,
+        on the handler's device (a diagnostic path: the batch need not divide the
+        ensemble)."""
+        return self._mean_dynamics_fn(self._params, self._tensor(states),
+                                      self._tensor(actions))
+
+    def process_input(self, states, actions) -> torch.Tensor:
+        """The network's input: the normalized states and actions, concatenated (a true model
+        or an unnormalized config: the raw ones)."""
+        states, actions = self._tensor(states), self._tensor(actions)
+        if self._is_true_model or not self._config.normalized:
+            return torch.cat([states, actions], dim=-1)
+        stats = self._params.stats
+        return torch.cat([stats.normalize_states(states), stats.normalize_actions(actions)],
+                         dim=-1)
+
+    def process_output(self, states, raw_targets) -> torch.Tensor:
+        """The next state from a raw network output: denormalized (normalized configs), then
+        added to ``states`` (a true model or ``predict_delta``)."""
+        states, raw_targets = self._tensor(states), self._tensor(raw_targets)
+        if not self._is_true_model and self._config.normalized:
+            raw_targets = self._params.stats.denormalize_targets(raw_targets)
+        if self._is_true_model or self._config.predict_delta:
+            return states + raw_targets
+        return raw_targets
+
     def set_params(self, dp: DynamicsParams) -> None:
         """Replaces the learned model's parameters (shapes must match the config), for
         planning and for further training; the optimizer starts afresh."""

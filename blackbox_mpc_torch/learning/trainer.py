@@ -8,21 +8,21 @@ error on normalized delta targets, or with ``probabilistic=True`` the Gaussian N
 ``mean((mean - target)^2 * exp(-logvar) + logvar)`` with the bounded logvar. The loss is the
 sum over members, so each member's gradient is the one it would get if trained alone, plus
 with learned logvar bounds the band regularizer ``0.01 * (mean(lv_max) - mean(lv_min))``; the
-shared ``[S]`` bounds get every member's gradient. The optimizer is
+shared ``[S]`` bounds get every member's gradient. The default optimizer is
 ``torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)`` on the stacked tensors: optax ``adam``
-with ``eps_root=0``, elementwise.
+with ``eps_root=0``, elementwise; ``make_trainer(optimizer=)`` takes another.
 
 A step's losses stay on the device: the caller decides when to read them.
 
 Data-parallel training (``mesh``, JAX's minibatch sharding): each rank computes the loss on its
 block of the minibatch axis B of ``[E, B, .]``, weighted by its share of the global B, and the
 band regularizer divided by D; the gradients and the losses are then summed over the ranks in
-one flat buffer, and every rank takes the same Adam step, so the weights stay replicated.
+one flat buffer, and every rank takes the same optimizer step, so the weights stay replicated.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
@@ -52,11 +52,11 @@ BOUND_REGULARIZER = 0.01
 @dataclasses.dataclass
 class TrainState:
     """``params``: the layer list ``{"w": [E, in, out], "b": [E, out]}`` (or the learned-bounds
-    dict around it) of leaf tensors that require grad; ``optimizer``: the Adam over them (in
-    :func:`flat_params` order); ``step``: the number of steps taken."""
+    dict around it) of leaf tensors that require grad; ``optimizer``: the optimizer over them
+    (in :func:`flat_params` order), Adam by default; ``step``: the number of steps taken."""
 
     params: Any
-    optimizer: torch.optim.Adam
+    optimizer: torch.optim.Optimizer
     step: int = 0
 
 
@@ -70,13 +70,20 @@ def flat_params(params) -> List[torch.Tensor]:
     return flat
 
 
-def make_trainer(config: LearnedDynamicsConfig, learning_rate: float = 1e-3, mesh=None):
+def make_trainer(config: LearnedDynamicsConfig, learning_rate: float = 1e-3,
+                 optimizer: Optional[Callable[[List[torch.Tensor]], torch.optim.Optimizer]] = None,
+                 mesh=None):
     """Returns ``(init, train_step, eval_step)``.
 
-    * ``init(params) -> TrainState``: trainable copies of ``params`` and a fresh Adam;
+    * ``init(params) -> TrainState``: trainable copies of ``params`` and a fresh optimizer;
     * ``train_step(ts, stats, s, a, ns) -> (ts, member_losses [E])``: batches shaped
       ``[E, B, .]`` on the parameters' device; ``ts`` is updated in place and returned;
     * ``eval_step(params, stats, s, a, ns) -> member_losses [E]``, without autograd.
+
+    ``optimizer``: a callable that takes the trainable tensors in :func:`flat_params` order
+    and returns a ``torch.optim.Optimizer`` over them (JAX's ``optimizer=`` takes an optax
+    transformation); None: ``Adam(lr=learning_rate, betas=ADAM_BETAS, eps=ADAM_EPS)``, optax's
+    ``adam(learning_rate)``.
 
     ``mesh`` (a :class:`~blackbox_mpc_torch.parallel.mesh.PopMesh`): ``train_step`` is
     data-parallel over it, every rank passing the same whole minibatch; the losses it returns
@@ -111,9 +118,10 @@ def make_trainer(config: LearnedDynamicsConfig, learning_rate: float = 1e-3, mes
 
     def init(params) -> TrainState:
         trainable = map_params(lambda v: v.detach().clone().requires_grad_(True), params)
-        optimizer = torch.optim.Adam(flat_params(trainable), lr=learning_rate,
-                                     betas=ADAM_BETAS, eps=ADAM_EPS)
-        return TrainState(params=trainable, optimizer=optimizer)
+        tensors = flat_params(trainable)
+        opt = (torch.optim.Adam(tensors, lr=learning_rate, betas=ADAM_BETAS, eps=ADAM_EPS)
+               if optimizer is None else optimizer(tensors))
+        return TrainState(params=trainable, optimizer=opt)
 
     def train_step(ts: TrainState, stats: NormalizerStats, s, a, ns
                    ) -> Tuple[TrainState, torch.Tensor]:

@@ -19,6 +19,7 @@ from blackbox_mpc_torch.core.types import Bounds, Solver, truncated_normal
 
 __all__ = [
     "SolverConfig",
+    "StateReplace",
     "AdamState",
     "adam_polish",
     "adam_update",
@@ -46,6 +47,15 @@ class SolverConfig:
     max_iterations: int = 5
     # Storage dtype of the solver state between solves; the update math stays float32.
     dtype: torch.dtype = torch.float32
+
+
+class StateReplace:
+    """``state.replace(**changes)``: a copy of a solver state with the given fields changed
+    (``dataclasses.replace``), as JAX's flax struct states have. A low-level caller warm-starts
+    a plan with ``state.replace(mean=...)``."""
+
+    def replace(self, **changes):
+        return dataclasses.replace(self, **changes)
 
 
 def _cast_state(state, dtype):

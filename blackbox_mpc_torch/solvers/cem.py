@@ -64,7 +64,7 @@ def check_config(config: CEMConfig) -> None:
 
 
 @dataclasses.dataclass(frozen=True)
-class CEMState:
+class CEMState(base.StateReplace):
     mean: torch.Tensor  # [A, H, U]
     variance: torch.Tensor  # [A, H, U]
 

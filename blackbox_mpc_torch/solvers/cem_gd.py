@@ -38,7 +38,7 @@ class CEMGDConfig(cem.CEMConfig):
 
 
 @dataclasses.dataclass(frozen=True)
-class CEMGDState:
+class CEMGDState(base.StateReplace):
     mean: torch.Tensor  # [A, H, U]
     variance: torch.Tensor  # [A, H, U]
 

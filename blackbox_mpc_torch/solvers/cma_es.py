@@ -45,7 +45,7 @@ class CMAESConfig(base.SolverConfig):
 
 
 @dataclasses.dataclass(frozen=True)
-class CMAESState:
+class CMAESState(base.StateReplace):
     mean: torch.Tensor  # [A, n]
     sigma: torch.Tensor  # [A, n] per-coordinate step size
     cov: torch.Tensor  # [A, n, n]; diagonal mode: [A, n]

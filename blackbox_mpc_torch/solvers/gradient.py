@@ -33,7 +33,7 @@ class GradientConfig(base.SolverConfig):
 
 
 @dataclasses.dataclass(frozen=True)
-class GradientState:
+class GradientState(base.StateReplace):
     mean: torch.Tensor  # [A, H, U] incumbent plan
 
 

@@ -46,7 +46,7 @@ class MPPIConfig(PI2Config):
 
 
 @dataclasses.dataclass(frozen=True)
-class PI2State:
+class PI2State(base.StateReplace):
     mean: torch.Tensor  # [A, H, U]
 
 

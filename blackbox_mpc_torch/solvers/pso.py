@@ -41,7 +41,7 @@ class PSOConfig(base.SolverConfig):
 
 
 @dataclasses.dataclass(frozen=True)
-class PSOState:
+class PSOState(base.StateReplace):
     positions: torch.Tensor  # [P, A, H, U] ([H, P, A, U] when config.time_major)
     velocities: torch.Tensor  # as positions
     best_positions: torch.Tensor  # as positions

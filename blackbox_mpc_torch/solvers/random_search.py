@@ -24,7 +24,7 @@ class RandomSearchConfig(base.SolverConfig):
 
 
 @dataclasses.dataclass(frozen=True)
-class RandomSearchState:
+class RandomSearchState(base.StateReplace):
     """Random search carries no solver state."""
 
 

@@ -30,7 +30,7 @@ class SPSAConfig(base.SolverConfig):
 
 
 @dataclasses.dataclass(frozen=True)
-class SPSAState:
+class SPSAState(base.StateReplace):
     solution: torch.Tensor  # [A, H, U]
 
 

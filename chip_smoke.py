@@ -138,6 +138,20 @@ It imports nothing of JAX and nothing of the JAX package. Phases, each fatal on 
    sharded artifact: each rank of the gloo world exports an
    eager CEM policy (H=10, population 200) and its ``ServingPolicy`` continues bit for bit
    (greedy, noisy, after a reset); a process outside a 2-rank world is refused it.
+11. The compiled serving cache and the tutorials. Part A, an eager CEM ``MPCPolicy`` at the
+   flagship width cut to H=10, population 200, 2 iterations (phase 10 Part D's cut), exported
+   after one ``act()``: ``precompile`` and ``save_compiled`` (AOTInductor, with a C++ compiler
+   that links OpenMP, ``$CXX`` or the first found), then ``load(compiled_cache=)`` with the
+   compile refused. Gates: the cache is used; three ``act()``s (explore false, true, false), a
+   reset and one more give the saving instance's bits and agree with an uncompiled
+   ServingPolicy within 1e-4; swapped params likewise; a cache of another device kind warns
+   and is not used. Printed: compile, save and load seconds, the cache's bytes, ``act()`` ms
+   of the compiled and uncompiled ServingPolicy and of ``MPCPolicy``, and one traced compiled
+   ``act()``. ``python3 chip_smoke.py --compiled-flagship`` runs Part A alone at the flagship
+   (H=50, 5 iterations). Part B, four tutorials of ``tutorials_torch/`` as subprocesses
+   without ``--cpu`` (low_level_api, true_model_mpc/tutorial_one, deploy, beyond_hbm), each
+   exiting 0 with its result line; beyond_hbm must launch K3, K4 and K6. Part B runs while
+   Part A exports and compiles, and ends before Part A's timings.
 
 The line before the last two is ``{"kernels": [...]}`` (each kernel's launches on phase 5's
 main path, and ``launches_by_path`` on every path that runs it); then the card's name and
@@ -2951,6 +2965,233 @@ def phase10(device, trained, workdir: str, eager_per_byte: float) -> dict:
     return {"part_a": part_a, "part_b": part_b, "part_c": part_c, "part_d": part_d}
 
 
+# Phase 11: the compiled serving cache and the tutorials on the card. Part A compiles the eager
+# CEM step of phase 10 Part D's cut of the flagship (H=10, population 200, 2 iterations); the
+# flagship's own step (H=50, 5 iterations) is compiled by ``--compiled-flagship``, which runs
+# Part A alone at that shape. Part B runs four tutorials as a user would, without --cpu.
+COMPILED_POLICY = dict(planning_horizon=10, population=200, max_iterations=2)
+COMPILED_FLAGSHIP = dict(planning_horizon=HORIZON, max_iterations=ITERS)
+# The compiled programs against the uncompiled ones on the same inputs (Inductor fuses and
+# reorders reductions): relative to max(1, max |uncompiled|), on the action, the predictions,
+# the expected reward and the plan.
+COMPILED_TOL = 1e-4
+COMPILED_STEPS = ((1, False), (2, True), (3, False))
+# Each tutorial with tests/test_torch_tutorials.py's arguments and the line it must print.
+TUTORIALS_ON_CARD = {
+    "low_level_api/tutorial_one.py": ([], r"episode reward \S+, final cos"),
+    "true_model_mpc/tutorial_one.py": (["--steps", "40"], r"CEM: episode reward \S+, act p50"),
+    "deploy/tutorial_one.py": (["--steps", "30"],
+                               r"compiled cache: .* used_compiled_cache=True"),
+    "beyond_hbm/tutorial_one.py": (["--population", "256"], r"(?m)^OK$"),
+}
+# Runs a tutorial as __main__ in this process, then prints the kernels' launch counts.
+_COUNTED = """
+import json, runpy, sys
+from chip_smoke import read_launches, zero_launches
+counters = zero_launches()
+sys.argv = sys.argv[1:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+print(json.dumps({"launches": read_launches(counters)}))
+"""
+
+
+def cxx_with_openmp() -> str:
+    """The C++ compiler AOTInductor builds its packages with: ``$CXX`` if set, else the first
+    of ``g++`` on the PATH, ``/usr/bin/g++`` and ``clang++`` that links an OpenMP program (the
+    packages' code links libgomp). It becomes ``CXX`` of this process and its children."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch._inductor.config as inductor_config
+
+    candidates = [os.environ.get("CXX"), shutil.which("g++"), "/usr/bin/g++",
+                  shutil.which("clang++")]
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(f"{tmp}/t.cpp", "w") as f:
+            f.write("#include <omp.h>\nint main() { return omp_get_max_threads() > 0 ? 0 : 1; }\n")
+        for cxx in candidates:
+            if not cxx or not os.path.exists(cxx):
+                continue
+            out = subprocess.run([cxx, "-fopenmp", f"{tmp}/t.cpp", "-o", f"{tmp}/t"],
+                                 capture_output=True, text=True)
+            if out.returncode == 0:
+                os.environ["CXX"] = cxx
+                inductor_config.cpp.cxx = (None, cxx)
+                return cxx
+            print(f"compiled cache: {cxx} cannot link OpenMP: {out.stderr[-300:]}", flush=True)
+    raise AssertionError(f"no C++ compiler links OpenMP among {candidates}")
+
+
+def rel_err(got, want) -> float:
+    import numpy as np
+
+    got, want = (np.asarray(x, np.float64) for x in (got, want))
+    return float(np.abs(got - want).max() / max(1.0, float(np.abs(want).max())))
+
+
+def compiled_cache_on_card(device, workdir: str, settings=COMPILED_POLICY) -> tuple:
+    """Part A's gates: an eager CEM ``MPCPolicy`` at the flagship width (``settings`` cut its
+    depth) exported after one ``act()``; ``precompile`` then ``save_compiled`` on one
+    ServingPolicy, and ``load(compiled_cache=)`` into another with AOTInductor's compile
+    refused. Gates: the cache is used; three ``act()``s (explore false, true, false), a reset
+    and one more give the saving instance's bits, and agree with an uncompiled ServingPolicy at
+    the same stream point within COMPILED_TOL; swapped params act as the uncompiled instance
+    given them, within COMPILED_TOL; a cache with another device kind warns and is not used.
+    Returns the measured seconds and sizes, and the three policies that
+    :func:`compiled_cache_times` times."""
+    import os
+    import warnings
+    import zipfile
+
+    import numpy as np
+    import torch
+
+    from blackbox_mpc_torch.deploy import ServingPolicy, export_policy_artifact
+    from blackbox_mpc_torch.models.dynamics import map_params
+
+    smi = nvidia_smi()
+    cxx = cxx_with_openmp()
+    obs = np.zeros(17, np.float32)
+    path, cache = f"{workdir}/compiled.bbmpc", f"{workdir}/compiled.cache"
+    policy = flagship_policy(device, flagship_handler(device), "eager", **settings)
+    policy.act(obs)  # mid-episode: the artifact resumes the state and the stream
+    t0 = time.perf_counter()
+    export_policy_artifact(policy, path)
+    export_s = time.perf_counter() - t0
+    saver, plain = ServingPolicy.load(path), ServingPolicy.load(path)
+    t0 = time.perf_counter()
+    saver.precompile()
+    compile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    saver.save_compiled(cache)
+    save_s = time.perf_counter() - t0
+    compile_fn = torch._inductor.aoti_compile_and_package
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("compiled cache: loading the cache compiled a program")
+
+    torch._inductor.aoti_compile_and_package = refuse
+    try:
+        t0 = time.perf_counter()
+        cached = ServingPolicy.load(path, compiled_cache=cache)
+        load_s = time.perf_counter() - t0
+    finally:
+        torch._inductor.aoti_compile_and_package = compile_fn
+    if not cached.used_compiled_cache:
+        raise AssertionError("compiled cache: load(compiled_cache=) did not use the cache")
+
+    def step(srv, t, explore):
+        return srv.act(obs, t, exploration_noise=explore) + srv.plan()
+
+    err = 0.0
+    for i, (t, explore) in enumerate(COMPILED_STEPS + ((4, False),)):
+        if i == len(COMPILED_STEPS):
+            for srv in (saver, cached, plain):
+                srv.reset()
+        a, b, c = (step(srv, t, explore) for srv in (saver, cached, plain))
+        if not all(same_bits(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"compiled cache: act(t={t}) differs from the saving "
+                                 "instance's bits")
+        err = max(err, max(rel_err(x, y) for x, y in zip(a, c)))
+    if err > COMPILED_TOL:
+        raise AssertionError(f"compiled cache: compiled and uncompiled differ by {err}")
+    new = policy.dynamics_handler.dynamics_params
+    new = new.replace(params=map_params(lambda v: v + 0.01, new.params))
+    for srv in (cached, plain):
+        srv.update_dynamics_params(new)
+    swap_err = max(rel_err(x, y) for x, y in zip(step(cached, 5, False), step(plain, 5, False)))
+    if swap_err > COMPILED_TOL:
+        raise AssertionError(f"compiled cache: swapped params differ by {swap_err}")
+    stale = f"{workdir}/stale.cache"
+    with zipfile.ZipFile(cache) as src, zipfile.ZipFile(stale, "w") as dst:
+        for name in src.namelist():
+            data = src.read(name)
+            if name == "fingerprint.json":
+                data = json.dumps({**json.loads(data), "device_kind": "another card"})
+            dst.writestr(name, data)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        refused = ServingPolicy.load(path, compiled_cache=stale)
+    if refused.used_compiled_cache or not any(
+            issubclass(w.category, RuntimeWarning)
+            and str(w.message).startswith("ignoring compiled cache") for w in caught):
+        raise AssertionError("compiled cache: a cache of another device kind was not refused")
+    res = {"compiled_cache": "bit for bit with the saving instance", "settings": settings,
+           "cxx": cxx, "export_s": export_s, "compile_s": compile_s, "save_s": save_s,
+           "load_s": load_s, "cache_bytes": os.path.getsize(cache),
+           "artifact_bytes": os.path.getsize(path),
+           "compiled_vs_uncompiled_rel_err": err, "params_swap_rel_err": swap_err,
+           "stale_cache_refused": True, "card": smi}
+    return res, {"compiled ServingPolicy": cached, "uncompiled ServingPolicy": plain,
+                 "MPCPolicy": policy}
+
+
+def compiled_cache_times(res: dict, policies: dict) -> dict:
+    """Part A's timings, with nothing else on the card: the ``act()`` ms of the compiled and
+    the uncompiled ServingPolicy and of ``MPCPolicy.act`` on the same observation, and one
+    traced compiled ``act()`` (waits, idle share). Prints Part A with the card's name and
+    power limit."""
+    import numpy as np
+
+    obs = np.zeros(17, np.float32)
+    times = {label: act_ms(policy, obs, 5) for label, policy in policies.items()}
+    trace = trace_act(policies["compiled ServingPolicy"], obs, "compiled ServingPolicy")
+    res = {**res, "act_ms": {k: float(np.median(v)) for k, v in times.items()},
+           "act_ms_all": times,
+           "traced_act": {k: trace[k] for k in ("stream_syncs", "event_syncs",
+                                                "device_idle_share", "device_ops",
+                                                "act_window_us")}}
+    print(json.dumps({"phase11_part_a": res}), flush=True)
+    return res
+
+
+@contextlib.contextmanager
+def tutorials_running():
+    """Part B: four tutorials of ``tutorials_torch/`` as subprocesses without ``--cpu``, all
+    started together, each under a wrapper that prints the kernels' launch counts. Yields
+    what :func:`finish_tutorials` takes; every process is stopped on the way out."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    procs = {}
+    try:
+        for name, (extra, _) in TUTORIALS_ON_CARD.items():
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-c", _COUNTED, f"{root}/tutorials_torch/{name}", *extra],
+                cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        yield time.perf_counter(), procs
+    finally:
+        for proc in procs.values():
+            proc.kill()
+            proc.wait()
+
+
+def finish_tutorials(started: tuple) -> dict:
+    """Part B's gates: each tutorial exits 0 and prints its result line; ``beyond_hbm``
+    launches K3, K4 and K6."""
+    import re
+
+    t0, procs = started
+    res = {}
+    for name, proc in procs.items():
+        out, err = proc.communicate(timeout=600)
+        pattern = TUTORIALS_ON_CARD[name][1]
+        if proc.returncode != 0 or not re.search(pattern, out):
+            raise AssertionError(f"tutorial {name}: exit code {proc.returncode}, output "
+                                 f"{out[-1500:]}\n{err[-3000:]}")
+        lines = [ln for ln in out.splitlines() if ln.strip()]
+        res[name] = {"result": lines[-2] if len(lines) > 1 else "",
+                     "launches": json.loads(lines[-1])["launches"]}
+    fused = res["beyond_hbm/tutorial_one.py"]["launches"]
+    if not all(fused[k] for k in ("fused_rollout", "elite_moments", "draw_rows")):
+        raise AssertionError(f"tutorial beyond_hbm: K3, K4 and K6 did not all launch: {fused}")
+    out = {"tutorials": res, "seconds": time.perf_counter() - t0, "card": nvidia_smi()}
+    print(json.dumps({"phase11_part_b": out}), flush=True)
+    return out
+
+
 def main() -> int:
     import tempfile
 
@@ -2968,6 +3209,11 @@ def main() -> int:
     device = resolve_device(None)
     smi = nvidia_smi()
     print(f"device: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    if "--compiled-flagship" in sys.argv[1:]:  # phase 11 Part A alone, at the flagship
+        with tempfile.TemporaryDirectory() as workdir:
+            compiled_cache_times(*compiled_cache_on_card(device, workdir, COMPILED_FLAGSHIP))
+        print(smi)
+        return 0
 
     t0 = time.perf_counter()
     logs = _build.build("rollout", "fused_cem")
@@ -3024,8 +3270,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         tenth = phase10(device, mbrl["fused"]["handler"], workdir,
                         ninth["auto"]["memory"]["peak_per_candidate_byte"]["eager"])
-    # The launches of each kernel on each path that runs it: phase 5's drives, phase 9's and
-    # phase 10's.
+    # Phase 11: Part B's tutorials run while Part A exports and compiles (both compile on the
+    # host), and end before Part A's timings.
+    cxx_with_openmp()  # the deploy tutorial compiles too
+    with tempfile.TemporaryDirectory() as workdir, tutorials_running() as started:
+        part_a, policies = compiled_cache_on_card(device, workdir)
+        tutorials = finish_tutorials(started)["tutorials"]
+        compiled_cache_times({**part_a, "compiled_beside": list(TUTORIALS_ON_CARD)}, policies)
+    # The launches of each kernel on each path that runs it: phase 5's drives, phase 9's,
+    # phase 10's and phase 11's tutorials.
     paths = {"kernel CEM act()": kernel_run["launches"],
              "fused CEM act()": fused_run["launches"],
              "fused iCEM act()": family["fused iCEM"]["launches"],
@@ -3035,7 +3288,8 @@ def main() -> int:
                  "launches"],
              "sharded fused CEM act() (1-rank NCCL)": tenth["part_a"]["CEM"]["launches"],
              "sharded fused RandomSearch act() (1-rank NCCL)":
-                 tenth["part_a"]["RandomSearch"]["launches"]}
+                 tenth["part_a"]["RandomSearch"]["launches"],
+             **{f"tutorial {name}": run["launches"] for name, run in tutorials.items()}}
 
     # The first case of each kernel is mean/f32 (K6: the 50-elite mask; draw_rows: the iCEM
     # shape), as the policy ran. K6's and draw_rows' ms is the device's, host_ms the host's.

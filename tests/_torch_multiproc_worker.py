@@ -209,7 +209,12 @@ def handler(mesh, inp) -> dict:
 def artifact(mesh, inp) -> dict:
     """Each shard axis: an eager CEM policy on the pendulum acts once, exports this rank's
     artifact and goes on beside the ``ServingPolicy`` loaded from it: a greedy, a noisy and a
-    post-reset ``act()`` of each (``{"axis": (meta, live actions, served actions)}``)."""
+    post-reset ``act()`` of each (``{"axis": (meta, live actions, served actions)}``).
+
+    ``"compiled"``, on the population axis: this rank's programs compiled with AOTInductor
+    (collectives included) by an instance that saves this rank's cache, and an instance loaded
+    from that cache; the same three ``act()``s of each, whether the cache was used, and the
+    cache's fingerprint."""
     from blackbox_mpc_torch.deploy import ServingPolicy, export_policy_artifact
 
     out = {}
@@ -222,13 +227,22 @@ def artifact(mesh, inp) -> dict:
         live.act(obs, 0)
         path = f"{inp['artifact_dir']}/{axis}.rank{mesh.rank}.bbmpc"
         meta = export_policy_artifact(live, path, dim_s=3)
-        served = ServingPolicy.load(path, device="cpu")
+        policies = [live, ServingPolicy.load(path, device="cpu")]
+        if axis == "population":
+            cache = f"{inp['artifact_dir']}/{axis}.rank{mesh.rank}.cache"
+            saver = ServingPolicy.load(path, device="cpu")
+            saver.save_compiled(cache)
+            policies += [saver, ServingPolicy.load(path, device="cpu", compiled_cache=cache)]
         acts = []
-        for policy in (live, served):
+        for policy in policies:
             steps = [policy.act(obs, 1)[0], policy.act(obs, 2, exploration_noise=True)[0]]
             policy.reset()
             acts.append(np.stack(steps + [policy.act(obs, 3)[0]]))
-        out[axis] = (dict(served.meta), *acts)
+        out[axis] = (dict(policies[1].meta), *acts[:2])
+        if axis == "population":
+            out["compiled"] = {"saver": acts[2], "cached": acts[3],
+                               "used": policies[3].used_compiled_cache,
+                               "fingerprint": policies[3]._fingerprint()}
     return out
 
 

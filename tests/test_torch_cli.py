@@ -115,7 +115,7 @@ def test_export_writes_loadable_artifact(tmp_path):
 
 def test_serve_json_lines_protocol(tmp_path):
     """export -> serve: the stdin/stdout action server answers act, reset, a malformed
-    request (one error line) and close; --compiled-cache is not ported and exits 2."""
+    request (one error line) and close."""
     art = str(tmp_path / "ctrl.bbmpc")
     _export(art)
     requests = "\n".join([
@@ -136,9 +136,29 @@ def test_serve_json_lines_protocol(tmp_path):
     assert len(lines[1]["action"]) == 1 and lines[2] == {"ok": True}
     assert len(lines[3]["action"]) == 1 and "error" in lines[4] and "error" in lines[5]
     assert len(lines) == 6
-    out = _run(["serve", art, "--cpu", "--compiled-cache", str(tmp_path / "c")], stdin="")
-    assert out.returncode == 2 and "not ported" in out.stderr
-    assert "Traceback" not in out.stderr
+
+
+def test_serve_compiled_cache_round_trip(tmp_path):
+    """serve --compiled-cache: the first run compiles the artifact's programs and writes the
+    cache (used_compiled_cache false), the second loads it (true); both serve the artifact's
+    stream with the same compiled programs, so their actions agree bit for bit, and they
+    agree with the uncompiled server within 1e-5."""
+    art, cache = str(tmp_path / "ctrl.bbmpc"), str(tmp_path / "ctrl.cache")
+    _export(art)
+    requests = "\n".join([json.dumps({"obs": OBS, "t": 0}), json.dumps({"cmd": "reset"}),
+                          json.dumps({"obs": OBS, "t": 1}), json.dumps({"cmd": "close"})]) + "\n"
+    runs = []
+    for args in ([], ["--compiled-cache", cache], ["--compiled-cache", cache]):
+        out = _run(["serve", art, "--cpu", *args], stdin=requests, timeout=600)
+        assert out.returncode == 0, out.stderr[-800:]
+        runs.append([json.loads(ln) for ln in out.stdout.strip().splitlines()])
+    assert [run[0]["used_compiled_cache"] for run in runs] == [False, False, True]
+    assert os.path.getsize(cache) > 0 and not [p for p in os.listdir(tmp_path) if ".tmp" in p]
+    assert runs[1][1:] == runs[2][1:] and len(runs[2]) == 4
+    for compiled, plain in zip(runs[2][1:], runs[0][1:]):
+        for key in ("action", "predicted_next_obs", "predicted_reward"):
+            if key in plain:
+                np.testing.assert_allclose(compiled[key], plain[key], rtol=0, atol=1e-5)
 
 
 def test_inspect_prints_artifact_metadata(tmp_path):

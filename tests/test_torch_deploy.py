@@ -317,22 +317,6 @@ def test_serving_policy_drives_perform_rollouts(tmp_path):
     assert result["latency"]["count"] == 10
 
 
-def test_compiled_cache_is_not_ported(tmp_path):
-    """The XLA executable cache of the JAX package (precompile, save_compiled,
-    compiled_cache=) has no counterpart yet: each raises NotImplementedError."""
-    pol = _true_model_policy("CEM")
-    art = str(tmp_path / "pol.bbmpc")
-    export_policy_artifact(pol, art, dim_s=3)
-    with pytest.raises(NotImplementedError, match="compiled cache"):
-        ServingPolicy.load(art, device="cpu", compiled_cache=str(tmp_path / "pol.cache"))
-    srv = ServingPolicy.load(art, device="cpu")
-    with pytest.raises(NotImplementedError, match="compiled cache"):
-        srv.precompile()
-    with pytest.raises(NotImplementedError, match="compiled cache"):
-        srv.save_compiled(str(tmp_path / "pol.cache"))
-    assert not os.path.exists(tmp_path / "pol.cache")
-
-
 def test_overlap_pipelining_rejects_serving_policy(tmp_path):
     from blackbox_mpc_torch import perform_rollouts
     from blackbox_mpc_torch.envs import NativePendulumVecEnv

@@ -76,3 +76,37 @@ def test_main_module_runs_the_cli_without_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "CEM:" in out.stdout
+
+
+_BLOCKED = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "blackbox_mpc_tpu"):
+    sys.modules[name] = None  # any import of these raises ImportError
+import blackbox_mpc_torch
+from blackbox_mpc_torch import (SOLVER_REGISTRY, BoxSpace, Solver, SolverAux, as_box_space,
+                                make_solver, make_trajectory_evaluator)
+print(" ".join(blackbox_mpc_torch.__all__))
+"""
+
+
+def test_top_level_names_cover_the_reference_without_jax():
+    """Every name of the JAX package's ``__all__`` is exported by the port's top level, which
+    imports in a process where ``jax`` cannot be imported."""
+    import blackbox_mpc_tpu
+
+    out = subprocess.run([sys.executable, "-c", _BLOCKED], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    port = set(out.stdout.split())
+    assert set(blackbox_mpc_tpu.__all__) <= port, set(blackbox_mpc_tpu.__all__) - port
+
+
+def test_top_level_names_are_the_subpackages_objects():
+    import blackbox_mpc_torch as port
+    from blackbox_mpc_torch import core, rollout, solvers
+
+    assert port.make_solver is solvers.make_solver
+    assert port.SOLVER_REGISTRY is solvers.SOLVER_REGISTRY
+    assert port.make_trajectory_evaluator is rollout.make_trajectory_evaluator
+    for name in ("BoxSpace", "as_box_space", "Solver", "SolverAux", "Bounds"):
+        assert getattr(port, name) is getattr(core, name)

@@ -190,6 +190,60 @@ def test_trainer_matches_jax(ensemble, dtype):
             np.atleast_1d(np.asarray(j_eval(jts.params, jstats, bs, ba, bns))), rtol=LOSS_RTOL)
 
 
+# SGD through make_trainer(optimizer=) against optax.sgd: the same weights, batches and rate,
+# 5 steps, parameters and losses within 1e-5 (plain SGD has no division to amplify the order of
+# the float32 reductions).
+SGD_TOL = 1e-5
+
+
+def test_optimizer_factory_of_adam_trains_as_learning_rate():
+    """``optimizer=`` a factory of ``Adam(lr=1e-2)`` with the default betas and eps trains
+    bit for bit as ``learning_rate=1e-2``."""
+    from blackbox_mpc_torch.learning.trainer import ADAM_BETAS, ADAM_EPS
+
+    _, cfg = configs(3)
+    dp = DynamicsHandler(cfg, seed=4, device="cpu").dynamics_params
+    s, a, ns = transitions(256, 5)
+    batches = [tuple(torch.as_tensor(x[i * 32:(i + 1) * 32][None].repeat(3, 0))
+                     for x in (s, a, ns)) for i in range(5)]
+    runs = []
+    for kwargs in ({"learning_rate": 1e-2},
+                   {"optimizer": lambda p: torch.optim.Adam(p, lr=1e-2, betas=ADAM_BETAS,
+                                                            eps=ADAM_EPS)}):
+        init, step, _ = make_trainer(cfg, **kwargs)
+        ts = init(dp.params)
+        losses = [step(ts, dp.stats, *b)[1] for b in batches]
+        assert isinstance(ts.optimizer, torch.optim.Adam) and ts.step == 5
+        runs.append(losses + flat_params(ts.params))
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+
+
+def test_optimizer_factory_of_sgd_matches_optax_sgd():
+    """An SGD factory over the flat parameters matches JAX's ``make_trainer(optimizer=
+    optax.sgd(lr))`` for 5 steps on the same weights and batches, at SGD_TOL."""
+    import optax
+
+    jcfg, tcfg = configs(2)
+    jdp = jmodels.make_learned_dynamics(jcfg)[0](jax.random.PRNGKey(2))
+    s, a, ns = transitions(300, 9)
+    jstats = jmodels.fit_normalizer(jnp.asarray(s), jnp.asarray(a), jnp.asarray(ns - s))
+    tdp = dynamics_params_from_numpy(np_params(jdp.params), np_stats(jstats), tcfg, device="cpu")
+    j_init, j_step, _ = j_make_trainer(jcfg, optimizer=optax.sgd(0.05))
+    t_init, t_step, _ = make_trainer(tcfg, optimizer=lambda p: torch.optim.SGD(p, lr=0.05))
+    jts, tts = j_init(jdp.params), t_init(tdp.params)
+    assert isinstance(tts.optimizer, torch.optim.SGD)
+    replay = JReplay(3, 1, seed=1)
+    replay.add_transitions(s, a, ns)
+    batches = [b for _ in range(3) for b in replay.minibatches(64, 2)][:5]
+    assert len(batches) == 5
+    for bs, ba, bns in batches:
+        jts, jl = j_step(jts, jstats, bs, ba, bns)
+        tts, tl = t_step(tts, tdp.stats, *(torch.as_tensor(x) for x in (bs, ba, bns)))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=SGD_TOL, atol=SGD_TOL)
+    assert_params_close(tts.params, np_params(jts.params), SGD_TOL)
+
+
 def test_trainer_refuses_what_is_not_ported():
     """Nothing is refused any more: the Gaussian NLL is ported
     (tests/test_torch_probabilistic.py), and so is ``mesh`` (data-parallel training,
@@ -264,6 +318,35 @@ def test_handler_train_matches_jax(ensemble, patience, lr, noise):
             np.testing.assert_allclose(getattr(th.dynamics_params.stats, f).numpy(),
                                        np.asarray(getattr(jh.dynamics_params.stats, f)),
                                        rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("model", ["learned", "learned delta off", "true model"])
+def test_handler_predict_and_processing_match_jax(model):
+    """``predict``, ``process_input`` and ``process_output`` of a handler with fitted stats
+    (one ``train()``) against the JAX handler's, on the same weights, at LOSS_RTOL."""
+    if model == "true model":
+        jh = JHandler(true_model=jmodels.pendulum_dynamics)
+        th = DynamicsHandler(true_model=tmodels.pendulum_dynamics, device="cpu")
+    else:
+        import dataclasses
+
+        jcfg, tcfg = (dataclasses.replace(c, predict_delta=model == "learned")
+                      for c in configs(3))
+        jh = JHandler(config=jcfg, seed=3)
+        th = DynamicsHandler(tcfg, seed=3, device="cpu")
+        obs, acts = rollouts(2, 20)
+        jh.train(obs, acts, epochs=1, batch_size=32)
+        th.train(obs, acts, epochs=1, batch_size=32)
+        dp = jh.dynamics_params
+        th.set_params(dynamics_params_from_numpy(np_params(dp.params), np_stats(dp.stats),
+                                                 th.config, device="cpu"))
+    s, a, ns = transitions(37, 5)  # 37 rows: the batch need not divide the ensemble
+    for name, args in (("predict", (s, a)), ("process_input", (s, a)),
+                       ("process_output", (s, ns - s))):
+        got = getattr(th, name)(*args)
+        assert torch.is_tensor(got) and got.device == th.device
+        np.testing.assert_allclose(got.numpy(), np.asarray(getattr(jh, name)(*args)),
+                                   rtol=LOSS_RTOL, atol=1e-6, err_msg=name)
 
 
 def test_handler_planning_params_do_not_alias_training():

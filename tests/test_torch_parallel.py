@@ -284,6 +284,21 @@ def test_sharded_artifact_continues_bit_for_bit(world, axis):
         ServingPolicy.load(f"{world[1]['artifact_dir']}/{axis}.rank0.bbmpc", device="cpu")
 
 
+def test_sharded_artifact_compiled_cache_per_rank(world):
+    """Each rank compiles its own format-2 programs (their all-reduce included) with
+    AOTInductor and saves its own cache; the instance loaded from it uses it and acts bit for
+    bit as the saving one, and within 1e-5 of the live policy. The fingerprint pins the world
+    size and the rank."""
+    for rank, results in enumerate(world[0]):
+        compiled = results["artifact"]["compiled"]
+        live = results["artifact"]["population"][1]
+        assert compiled["used"]
+        np.testing.assert_array_equal(compiled["cached"], compiled["saver"])
+        np.testing.assert_allclose(compiled["saver"], live, rtol=0, atol=1e-5)
+        assert compiled["fingerprint"]["nr_devices"] == 2
+        assert compiled["fingerprint"]["rank"] == rank
+
+
 def test_multihost_helpers_in_the_world(world):
     first, second = (r["multihost"] for r in world[0])
     assert first["slice"] == slice(0, 2) and second["slice"] == slice(2, 5)
