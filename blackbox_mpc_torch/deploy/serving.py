@@ -240,6 +240,9 @@ class ServingPolicy:
                 self._generators[name].set_state(state_bytes)
         # The exploration noise's inputs when act() is not asked for it: zeros, drawn never.
         self._no_explore = tuple(self._zeros(spec) for spec in self._draws["explore"])
+        # act()'s flag, both values on the device once: a copy in at every act() would make
+        # the host wait.
+        self._explore_flags = {flag: torch.tensor(flag, device=device) for flag in (False, True)}
         self._last_plan = None
         self._last_expected_reward = None
 
@@ -371,6 +374,14 @@ class ServingPolicy:
                           dtype=getattr(torch, spec["dtype"])))
         return tuple(out)
 
+    def _step_index(self, t: int) -> torch.Tensor:
+        """``t`` as the program's int64 input; on CUDA copied from pinned memory, so the host
+        does not wait for the device."""
+        host = torch.tensor(int(t), dtype=torch.int64)
+        if self._device.type == "cuda":
+            return host.pin_memory().to(self._device, non_blocking=True)
+        return host.to(self._device)
+
     # ------------------------------------------------------------------ public API
 
     @property
@@ -401,8 +412,7 @@ class ServingPolicy:
         noise = self._draw(self._draws["explore"]) if explore else self._no_explore
         action, self._state, expected, plan, next_obs, reward = self._step(
             self._state, self._params, self._proposer, torch.as_tensor(obs, device=self._device),
-            torch.tensor(int(t), dtype=torch.int64, device=self._device),
-            torch.tensor(explore, device=self._device), draws, noise,
+            self._step_index(t), self._explore_flags[explore], draws, noise,
         )
         self._last_plan, self._last_expected_reward = plan, expected
         flat = torch.cat([action.reshape(-1), next_obs.reshape(-1), reward.reshape(-1)])

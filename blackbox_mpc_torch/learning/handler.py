@@ -11,8 +11,10 @@ calibration after each ``train()`` (:mod:`~blackbox_mpc_torch.learning.calibrati
 
 Checkpoints: :meth:`save` writes ``config.json`` in the JAX package's format (version stamp,
 replay keys, the config with ``compute_dtype`` by name, the counters) and a ``torch.save``
-payload beside it (params, Adam state, step, stats, the replay with its RNG state). A JAX
-checkpoint (Orbax) is read where JAX is and carried over through
+payload beside it (params, Adam state, step, stats, the replay with its RNG state).
+:meth:`load` also reads a directory the JAX package saved (``config.json`` beside an Orbax
+``checkpoint/``) with :func:`~blackbox_mpc_torch.learning.orbax_read.restore_pytree`, which
+needs no JAX or Orbax, and carries it over through
 :func:`~blackbox_mpc_torch.models.convert.handler_from_numpy`.
 """
 from __future__ import annotations
@@ -49,6 +51,7 @@ __all__ = ["CHECKPOINT_FORMAT_VERSION", "DynamicsHandler", "config_from_json", "
 # The JAX package's training-checkpoint stamp: 1 adds the replay-key manifest.
 CHECKPOINT_FORMAT_VERSION = 1
 _PAYLOAD = "checkpoint.pt"
+_ORBAX_TREE = "checkpoint"  # the JAX package's Orbax pytree beside config.json
 
 
 def config_to_json(config: LearnedDynamicsConfig) -> dict:
@@ -426,9 +429,10 @@ class DynamicsHandler:
 
     @classmethod
     def load(cls, directory: str, **kwargs) -> "DynamicsHandler":
-        """Restores a handler saved with :meth:`save`; ``kwargs`` go to the constructor (for
-        example ``device``, ``learning_rate``). The planning params are the saved trainable
-        ones, as in the JAX package."""
+        """Restores a handler saved with :meth:`save`, or with the JAX package's
+        ``DynamicsHandler.save`` (an Orbax ``checkpoint/`` and no payload); ``kwargs`` go to
+        the constructor (for example ``device``, ``learning_rate``). The planning params are
+        the saved trainable ones, as in the JAX package."""
         directory = os.path.abspath(directory)
         with open(os.path.join(directory, "config.json")) as f:
             meta = json.load(f)
@@ -437,6 +441,9 @@ class DynamicsHandler:
             raise ValueError(
                 f"checkpoint {directory} has format_version={version}, newer than this "
                 f"build supports ({CHECKPOINT_FORMAT_VERSION})")
+        if (not os.path.exists(os.path.join(directory, _PAYLOAD))
+                and os.path.isdir(os.path.join(directory, _ORBAX_TREE))):
+            return _load_orbax(directory, meta, **kwargs)
         handler = cls(config=config_from_json(meta["config"]), **kwargs)
         payload = torch.load(os.path.join(directory, _PAYLOAD), map_location=handler.device,
                              weights_only=False)
@@ -457,3 +464,25 @@ class DynamicsHandler:
         self._replay.load_state_dict(replay_state)
         self._train_calls = int(meta["train_calls"])
         self._stats_fitted = bool(meta["stats_fitted"])
+
+
+def _load_orbax(directory: str, meta: dict, **kwargs) -> DynamicsHandler:
+    """A handler from the JAX package's checkpoint, by the JAX loader's rules: the replay
+    restored as ``config.json``'s ``replay_keys`` list it; an unstamped checkpoint as saved,
+    so one without ``replay["rng"]`` keeps the fresh stream (JAX ``handler.py:416-431``)."""
+    from blackbox_mpc_torch.learning.orbax_read import restore_pytree
+    from blackbox_mpc_torch.models.convert import handler_from_numpy
+
+    tree = restore_pytree(os.path.join(directory, _ORBAX_TREE))
+    replay = tree["replay"]
+    keys = meta.get("replay_keys")
+    if keys is not None:
+        missing = sorted(set(keys) - set(replay))
+        if missing:
+            raise ValueError(f"checkpoint {directory}: replay keys {missing} of config.json "
+                             "are not in the checkpoint")
+        replay = {k: replay[k] for k in keys}
+    handler = handler_from_numpy(meta, tree["params"], tree["opt_state"], tree["step"],
+                                 tree["stats"], replay, **kwargs)
+    logger.info("restored the JAX package's dynamics checkpoint from %s", directory)
+    return handler

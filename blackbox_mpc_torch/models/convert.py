@@ -8,7 +8,8 @@ attributes. With the same weights the port computes what the JAX package compute
 
 :func:`handler_from_numpy` carries a whole training checkpoint of the JAX package over: the
 config, params, Adam state, step, stats and replay, as JAX's ``DynamicsHandler.load`` returns
-them converted to numpy (Orbax is read where JAX is, not here).
+them converted to numpy, or as :func:`~blackbox_mpc_torch.learning.orbax_read.restore_pytree`
+reads them from its Orbax checkpoint (``DynamicsHandler.load`` does so).
 
 :func:`proposer_from_numpy` carries the JAX package's ``PolicyProposer.state_dict()`` (as
 numpy) into the port's ``PolicyProposer``: the params and optax's Adam state. A loop

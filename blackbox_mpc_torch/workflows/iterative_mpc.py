@@ -73,8 +73,11 @@ def learn_dynamics_iteratively_w_mpc(
     ``bc_hidden``) is behaviour-cloned for ``bc_epochs`` on the replay after the bootstrap and
     after every refinement (``proposer/bc_loss``) and seeds the solver's plan at every solve;
     it is returned as ``policy.proposer`` and checkpointed beside ``handler/`` as
-    ``proposer/proposer.pt`` (a ``torch.save`` payload). ``resume=True`` restores it, or reads
-    the JAX package's legacy ``proposer.npy``.
+    ``proposer/proposer.pt`` (a ``torch.save`` payload). ``resume=True`` restores it.
+
+    ``resume=True`` also continues a loop directory the JAX package wrote: its ``handler/``
+    (Orbax) through ``DynamicsHandler.load``, its Orbax ``proposer/`` or legacy
+    ``proposer.npy``; the loop then checkpoints in the port's format.
     """
     if solver_learning_rate is not None:
         lr_field = "gd_learning_rate" if solver_name == "CEM-GD" else "learning_rate"
@@ -180,8 +183,10 @@ def learn_dynamics_iteratively_w_mpc(
 def _make_proposer(env, handler: DynamicsHandler, resume_dir: Optional[str], bc_epochs: int,
                    bc_hidden: tuple, seed: int):
     """The loop's proposer: restored from ``resume_dir`` (the port's payload, else the JAX
-    package's legacy ``proposer.npy``) or behaviour-cloned on the bootstrap replay."""
+    package's Orbax ``proposer/`` or its legacy ``proposer.npy``) or behaviour-cloned on the
+    bootstrap replay."""
     from blackbox_mpc_torch.core.types import Bounds
+    from blackbox_mpc_torch.learning.orbax_read import restore_pytree
     from blackbox_mpc_torch.learning.proposer import PolicyProposer, ProposerConfig
     from blackbox_mpc_torch.models.convert import load_legacy_npy, proposer_from_numpy
 
@@ -195,10 +200,16 @@ def _make_proposer(env, handler: DynamicsHandler, resume_dir: Optional[str], bc_
     bounds = Bounds.from_space(env.action_space)
     proposer = PolicyProposer(config, bounds, seed=seed, device=handler.device)
     payload = os.path.join(resume_dir, *_PROPOSER_PAYLOAD) if resume_dir else None
+    orbax = os.path.join(resume_dir, _PROPOSER_PAYLOAD[0]) if resume_dir else None
     legacy = os.path.join(resume_dir, "proposer.npy") if resume_dir else None
     if payload and os.path.exists(payload):
         proposer.load_state_dict(torch.load(payload, map_location=handler.device))
         logger.info("resumed proposer from %s", payload)
+    elif orbax and os.path.exists(os.path.join(orbax, "_METADATA")):
+        restored = proposer_from_numpy(restore_pytree(orbax), config, bounds,
+                                       device=handler.device)
+        proposer.load_state_dict(restored.state_dict())
+        logger.info("resumed proposer from the JAX package's %s", orbax)
     elif legacy and os.path.exists(legacy):
         restored = proposer_from_numpy(load_legacy_npy(legacy), config, bounds,
                                        device=handler.device)

@@ -40,9 +40,11 @@ It imports nothing of JAX and nothing of the JAX package. Phases, each fatal on 
    iteration (RandomSearch: K4 once, K6 never), ``draw_rows`` 1 + iterations for iCEM, once
    for RandomSearch, never elsewhere; the plain RNG (``_mirror_z``, ``_gen_z``) must see no
    CUDA tensor. One more ``act()`` of fused CEM, fused iCEM and fused CMA-ES runs under
-   ``torch.profiler``: the ten device operations that take the most time, the count of K6's
-   kernels (one per iteration), the device's idle share of the ``act()`` window and the
-   host's ``cudaStreamSynchronize`` calls, which must be 2 (the observation in, the action
+   ``torch.profiler``: the ten device operations that take the most time, the count of K4's
+   and K6's kernels (one each per iteration: the trace must record every launch, so that its
+   idle share reads a whole trace, and a trace that lost one is made again, at most 3 times in
+   all; so too in phases 6, 8 B and 10), the device's idle share of the ``act()`` window and
+   the host's ``cudaStreamSynchronize`` calls, which must be 2 (the observation in, the action
    out) for fused CEM and at most 2 for the others. Fused CEM is also traced, and timed in
    turns, with the elite mask written from a Python scalar (the former scatter, which made
    the host wait for K4 in every iteration), beside the scatter from a device source. The eager backend runs 3 steps, timed.
@@ -112,7 +114,8 @@ It imports nothing of JAX and nothing of the JAX package. Phases, each fatal on 
    loop of ``act()``. Part C, an eager CEM ``MPCPolicy`` at the flagship exported after one
    ``act()`` and served by ``ServingPolicy`` on the card: three ``act()``s (explore false, true,
    false) and a reset bit for bit, swapped params as a policy given them, ``export_dynamics``
-   at two batch sizes; export and load seconds, both ``act()``s' ms. Part D, the command line
+   at two batch sizes; export and load seconds, both ``act()``s' ms; one traced served
+   ``act()`` waits at most twice (so does phase 11's compiled one). Part D, the command line
    as subprocesses: ``solvers``, ``solve`` (pendulum, cart-pole), ``export`` of phase 6's
    trained checkpoint and ``inspect``, ``serve`` (5 requests, a reset, a malformed line),
    ``calibrate`` on phase 7's probabilistic handler; ``learn`` needs gymnasium and runs only
@@ -152,6 +155,22 @@ It imports nothing of JAX and nothing of the JAX package. Phases, each fatal on 
    without ``--cpu`` (low_level_api, true_model_mpc/tutorial_one, deploy, beyond_hbm), each
    exiting 0 with its result line; beyond_hbm must launch K3, K4 and K6. Part B runs while
    Part A exports and compiles, and ends before Part A's timings.
+12. The JAX package's checkpoints on the card, read by ``learning/orbax_read.py`` with no
+   JAX, Orbax, tensorstore or zstandard. Part A: the committed Orbax trees (the three
+   ``benchmarks/ckpt_*/handler/checkpoint`` and ``ckpt_gradient_bc_300/proposer``) and the
+   JAX-written loop ``tests/torch_fixtures/jax_pendulum_loop`` (handler and proposer), each
+   leaf's dtype, shape and SHA-256 equal to ``tests/torch_fixtures/jax_checkpoint_digests.json``
+   (Orbax's own restore on the CPU); the read seconds per tree. Part B: the three committed
+   checkpoints through ``DynamicsHandler.load(..., device)``, one-step predictions card
+   against CPU within 1e-4 of max(1, max|cpu|); phase 7's drives (ts_inf with 20 particles
+   on both ts_inf checkpoints, mm, mean) and phase 8 A's Gradient+BC with the committed
+   proposer, on the trained weights and stats: actions finite and in bounds, no kernel
+   launched, at most 2 waits in a traced ``act()``, medians beside phases 7 and 8 A's seeded
+   ones; ``calibrate`` on ``ckpt_tsinf_p20_lvb`` exits 0. Part C: the JAX-written loop,
+   whose handler loads to its digests, resumed by the port for one refinement of 20 steps
+   (phase 6's CEM, the fixture's (64, 64) model, its proposer) on ``"fused"`` and on
+   ``"kernel"``: K4 and K6, or K2, 20 x 5 times and nothing else; the port checkpoint it
+   writes, and the proposer's, load back bit for bit.
 
 The line before the last two is ``{"kernels": [...]}`` (each kernel's launches on phase 5's
 main path, and ``launches_by_path`` on every path that runs it); then the card's name and
@@ -971,9 +990,51 @@ def scalar_scatter_by_rank(values, index, population: int):
     return out
 
 
-def trace_act(policy, obs, label: str, exploration_noise: bool = False) -> dict:
-    """One ``act()`` under ``torch.profiler``: the ten device operations that take the most
-    time, the launches of K6's and K3's kernels, the share of the ``act()`` window (the host's
+# A traced act() whose trace lacks a K4 or K6 launch is traced again, at most this many times
+# in all: the tracer has lost the first 8-10 ms of an act() (PERF.md §6).
+TRACE_TRIES = 3
+TRACED_KERNELS = (("k4_kernels", "fused_rollout"), ("k6_kernels", "elite_moments"))
+
+
+def gate_traced_launches(trace: dict, label: str, per_act: dict) -> None:
+    """The traced ``act()`` recorded each of K4's and K6's launches (``per_act``: the kernels'
+    launches per ``act()``), so its idle share reads a whole trace."""
+    for key, kernel in TRACED_KERNELS:
+        if trace[key] != per_act.get(kernel, 0):
+            raise AssertionError(f"{label}: the trace recorded {trace[key]} {kernel} kernels, "
+                                 f"the act() launches {per_act.get(kernel, 0)}")
+
+
+def trace_act(policy, obs, label: str, exploration_noise: bool = False, per_act=None,
+              every_try: bool = False) -> dict:
+    """``trace_once``; with ``per_act`` (K4's and K6's launches per ``act()``) traced again
+    until the trace records each launch, at most TRACE_TRIES times, and gated: no idle share
+    is read from a trace that lost records. ``every_try``: trace TRACE_TRIES times whatever
+    they record (ranks of one world, whose act()s must stay in step), keeping the first whole
+    one, ungated. ``lost_record_traces`` counts the traces that lacked a launch."""
+    whole, lost = None, 0
+    for _ in range(TRACE_TRIES if per_act is not None else 1):
+        trace = trace_once(policy, obs, label, exploration_noise)
+        if per_act is None or all(trace[key] == per_act.get(kernel, 0)
+                                  for key, kernel in TRACED_KERNELS):
+            whole = whole or trace
+            if not every_try:
+                break
+        else:
+            lost += 1
+            print(json.dumps({"trace_lost_records": label, "k4_kernels": trace["k4_kernels"],
+                              "k6_kernels": trace["k6_kernels"]}), flush=True)
+    trace = whole or trace
+    trace["lost_record_traces"] = lost
+    if per_act is not None and not every_try:  # a rank's caller gates after the world ends
+        gate_traced_launches(trace, label, per_act)
+    return trace
+
+
+def trace_once(policy, obs, label: str, exploration_noise: bool = False) -> dict:
+    """One ``act()`` under ``torch.profiler`` (after one more that the trace does not read):
+    the ten device operations that take the most time, the launches of K4's, K6's and K3's
+    kernels, the share of the ``act()`` window (the host's
     range around it, which ends in the copy of the action to the host) in which the device ran
     nothing, and the longest stretches of it, each with its start in the window and the device
     operation that ended it."""
@@ -985,6 +1046,10 @@ def trace_act(policy, obs, label: str, exploration_noise: bool = False) -> dict:
     from blackbox_mpc_torch.utils import profiling
 
     with tempfile.TemporaryDirectory() as log_dir, profiling.trace(log_dir) as prof:
+        # The trace reads the second act(): the tracer may miss the first device operations
+        # of its active step (in a 1-rank NCCL world a sharded act()'s first 10 ms, its first
+        # K4 among them, despite the profiler's warm-up step), and the first act() takes that.
+        policy.act(obs, exploration_noise=exploration_noise)
         with record_function("act"):
             policy.act(obs, exploration_noise=exploration_noise)
     events = prof.events()
@@ -998,7 +1063,8 @@ def trace_act(policy, obs, label: str, exploration_noise: bool = False) -> dict:
                           for name in ("cudaStreamSynchronize", "cudaEventSynchronize"))
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
                    if e.device_type == DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False))
+                   and not getattr(e, "is_user_annotation", False)
+                   and window.start <= e.time_range.start <= window.end)
     if not spans:
         raise AssertionError(f"{label}: the profiler saw no device activity in act()")
     busy, reached = 0.0, window.start
@@ -1020,6 +1086,8 @@ def trace_act(policy, obs, label: str, exploration_noise: bool = False) -> dict:
            "idle_gaps_us": [{"us": us, "at_us": at, "before": name}
                             for us, at, name in sorted(gaps, reverse=True)[:6]],
            "device_ops": len(spans), "stream_syncs": syncs, "event_syncs": event_syncs,
+           "k4_kernels": sum(n for name, (_, n) in by_name.items()
+                             if "fused_rollout_kernel" in name),
            "k6_kernels": sum(n for name, (_, n) in by_name.items() if "moments_" in name),
            "draw_rows_kernels": sum(n for name, (_, n) in by_name.items()
                                     if "draw_rows_kernel" in name),
@@ -1095,7 +1163,8 @@ def drive_policy(device, backend: str, steps: int, label: str | None = None) -> 
             in_turns = {"scalar_scatter": [], "device_source_scatter": []}
             try:
                 fc._scatter_by_rank = scalar_scatter_by_rank
-                before = trace_act(policy, obs, "fused, the elite mask from a Python scalar")
+                before = trace_act(policy, obs, "fused, the elite mask from a Python scalar",
+                                   per_act=per_act)
                 # act() with either scatter, in turns: scalar, device, device, scalar.
                 for name in ("scalar_scatter", "device_source_scatter") * 2:
                     fc._scatter_by_rank = (scalar_scatter_by_rank
@@ -1106,7 +1175,7 @@ def drive_policy(device, backend: str, steps: int, label: str | None = None) -> 
                         in_turns[name].append((time.perf_counter() - t0) * 1e3)
             finally:
                 fc._scatter_by_rank = repaired
-        res["trace"] = trace_act(policy, obs, label)
+        res["trace"] = trace_act(policy, obs, label, per_act=per_act)
         if label == "fused":
             # act(exploration_noise=True), with the noise's constants copied from the host at
             # every act() (before) and from the device (after).
@@ -1116,11 +1185,11 @@ def drive_policy(device, backend: str, steps: int, label: str | None = None) -> 
             try:
                 mpc_policy._exploration_noise = host_copy_exploration_noise
                 noise_before = trace_act(policy, obs, "fused, exploration noise copied from "
-                                         "the host", exploration_noise=True)
+                                         "the host", exploration_noise=True, per_act=per_act)
             finally:
                 mpc_policy._exploration_noise = repaired_noise
             res["noise_trace"] = trace_act(policy, obs, "fused, exploration noise",
-                                           exploration_noise=True)
+                                           exploration_noise=True, per_act=per_act)
             gate_waits(res["noise_trace"], "fused, exploration noise")
             print(json.dumps({"exploration_noise_stream_syncs": {
                 "host_copy": noise_before["stream_syncs"],
@@ -1139,10 +1208,6 @@ def drive_policy(device, backend: str, steps: int, label: str | None = None) -> 
                                  f"calls in one act(), expected {MAX_SYNCS} (observation in, "
                                  "action out)")
         gate_waits(res["trace"], label)
-        iterations = per_act["elite_moments"]
-        if res["trace"]["k6_kernels"] != iterations:
-            raise AssertionError(f"{label}: {res['trace']['k6_kernels']} K6 kernels in one "
-                                 f"act(), expected one per iteration ({iterations})")
         if res["trace"]["draw_rows_kernels"] != per_act.get("draw_rows", 0):
             raise AssertionError(f"{label}: {res['trace']['draw_rows_kernels']} draw_rows "
                                  f"kernels in one act(), expected {per_act.get('draw_rows', 0)}")
@@ -1354,7 +1419,7 @@ def mbrl_loop(device, backend: str) -> dict:
         if (completed, grown) != (MBRL["refinements"] + 1, MBRL_RESUME_STEPS * MBRL["num_envs"]):
             raise AssertionError(f"{label}: resume ran to {completed} refinements and added "
                                  f"{grown} transitions")
-        trace = trace_act(policy, obs, f"{label}, trained")
+        trace = trace_act(policy, obs, f"{label}, trained", per_act=BACKEND_KERNELS[backend])
     history = writer.history
     res = {
         "mbrl": backend, "card": smi, "loop_s": loop_s, "acts": acts, "launches": launches,
@@ -1872,10 +1937,8 @@ def kernel_solver_drives(device) -> dict:
     expected = {k: STEPS * BACKEND_KERNELS["fused"].get(k, 0) for k in launches}
     if launches != expected or any(plain_calls.values()):
         raise AssertionError(f"{label}: kernel launches {launches}, expected {expected}")
-    trace = trace_act(pol, nxt, label)
+    trace = trace_act(pol, nxt, label, per_act=BACKEND_KERNELS["fused"])
     gate_waits(trace, label)
-    if trace["k6_kernels"] != ITERS:
-        raise AssertionError(f"{label}: {trace['k6_kernels']} K6 kernels in one act()")
     obs_dev = torch.zeros((1, config.dim_s), device=device)
     torch.cuda.synchronize()
     host = []
@@ -2468,6 +2531,8 @@ def serving_on_cuda(device, workdir: str) -> dict:
     if not same_bits(policy.act(obs)[0], srv.act(obs)[0]):
         raise AssertionError("serving: the first act() after reset differs")
     times = {"MPCPolicy": act_ms(policy, obs), "ServingPolicy": act_ms(srv, obs)}
+    trace = trace_act(srv, obs, "served ServingPolicy")
+    gate_waits(trace, "served ServingPolicy")
     # The params swap: a policy with the same history, given the new params.
     twin = make(flagship_handler(device))
     twin.act(obs)
@@ -2495,7 +2560,8 @@ def serving_on_cuda(device, workdir: str) -> dict:
     res = {"serving": "bit for bit", "horizon": EXPORT_HORIZON, "export_s": export_s,
            "load_s": load_s, "artifact_bytes": os.path.getsize(path),
            "act_ms": {k: float(np.median(v)) for k, v in times.items()},
-           "act_ms_all": times, "export_dynamics_rel_err": dyn_err, "draws": {
+           "act_ms_all": times, "traced_act_stream_syncs": trace["stream_syncs"],
+           "export_dynamics_rel_err": dyn_err, "draws": {
                k: len(v) for k, v in meta["draws"].items()}, "card": smi}
     print(json.dumps(res), flush=True)
     return res
@@ -2844,8 +2910,11 @@ def part_b_rank(rank: int, workdir: str, device: str) -> None:
                                           f"rank {rank}: {label}")
                       for label in SHARDED_DRIVES}}
     trace = trace_act(sharded_policy(device, handler, "CEM", mesh), np.zeros(17, np.float32),
-                      f"rank {rank}: sharded fused CEM over gloo")
+                      f"rank {rank}: sharded fused CEM over gloo",
+                      per_act=BACKEND_KERNELS["fused"], every_try=True)
     res["waits"] = trace["stream_syncs"]
+    res["traced_launches"] = {k: trace[k] for k in ("k4_kernels", "k6_kernels",
+                                                    "lost_record_traces")}
     res["card_vs_cpu"] = pair_card_vs_cpu(device, handler, mesh)
     res["capacity"] = capacity_act(device, handler, mesh)
     res["eager_peak"] = sharded_eager_peak(device, handler, mesh)
@@ -2890,8 +2959,11 @@ def phase10(device, trained, workdir: str, eager_per_byte: float) -> dict:
                              "launches": sharded["launches"]}
             if label == "CEM":
                 trace = trace_act(policy, np.zeros(17, np.float32),
-                                  "1-rank NCCL: sharded fused CEM")
+                                  "1-rank NCCL: sharded fused CEM",
+                                  per_act=BACKEND_KERNELS["fused"])
                 gate_waits(trace, "1-rank NCCL: sharded fused CEM")
+                part_a[label]["k4_kernels_traced"] = trace["k4_kernels"]
+                part_a[label]["lost_record_traces"] = trace["lost_record_traces"]
                 part_a[label]["stream_syncs"] = trace["stream_syncs"]
                 part_a[label]["device_idle_share"] = trace["device_idle_share"]
         # A data-parallel train() on phase 6's replay, bit for bit with the unsharded one.
@@ -2928,6 +3000,10 @@ def phase10(device, trained, workdir: str, eager_per_byte: float) -> dict:
                       "launches_per_rank": ranks[0]["drives"][label]["launches"]}
               for label in SHARDED_DRIVES}
     part_b["waits_per_traced_act"] = [r["waits"] for r in ranks]  # gloo: through the host
+    part_b["traced_launches"] = [r["traced_launches"] for r in ranks]
+    for r, rank in enumerate(ranks):
+        gate_traced_launches(rank["traced_launches"], f"gloo rank {r}: sharded fused CEM",
+                             BACKEND_KERNELS["fused"])
     part_b["card_vs_cpu"] = [r["card_vs_cpu"] for r in ranks]
     # The sharded eager path holds the whole candidate tensor on every rank: the capacity
     # threshold, set from the unsharded eager peak, holds for it only if no rank peaks higher.
@@ -3137,6 +3213,7 @@ def compiled_cache_times(res: dict, policies: dict) -> dict:
     obs = np.zeros(17, np.float32)
     times = {label: act_ms(policy, obs, 5) for label, policy in policies.items()}
     trace = trace_act(policies["compiled ServingPolicy"], obs, "compiled ServingPolicy")
+    gate_waits(trace, "compiled ServingPolicy")
     res = {**res, "act_ms": {k: float(np.median(v)) for k, v in times.items()},
            "act_ms_all": times,
            "traced_act": {k: trace[k] for k in ("stream_syncs", "event_syncs",
@@ -3190,6 +3267,237 @@ def finish_tutorials(started: tuple) -> dict:
     out = {"tutorials": res, "seconds": time.perf_counter() - t0, "card": nvidia_smi()}
     print(json.dumps({"phase11_part_b": out}), flush=True)
     return out
+
+
+# Phase 12: the JAX package's checkpoints on the card, read by learning/orbax_read.py with no
+# JAX, Orbax, tensorstore or zstandard. Part A reads every committed Orbax tree and the
+# JAX-written loop to the digests Orbax's own restore gave on the CPU; Part B plans on the
+# committed trained weights and stats (phase 7's PETS drives and phase 8 A's Gradient+BC);
+# Part C resumes the JAX-written loop with the port on "fused" and on "kernel".
+JAX_DIGESTS = "tests/torch_fixtures/jax_checkpoint_digests.json"
+JAX_LOOP = "tests/torch_fixtures/jax_pendulum_loop"  # the digests' trees are named from the root
+TRAINED_LEARNING_RATE = 3e-3  # the committed runs' (benchmarks/cheetah_mbrl.py)
+# Part B's drives on the trained weights, by label: (checkpoint, config changes, the phase 7
+# or 8 A drive whose seeded-weight median it is printed beside).
+TRAINED_DRIVES = {
+    "ts_inf, ckpt_tsinf_p20_lvb": ("ckpt_tsinf_p20_lvb", {}, "ts_inf"),
+    "ts_inf, ckpt_tsinf_p20": ("ckpt_tsinf_p20", {}, "ts_inf"),
+    "mm, ckpt_tsinf_p20_lvb": ("ckpt_tsinf_p20_lvb", {"propagation": "mm"}, "mm"),
+    "mean, ckpt_gradient_bc_300": ("ckpt_gradient_bc_300", {}, "mean"),
+}
+# One-step predictions of a loaded handler, card against CPU, on this many replay rows.
+PREDICT_ROWS = 1024
+# Part C: the resumed refinement collects this many steps with two envs, planning with phase
+# 6's CEM (H=50, population 1000, 50 elites, 5 iterations) through the fixture's (64, 64) model.
+RESUME_STEPS = 20
+
+
+def in_repo(path: str) -> str:
+    """``path`` (relative to the repository's root) from wherever the script runs."""
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), path)
+
+
+def jax_layout(handler) -> dict:
+    """A port handler's training state as the JAX package checkpoints it: params, optax's Adam
+    state ``[{count, mu, nu}, None]`` (int32 count), step (int32), stats and the replay, numpy."""
+    import numpy as np
+
+    from blackbox_mpc_torch.learning.trainer import flat_params
+    from blackbox_mpc_torch.models.dynamics import map_params
+    from blackbox_mpc_torch.models.normalizer import STATS_FIELDS
+
+    ts = handler.train_state
+    state = ts.optimizer.state_dict()["state"]
+    index = {id(t): i for i, t in enumerate(flat_params(ts.params))}
+    host = lambda t: t.detach().cpu().numpy()  # noqa: E731
+    moment = lambda key: map_params(lambda t: host(state[index[id(t)]][key]), ts.params)  # noqa: E731
+    return {"params": map_params(host, ts.params),
+            "opt_state": [{"count": np.asarray(int(state[0]["step"]), np.int32),
+                           "mu": moment("exp_avg"), "nu": moment("exp_avg_sq")}, None],
+            "step": np.asarray(ts.step, np.int32),
+            "stats": {f: host(getattr(handler.dynamics_params.stats, f)) for f in STATS_FIELDS},
+            "replay": handler.replay.state_dict()}
+
+
+def gate_digests(got: dict, want: dict, label: str) -> None:
+    bad = sorted(name for name in set(got) | set(want) if got.get(name) != want.get(name))
+    if bad:
+        raise AssertionError(f"{label}: leaves differ from the digests of Orbax's restore: "
+                             f"{bad[:8]}")
+
+
+def read_jax_trees(digests: dict) -> dict:
+    """Part A: each tree of the digests read with ``restore_pytree``; every leaf's dtype,
+    shape and SHA-256 must be the JSON's. Returns the read seconds per tree."""
+    from blackbox_mpc_torch.learning.orbax_read import leaf_digests, restore_pytree
+
+    seconds = {}
+    for tree, want in digests.items():
+        t0 = time.perf_counter()
+        restored = restore_pytree(in_repo(tree))
+        seconds[tree] = time.perf_counter() - t0
+        gate_digests(leaf_digests(restored), want, f"Part A: {tree}")
+    return seconds
+
+
+def trained_drives(device, smi: str, seeded: dict) -> dict:
+    """Part B: the committed checkpoints through ``DynamicsHandler.load(..., device)``; each
+    one's one-step predictions on the card against the CPU's; phase 7's drives and phase 8
+    A's Gradient+BC planning on the trained weights and stats (actions finite and in bounds,
+    no kernel launched, at most MAX_SYNCS waits in a traced ``act()``), their ``act()``
+    medians beside the seeded-weight ones (``seeded``); ``calibrate`` on
+    ``ckpt_tsinf_p20_lvb``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from blackbox_mpc_torch import DynamicsHandler, MPCPolicy
+    from blackbox_mpc_torch.core.spaces import BoxSpace
+    from blackbox_mpc_torch.core.types import Bounds
+    from blackbox_mpc_torch.learning.orbax_read import restore_pytree
+    from blackbox_mpc_torch.learning.proposer import ProposerConfig
+    from blackbox_mpc_torch.models.convert import proposer_from_numpy
+
+    handlers, res = {}, {"load_s": {}, "predict_rel_err": {}, "drives": {}}
+    for name in sorted({ckpt for ckpt, _, _ in TRAINED_DRIVES.values()}):
+        t0 = time.perf_counter()
+        directory = in_repo(f"benchmarks/{name}/handler")
+        handlers[name] = DynamicsHandler.load(directory, device=device,
+                                              learning_rate=TRAINED_LEARNING_RATE)
+        res["load_s"][name] = time.perf_counter() - t0
+        on_cpu = DynamicsHandler.load(directory, device="cpu",
+                                      learning_rate=TRAINED_LEARNING_RATE)
+        s, a, _ = on_cpu.replay.arrays()
+        s, a = torch.as_tensor(s[:PREDICT_ROWS]), torch.as_tensor(a[:PREDICT_ROWS])
+        want = on_cpu.mean_dynamics_fn(on_cpu.dynamics_params, s, a)
+        h = handlers[name]
+        got = h.mean_dynamics_fn(h.dynamics_params, s.to(device), a.to(device)).cpu()
+        err, scale = float((got - want).abs().max()), max(1.0, float(want.abs().max()))
+        res["predict_rel_err"][name] = err / scale
+        if not bool(torch.isfinite(got).all()) or err > TOLERANCE["float32"] * scale:
+            raise AssertionError(f"{name}: one-step predictions card vs CPU {err} > "
+                                 f"{TOLERANCE['float32']} * {scale}")
+    space = BoxSpace.of(-1.0, 1.0, dim=PETS_NET["dim_u"])
+
+    def drive(label, policy, obs, seeded_label, phase):
+        policy.act(obs)  # warm-up
+        times, launches, plain_calls, (_, nxt, _) = timed_acts(policy, obs, STEPS, label)
+        if any(launches.values()) or any(plain_calls.values()):
+            raise AssertionError(f"{label}: kernels launched {launches}; the path launches none")
+        trace = trace_act(policy, nxt, label)
+        gate_waits(trace, label)
+        res["drives"][label] = {
+            "act_ms": times, "act_ms_median": float(np.median(times)),
+            f"seeded_weights_act_ms_median_phase{phase}": seeded[seeded_label],
+            "stream_syncs": trace["stream_syncs"], "device_idle_share": trace["device_idle_share"]}
+
+    for label, (name, changes, seeded_label) in TRAINED_DRIVES.items():
+        handler = handlers[name]
+        if changes:
+            handler = DynamicsHandler(dataclasses.replace(handler.config, **changes), seed=0,
+                                      device=device)
+            handler.set_params(handlers[name].dynamics_params)
+        obs = handlers[name].replay.arrays()[0][-PETS_AGENTS:]
+        drive(label, MPCPolicy(space, cheetah_reward, handler, num_agents=PETS_AGENTS,
+                               rollout_backend="eager", seed=0, device=device, **PETS_SOLVER),
+              obs, seeded_label, 7)
+    # Gradient+BC: the committed run's model and its behaviour-cloned proposer.
+    handler = handlers["ckpt_gradient_bc_300"]
+    proposer = proposer_from_numpy(
+        restore_pytree(in_repo("benchmarks/ckpt_gradient_bc_300/proposer")),
+        ProposerConfig(dim_s=handler.config.dim_s, dim_u=handler.config.dim_u,
+                       hidden=BC_HIDDEN), Bounds.from_space(space), device=device)
+    label = "Gradient + proposer, ckpt_gradient_bc_300"
+    drive(label, MPCPolicy(space, cheetah_reward, handler, solver_name="Gradient",
+                           num_agents=GBC_AGENTS, planning_horizon=GBC_HORIZON,
+                           rollout_backend="eager", seed=0, device=device, proposer=proposer,
+                           **FIRST_ORDER["Gradient"]),
+          handler.replay.arrays()[0][-GBC_AGENTS:], "Gradient + proposer", 8)
+    rc, lines, stderr = cli(["calibrate", in_repo("benchmarks/ckpt_tsinf_p20_lvb")])
+    cli_gate("calibrate (JAX checkpoint)", rc, lines, stderr,
+             keys=("variance_ratio", "coverage_1sigma", "val_points", "verdict"))
+    res["calibrate"] = {k: lines[-1][k] for k in ("variance_ratio", "val_points", "verdict")}
+    res["card"] = smi
+    return res
+
+
+def resume_jax_loop(device, backend: str, workdir: str, want: dict) -> dict:
+    """Part C on one backend: a copy of the JAX-written loop, whose handler loads to the
+    digests of its Orbax tree (``want``), resumed by the port for one refinement with its
+    proposer; K2, or K4 and K6, launched ``RESUME_STEPS`` x their per-``act()`` counts and
+    nothing else; the port checkpoint it writes loads back bit for bit, the proposer's too."""
+    import shutil
+
+    import torch
+
+    from blackbox_mpc_torch import DynamicsHandler
+    from blackbox_mpc_torch.envs import NativePendulumVecEnv
+    from blackbox_mpc_torch.learning.orbax_read import leaf_digests
+    from blackbox_mpc_torch.models.analytic import pendulum_reward
+    from blackbox_mpc_torch.workflows import learn_dynamics_iteratively_w_mpc
+
+    label = f"resumed JAX loop, {backend}"
+    work = f"{workdir}/jax_loop_{backend}"
+    shutil.copytree(in_repo(JAX_LOOP), work)
+    before = DynamicsHandler.load(f"{work}/handler", device=device)
+    gate_digests(leaf_digests(jax_layout(before)), want, f"{label}: the handler as loaded")
+    env = NativePendulumVecEnv(num_envs=2, seed=1, max_episode_steps=RESUME_STEPS)
+    counters = zero_launches()
+    t0 = time.perf_counter()
+    with plain_rng_on_cuda() as plain_calls:
+        handler, policy = learn_dynamics_iteratively_w_mpc(
+            env, pendulum_reward, solver_name="CEM", planning_horizon=HORIZON,
+            number_of_refinement_steps=2, rollout_horizon=RESUME_STEPS,
+            epochs=MBRL["epochs"], batch_size=MBRL["batch_size"], population=ROWS,
+            num_elite=50, max_iterations=ITERS, rollout_backend=backend, seed=0,
+            checkpoint_dir=work, resume=True, behavior_cloning=True, bc_epochs=5,
+            device=device)
+    loop_s = time.perf_counter() - t0
+    launches = read_launches(counters)
+    expected = {name: RESUME_STEPS * BACKEND_KERNELS[backend].get(name, 0) for name in launches}
+    if launches != expected or any(plain_calls.values()):
+        raise AssertionError(f"{label}: kernel launches {launches}, expected {expected}; "
+                             f"plain RNG on CUDA {plain_calls}")
+    with open(f"{work}/loop_state.json") as f:
+        completed = json.load(f)["completed_refinements"]
+    grown = len(handler.replay) - len(before.replay)
+    if (completed, grown) != (2, RESUME_STEPS * 2):
+        raise AssertionError(f"{label}: resumed to {completed} refinements, {grown} transitions")
+    checkpoint_matches(handler, DynamicsHandler.load(f"{work}/handler", device=device))
+    saved = torch.load(f"{work}/proposer/proposer.pt", map_location=device)
+    live = policy.proposer.state_dict()
+    pairs = [(layer[k], mine[k]) for layer, mine in zip(saved["params"], live["params"])
+             for k in ("w", "b")]
+    pairs += [(x, y) for key in ("exp_avg", "exp_avg_sq")
+              for x, y in zip(saved["adam"][key], live["adam"][key])]
+    if saved["adam"]["step"] != live["adam"]["step"] or not all(same_bits(x, y)
+                                                                for x, y in pairs):
+        raise AssertionError(f"{label}: the proposer's checkpoint differs from the proposer")
+    return {"launches": launches, "loop_s": loop_s, "train_calls": handler._train_calls,
+            "replay": len(handler.replay)}
+
+
+def phase12(device, workdir: str, seeded: dict) -> dict:
+    """Phase 12, Parts A-C (see the module's doc); ``seeded`` holds phase 7's and 8 A's
+    ``act()`` medians on seeded weights, by drive."""
+    smi = nvidia_smi()
+    with open(in_repo(JAX_DIGESTS)) as f:
+        digests = json.load(f)
+    t0 = time.perf_counter()
+    part_a = {"read_s": read_jax_trees(digests), "leaves": sum(map(len, digests.values())),
+              "card": smi}
+    print(json.dumps({"phase12_part_a": part_a}), flush=True)
+    part_b = trained_drives(device, smi, seeded)
+    print(json.dumps({"phase12_part_b": part_b}), flush=True)
+    want = digests[f"{JAX_LOOP}/handler/checkpoint"]
+    part_c = {backend: resume_jax_loop(device, backend, workdir, want)
+              for backend in ("fused", "kernel")}
+    print(json.dumps({"phase12_part_c": part_c, "card": smi}), flush=True)
+    print(json.dumps({"phase12_s": time.perf_counter() - t0}), flush=True)
+    return {"part_a": part_a, "part_b": part_b, "part_c": part_c}
 
 
 def main() -> int:
@@ -3277,8 +3585,13 @@ def main() -> int:
         part_a, policies = compiled_cache_on_card(device, workdir)
         tutorials = finish_tutorials(started)["tutorials"]
         compiled_cache_times({**part_a, "compiled_beside": list(TUTORIALS_ON_CARD)}, policies)
+    with tempfile.TemporaryDirectory() as workdir:
+        twelfth = phase12(device, workdir, {
+            **{label: run["act_ms_median"] for label, run in pets.items()},
+            "Gradient + proposer": first_order["drives"]["Gradient + proposer"][
+                "act_ms_median"]})
     # The launches of each kernel on each path that runs it: phase 5's drives, phase 9's,
-    # phase 10's and phase 11's tutorials.
+    # phase 10's, phase 11's tutorials and phase 12's resumed JAX loop.
     paths = {"kernel CEM act()": kernel_run["launches"],
              "fused CEM act()": fused_run["launches"],
              "fused iCEM act()": family["fused iCEM"]["launches"],
@@ -3289,7 +3602,9 @@ def main() -> int:
              "sharded fused CEM act() (1-rank NCCL)": tenth["part_a"]["CEM"]["launches"],
              "sharded fused RandomSearch act() (1-rank NCCL)":
                  tenth["part_a"]["RandomSearch"]["launches"],
-             **{f"tutorial {name}": run["launches"] for name, run in tutorials.items()}}
+             **{f"tutorial {name}": run["launches"] for name, run in tutorials.items()},
+             **{f"resumed JAX loop, {backend}, {RESUME_STEPS} steps": run["launches"]
+                for backend, run in twelfth["part_c"].items()}}
 
     # The first case of each kernel is mean/f32 (K6: the 50-elite mask; draw_rows: the iCEM
     # shape), as the policy ran. K6's and draw_rows' ms is the device's, host_ms the host's.

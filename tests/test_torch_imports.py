@@ -1,5 +1,6 @@
 """Import hygiene of the PyTorch port: every module of blackbox_mpc_torch, and chip_smoke.py,
-import without JAX and without the JAX package (the GPU machine has no JAX)."""
+import without JAX and without the JAX package (the GPU machine has no JAX), and without
+Orbax, tensorstore or zstandard (the port reads JAX checkpoints with its own reader)."""
 import subprocess
 import sys
 from pathlib import Path
@@ -19,7 +20,8 @@ for name in names:
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith(("jax.", "jaxlib", "flax", "optax", "blackbox_mpc_tpu")))
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "flax", "optax", "blackbox_mpc_tpu",
+                                            "orbax", "tensorstore", "zstandard")))
 assert not bad, bad
 assert "triton" not in sys.modules
 # Optional packages load only where they are used: gymnasium in make_gym_vec_env, imageio in
@@ -37,19 +39,21 @@ def test_port_imports_no_jax():
     assert int(out.stdout.strip().splitlines()[-1]) >= 56  # every module was walked
 
 
-# The modules of the solver registry's rest and the POPLIN half, the single-card entry points
-# and the parallel layer, each imported on its own.
+# The modules of the solver registry's rest and the POPLIN half, the single-card entry points,
+# the parallel layer and the Orbax reader, each imported on its own.
 NEW_MODULES = ["solvers.gradient", "solvers.cem_gd", "solvers.pso", "solvers.spsa",
                "learning.proposer", "policies.pipeline", "ops.backend_select",
                "utils.profiling", "workflows.device_episode", "deploy", "deploy.export",
                "deploy.serving", "cli", "parallel", "parallel.mesh", "parallel.multihost",
-               "parallel.sharding", "ops.fused_sharded"]
+               "parallel.sharding", "ops.fused_sharded", "learning._zstd",
+               "learning.orbax_read"]
 
 _ALONE = r"""
 import importlib, sys
 importlib.import_module(sys.argv[1])
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith(("jax.", "jaxlib", "flax", "optax", "blackbox_mpc_tpu")))
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "flax", "optax", "blackbox_mpc_tpu",
+                                            "orbax", "tensorstore", "zstandard")))
 assert not bad, bad
 """
 
@@ -80,7 +84,8 @@ def test_main_module_runs_the_cli_without_jax():
 
 _BLOCKED = r"""
 import sys
-for name in ("jax", "jaxlib", "flax", "optax", "blackbox_mpc_tpu"):
+for name in ("jax", "jaxlib", "flax", "optax", "blackbox_mpc_tpu", "orbax", "tensorstore",
+             "zstandard"):
     sys.modules[name] = None  # any import of these raises ImportError
 import blackbox_mpc_torch
 from blackbox_mpc_torch import (SOLVER_REGISTRY, BoxSpace, Solver, SolverAux, as_box_space,
@@ -110,3 +115,25 @@ def test_top_level_names_are_the_subpackages_objects():
     assert port.make_trajectory_evaluator is rollout.make_trajectory_evaluator
     for name in ("BoxSpace", "as_box_space", "Solver", "SolverAux", "Bounds"):
         assert getattr(port, name) is getattr(core, name)
+
+
+_READ_BLOCKED = r"""
+import sys
+for name in ("jax", "jaxlib", "orbax", "tensorstore", "zstandard", "blackbox_mpc_tpu"):
+    sys.modules[name] = None  # any import of these raises ImportError
+from blackbox_mpc_torch import DynamicsHandler
+from blackbox_mpc_torch.learning.orbax_read import named_leaves, restore_pytree
+tree = restore_pytree("benchmarks/ckpt_gradient_bc_300/proposer")
+handler = DynamicsHandler.load("tests/torch_fixtures/jax_pendulum_loop/handler", device="cpu")
+print(len(named_leaves(tree)), len(handler.replay))
+"""
+
+
+def test_jax_checkpoints_read_without_jax_orbax_or_tensorstore():
+    """A JAX-written Orbax tree and handler directory load in a process where JAX, Orbax,
+    tensorstore and zstandard cannot be imported."""
+    out = subprocess.run([sys.executable, "-c", _READ_BLOCKED], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    leaves, replay = map(int, out.stdout.split())
+    assert leaves == 20 and replay == 200
