@@ -9,16 +9,20 @@ when that object changes (``ops/rollout_kernel.py::operand_cache``), so the next
 plans on the new weights. A probabilistic handler also reports the heads' variance
 calibration after each ``train()`` (:mod:`~blackbox_mpc_torch.learning.calibration`).
 
-Checkpoints: :meth:`save` writes ``config.json`` in the JAX package's format (version stamp,
-replay keys, the config with ``compute_dtype`` by name, the counters) and a ``torch.save``
-payload beside it (params, Adam state, step, stats, the replay with its RNG state).
-:meth:`load` also reads a directory the JAX package saved (``config.json`` beside an Orbax
-``checkpoint/``) with :func:`~blackbox_mpc_torch.learning.orbax_read.restore_pytree`, which
-needs no JAX or Orbax, and carries it over through
-:func:`~blackbox_mpc_torch.models.convert.handler_from_numpy`.
+Checkpoints are the JAX package's: :meth:`save` writes ``config.json`` (version stamp, replay
+keys, the config with ``compute_dtype`` by name, the counters) and the Orbax pytree
+``checkpoint/`` (params, optax's Adam state, step, stats, the replay with its RNG state) through
+:func:`~blackbox_mpc_torch.models.convert.handler_to_numpy` and
+:func:`~blackbox_mpc_torch.learning.orbax_write.save_pytree`, so the JAX package's
+``DynamicsHandler.load`` reads what the port saves. :meth:`load` reads such a directory, the
+port's or the JAX package's, with :func:`~blackbox_mpc_torch.learning.orbax_read.restore_pytree`
+and :func:`~blackbox_mpc_torch.models.convert.handler_from_numpy`; none of them needs JAX or
+Orbax. A ``checkpoint.pt`` (a ``torch.save`` payload that earlier versions of the port wrote)
+still loads, and a save over it removes it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -50,7 +54,7 @@ __all__ = ["CHECKPOINT_FORMAT_VERSION", "DynamicsHandler", "config_from_json", "
 
 # The JAX package's training-checkpoint stamp: 1 adds the replay-key manifest.
 CHECKPOINT_FORMAT_VERSION = 1
-_PAYLOAD = "checkpoint.pt"
+_PAYLOAD = "checkpoint.pt"  # written by earlier versions of the port; read, never written
 _ORBAX_TREE = "checkpoint"  # the JAX package's Orbax pytree beside config.json
 
 
@@ -402,37 +406,32 @@ class DynamicsHandler:
     # ------------------------------------------------------------------ checkpointing
 
     def save(self, directory: str) -> None:
-        """Writes ``config.json`` (the JAX package's format) and a ``torch.save`` payload of
-        params, Adam state, step, stats and replay (with its RNG state)."""
+        """Writes what the JAX package's ``DynamicsHandler.save`` writes: ``config.json`` and
+        the Orbax pytree ``checkpoint/`` of params, Adam state, step, stats and replay (with
+        its RNG state). The tree replaces the old one whole; a ``checkpoint.pt`` is removed."""
+        from blackbox_mpc_torch.learning.orbax_write import save_pytree
+        from blackbox_mpc_torch.models.convert import handler_to_numpy
+
         if self._is_true_model:
             raise RuntimeError("true-model handler has nothing to save")
         directory = os.path.abspath(directory)
         os.makedirs(directory, exist_ok=True)
-        replay_state = self._replay.state_dict()
+        meta, tree = handler_to_numpy(self)
+        save_pytree(os.path.join(directory, _ORBAX_TREE), tree)
+        # The payload would win over the new tree in load().
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(os.path.join(directory, _PAYLOAD))
         with open(os.path.join(directory, "config.json"), "w") as f:
-            json.dump({
-                "format_version": CHECKPOINT_FORMAT_VERSION,
-                "replay_keys": sorted(replay_state.keys()),
-                "config": config_to_json(self._config),
-                "train_calls": self._train_calls,
-                "stats_fitted": self._stats_fitted,
-            }, f)
-        ts = self._train_state
-        torch.save({
-            "params": map_params(torch.Tensor.detach, ts.params),
-            "optimizer": ts.optimizer.state_dict(),
-            "step": ts.step,
-            "stats": {f: getattr(self._params.stats, f) for f in STATS_FIELDS},
-            "replay": replay_state,
-        }, os.path.join(directory, _PAYLOAD))
+            json.dump(meta, f)
         logger.info("saved dynamics checkpoint to %s", directory)
 
     @classmethod
     def load(cls, directory: str, **kwargs) -> "DynamicsHandler":
-        """Restores a handler saved with :meth:`save`, or with the JAX package's
-        ``DynamicsHandler.save`` (an Orbax ``checkpoint/`` and no payload); ``kwargs`` go to
-        the constructor (for example ``device``, ``learning_rate``). The planning params are
-        the saved trainable ones, as in the JAX package."""
+        """Restores a handler saved with :meth:`save` or with the JAX package's
+        ``DynamicsHandler.save`` (an Orbax ``checkpoint/``), or a ``checkpoint.pt`` that an
+        earlier version of the port wrote, which wins where present; ``kwargs`` go to the
+        constructor (for example ``device``, ``learning_rate``). The planning params are the
+        saved trainable ones, as in the JAX package."""
         directory = os.path.abspath(directory)
         with open(os.path.join(directory, "config.json")) as f:
             meta = json.load(f)

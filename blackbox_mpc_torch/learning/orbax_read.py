@@ -6,7 +6,8 @@ directory holds ``_METADATA`` (JSON: each leaf's key path with its key types) an
 as zarr v2 arrays named by the dotted path (``params.net.0.w/.zarray``,
 ``params.net.0.w/0.0.0``). With OCDBT on (Orbax's default) the arrays live in one key-value
 store: ``manifest.ocdbt`` and the B-tree nodes and values it references in ``d/`` and
-``ocdbt.process_*/d/``. With OCDBT off each key is a file of its own.
+``ocdbt.process_*/d/``. With OCDBT off (as :mod:`~blackbox_mpc_torch.learning.orbax_write`
+writes the port's checkpoints) each key is a file of its own.
 
 :func:`restore_pytree` gives the tree as Orbax's restore with ``restore_type=np.ndarray``
 gives it: dicts for dict keys, lists for sequence indices (optax's tuple states come back as

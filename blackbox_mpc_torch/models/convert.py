@@ -1,4 +1,4 @@
-"""Weight bridge: JAX ``DynamicsParams`` (as numpy) -> the port's ``DynamicsParams``.
+"""Weight bridge between the JAX package's ``DynamicsParams`` (as numpy) and the port's.
 
 ``params`` is ``DynamicsParams.params`` of the JAX package as numpy arrays: a list of
 ``{"w": [E, in, out], "b": [E, out]}``, without the ``[E]`` axis when ``ensemble_size == 1``;
@@ -15,6 +15,11 @@ reads them from its Orbax checkpoint (``DynamicsHandler.load`` does so).
 numpy) into the port's ``PolicyProposer``: the params and optax's Adam state. A loop
 checkpoint of before Orbax holds that dict pickled in ``proposer.npy``; :func:`load_legacy_npy`
 reads it without optax.
+
+:func:`handler_to_numpy` and :func:`proposer_to_numpy` go the other way: a port handler's
+``config.json`` and training state, and a port proposer's state, as the JAX package saves them
+(numpy on the host, in its dtypes and shapes), for
+:func:`~blackbox_mpc_torch.learning.orbax_write.save_pytree`.
 """
 from __future__ import annotations
 
@@ -30,8 +35,8 @@ from blackbox_mpc_torch.core.device import resolve_device
 from blackbox_mpc_torch.models.dynamics import DynamicsParams, LearnedDynamicsConfig
 from blackbox_mpc_torch.models.normalizer import STATS_FIELDS, NormalizerStats
 
-__all__ = ["dynamics_params_from_numpy", "handler_from_numpy", "load_legacy_npy",
-           "proposer_from_numpy"]
+__all__ = ["dynamics_params_from_numpy", "handler_from_numpy", "handler_to_numpy",
+           "load_legacy_npy", "proposer_from_numpy", "proposer_to_numpy"]
 
 
 def _stat(stats, name: str):
@@ -132,6 +137,62 @@ def handler_from_numpy(meta: dict, params, opt_state, step, stats, replay: dict,
     return handler
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _adam_state(optimizer, tensors: list) -> tuple:
+    """``(count, mu, nu)`` of a ``torch.optim.Adam`` over ``tensors``, mu and nu as numpy in
+    that order; zeros before the first step, as optax's fresh state."""
+    states = [optimizer.state.get(t, {}) for t in tensors]
+    if not any(states):
+        return 0, [np.zeros(t.shape, np.float32) for t in tensors], [
+            np.zeros(t.shape, np.float32) for t in tensors]
+    return (int(states[0]["step"]), [_host(s["exp_avg"]) for s in states],
+            [_host(s["exp_avg_sq"]) for s in states])
+
+
+def _params_to_numpy(flat: list, config: LearnedDynamicsConfig):
+    """Numpy leaves in :func:`~blackbox_mpc_torch.learning.trainer.flat_params` order -> the
+    JAX package's params pytree: the ``[E]`` axis dropped for a one-member ensemble, the
+    learned bounds in their dict."""
+    squeeze = config.ensemble_size == 1
+    n = len(config.mlp.hidden) + 1
+    layers = [{k: v[0] if squeeze else v for k, v in (("w", flat[2 * i]), ("b", flat[2 * i + 1]))}
+              for i in range(n)]
+    if len(flat) == 2 * n:
+        return layers
+    return {"net": layers, "lv_min": flat[2 * n], "lv_max": flat[2 * n + 1]}
+
+
+def handler_to_numpy(handler) -> tuple:
+    """``(meta, tree)``: a learned port handler as the JAX package's ``DynamicsHandler.save``
+    writes it. ``meta`` is ``config.json``'s dict; ``tree`` the Orbax pytree: ``params``,
+    ``opt_state`` as optax's ``adam`` restores (``[{count, mu, nu}, None]``, ``count`` int32),
+    ``step`` (int32), ``stats`` and ``replay`` (its ``state_dict``, RNG included), all host
+    numpy."""
+    from blackbox_mpc_torch.learning.handler import CHECKPOINT_FORMAT_VERSION, config_to_json
+    from blackbox_mpc_torch.learning.trainer import flat_params
+
+    if handler.is_true_model:
+        raise RuntimeError("true-model handler has nothing to save")
+    config, ts = handler.config, handler.train_state
+    tensors = flat_params(ts.params)
+    count, mu, nu = _adam_state(ts.optimizer, tensors)
+    replay = handler.replay.state_dict()
+    meta = {"format_version": CHECKPOINT_FORMAT_VERSION, "replay_keys": sorted(replay),
+            "config": config_to_json(config), "train_calls": handler._train_calls,
+            "stats_fitted": handler._stats_fitted}
+    tree = {"params": _params_to_numpy([_host(t) for t in tensors], config),
+            "opt_state": [{"count": np.asarray(count, np.int32),
+                           "mu": _params_to_numpy(mu, config),
+                           "nu": _params_to_numpy(nu, config)}, None],
+            "step": np.asarray(ts.step, np.int32),
+            "stats": {f: _host(getattr(handler.dynamics_params.stats, f)) for f in STATS_FIELDS},
+            "replay": replay}
+    return meta, tree
+
+
 def proposer_from_numpy(state, config, bounds, device=None):
     """A port ``PolicyProposer`` holding the JAX proposer's ``state_dict()``: ``params`` a list
     of ``{"w": [in, out], "b": [out]}`` (shapes checked against ``config``), ``opt_state``
@@ -153,6 +214,23 @@ def proposer_from_numpy(state, config, bounds, device=None):
                  "exp_avg": moments["mu"], "exp_avg_sq": moments["nu"]},
     })
     return proposer
+
+
+def proposer_to_numpy(proposer) -> dict:
+    """A port ``PolicyProposer``'s state as the JAX package's ``state_dict()`` (host numpy):
+    ``params`` a list of ``{"w": [in, out], "b": [out]}`` and ``opt_state`` optax's ``adam``
+    state ``[{count, mu, nu}, None]`` (``step`` -> ``count`` int32, ``exp_avg``/``exp_avg_sq``
+    -> ``mu``/``nu``)."""
+    state = proposer.state_dict()
+
+    def layers(flat):
+        return [{"w": _host(w)[0], "b": _host(b)[0]} for w, b in zip(flat[0::2], flat[1::2])]
+
+    adam = state["adam"]
+    return {"params": layers([layer[k] for layer in state["params"] for k in ("w", "b")]),
+            "opt_state": [{"count": np.asarray(adam["step"], np.int32),
+                           "mu": layers(adam["exp_avg"]), "nu": layers(adam["exp_avg_sq"])},
+                          None]}
 
 
 # The optax containers a pickled proposer state holds, by class name: their fields.

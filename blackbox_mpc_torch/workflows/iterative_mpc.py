@@ -16,6 +16,8 @@ from typing import Callable, Optional
 import torch
 
 from blackbox_mpc_torch.learning.handler import DynamicsHandler
+from blackbox_mpc_torch.learning.orbax_write import save_pytree
+from blackbox_mpc_torch.models.convert import proposer_to_numpy
 from blackbox_mpc_torch.models.dynamics import LearnedDynamicsConfig
 from blackbox_mpc_torch.policies.mpc_policy import MPCPolicy
 from blackbox_mpc_torch.policies.random_policy import RandomPolicy
@@ -25,8 +27,10 @@ logger = logging.getLogger(__name__)
 
 __all__ = ["learn_dynamics_iteratively_w_mpc"]
 
-# The proposer's checkpoint beside handler/: a directory with a torch.save payload.
-_PROPOSER_PAYLOAD = ("proposer", "proposer.pt")
+# The proposer's checkpoint beside handler/: the JAX package's Orbax tree. Earlier versions of
+# the port wrote a torch.save payload in it instead, which resume still reads.
+_PROPOSER_TREE = "proposer"
+_PROPOSER_PAYLOAD = "proposer.pt"
 
 
 def learn_dynamics_iteratively_w_mpc(
@@ -72,12 +76,13 @@ def learn_dynamics_iteratively_w_mpc(
     :class:`~blackbox_mpc_torch.learning.proposer.PolicyProposer` (hidden widths
     ``bc_hidden``) is behaviour-cloned for ``bc_epochs`` on the replay after the bootstrap and
     after every refinement (``proposer/bc_loss``) and seeds the solver's plan at every solve;
-    it is returned as ``policy.proposer`` and checkpointed beside ``handler/`` as
-    ``proposer/proposer.pt`` (a ``torch.save`` payload). ``resume=True`` restores it.
+    it is returned as ``policy.proposer`` and checkpointed beside ``handler/`` as the Orbax
+    tree ``proposer/``. ``resume=True`` restores it.
 
-    ``resume=True`` also continues a loop directory the JAX package wrote: its ``handler/``
-    (Orbax) through ``DynamicsHandler.load``, its Orbax ``proposer/`` or legacy
-    ``proposer.npy``; the loop then checkpoints in the port's format.
+    The checkpoints are the JAX package's format, written in its order (``handler/``,
+    ``proposer/``, ``loop_state.json``), so the JAX package's loop resumes a directory the port
+    wrote, and the port resumes one the JAX package wrote (or its legacy ``proposer.npy``).
+    Each save replaces the whole tree: no directory holds two formats.
     """
     if solver_learning_rate is not None:
         lr_field = "gd_learning_rate" if solver_name == "CEM-GD" else "learning_rate"
@@ -107,8 +112,7 @@ def learn_dynamics_iteratively_w_mpc(
         os.makedirs(checkpoint_dir, exist_ok=True)
         handler.save(os.path.join(checkpoint_dir, "handler"))
         if proposer is not None:
-            os.makedirs(os.path.join(checkpoint_dir, "proposer"), exist_ok=True)
-            torch.save(proposer.state_dict(), os.path.join(checkpoint_dir, *_PROPOSER_PAYLOAD))
+            save_pytree(os.path.join(checkpoint_dir, _PROPOSER_TREE), proposer_to_numpy(proposer))
         with open(os.path.join(checkpoint_dir, "loop_state.json"), "w") as f:
             json.dump({"completed_refinements": completed}, f)
 
@@ -182,9 +186,9 @@ def learn_dynamics_iteratively_w_mpc(
 
 def _make_proposer(env, handler: DynamicsHandler, resume_dir: Optional[str], bc_epochs: int,
                    bc_hidden: tuple, seed: int):
-    """The loop's proposer: restored from ``resume_dir`` (the port's payload, else the JAX
-    package's Orbax ``proposer/`` or its legacy ``proposer.npy``) or behaviour-cloned on the
-    bootstrap replay."""
+    """The loop's proposer: restored from ``resume_dir`` (an earlier port's payload
+    ``proposer/proposer.pt``, else the Orbax ``proposer/``, else the JAX package's legacy
+    ``proposer.npy``) or behaviour-cloned on the bootstrap replay."""
     from blackbox_mpc_torch.core.types import Bounds
     from blackbox_mpc_torch.learning.orbax_read import restore_pytree
     from blackbox_mpc_torch.learning.proposer import PolicyProposer, ProposerConfig
@@ -199,8 +203,8 @@ def _make_proposer(env, handler: DynamicsHandler, resume_dir: Optional[str], bc_
                             hidden=bc_hidden)
     bounds = Bounds.from_space(env.action_space)
     proposer = PolicyProposer(config, bounds, seed=seed, device=handler.device)
-    payload = os.path.join(resume_dir, *_PROPOSER_PAYLOAD) if resume_dir else None
-    orbax = os.path.join(resume_dir, _PROPOSER_PAYLOAD[0]) if resume_dir else None
+    orbax = os.path.join(resume_dir, _PROPOSER_TREE) if resume_dir else None
+    payload = os.path.join(orbax, _PROPOSER_PAYLOAD) if resume_dir else None
     legacy = os.path.join(resume_dir, "proposer.npy") if resume_dir else None
     if payload and os.path.exists(payload):
         proposer.load_state_dict(torch.load(payload, map_location=handler.device))
@@ -209,7 +213,7 @@ def _make_proposer(env, handler: DynamicsHandler, resume_dir: Optional[str], bc_
         restored = proposer_from_numpy(restore_pytree(orbax), config, bounds,
                                        device=handler.device)
         proposer.load_state_dict(restored.state_dict())
-        logger.info("resumed proposer from the JAX package's %s", orbax)
+        logger.info("resumed proposer from %s", orbax)
     elif legacy and os.path.exists(legacy):
         restored = proposer_from_numpy(load_legacy_npy(legacy), config, bounds,
                                        device=handler.device)

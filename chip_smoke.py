@@ -119,7 +119,7 @@ It imports nothing of JAX and nothing of the JAX package. Phases, each fatal on 
    as subprocesses: ``solvers``, ``solve`` (pendulum, cart-pole), ``export`` of phase 6's
    trained checkpoint and ``inspect``, ``serve`` (5 requests, a reset, a malformed line),
    ``calibrate`` on phase 7's probabilistic handler; ``learn`` needs gymnasium and runs only
-   where it is installed.
+   where it is installed. Part D runs while Part C exports and serves.
 10. The parallel layer (``parallel/``, ``ops/fused_sharded.py``) at the flagship: fused CEM,
    iCEM with colored noise and ``population_decay``, PI2, MPPI, RandomSearch, sep-CMA-ES and
    eager CEM with ``mesh=``. Part A, a 1-rank NCCL world on the card: each drive's ``act()``s
@@ -155,9 +155,10 @@ It imports nothing of JAX and nothing of the JAX package. Phases, each fatal on 
    without ``--cpu`` (low_level_api, true_model_mpc/tutorial_one, deploy, beyond_hbm), each
    exiting 0 with its result line; beyond_hbm must launch K3, K4 and K6. Part B runs while
    Part A exports and compiles, and ends before Part A's timings.
-12. The JAX package's checkpoints on the card, read by ``learning/orbax_read.py`` with no
-   JAX, Orbax, tensorstore or zstandard. Part A: the committed Orbax trees (the three
-   ``benchmarks/ckpt_*/handler/checkpoint`` and ``ckpt_gradient_bc_300/proposer``) and the
+12. The JAX package's checkpoints on the card, read by ``learning/orbax_read.py`` and written
+   by ``learning/orbax_write.py`` with no JAX, Orbax, tensorstore or zstandard. Part A: the
+   committed Orbax trees (the three ``benchmarks/ckpt_*/handler/checkpoint`` and
+   ``ckpt_gradient_bc_300/proposer``) and the
    JAX-written loop ``tests/torch_fixtures/jax_pendulum_loop`` (handler and proposer), each
    leaf's dtype, shape and SHA-256 equal to ``tests/torch_fixtures/jax_checkpoint_digests.json``
    (Orbax's own restore on the CPU); the read seconds per tree. Part B: the three committed
@@ -169,8 +170,18 @@ It imports nothing of JAX and nothing of the JAX package. Phases, each fatal on 
    ones; ``calibrate`` on ``ckpt_tsinf_p20_lvb`` exits 0. Part C: the JAX-written loop,
    whose handler loads to its digests, resumed by the port for one refinement of 20 steps
    (phase 6's CEM, the fixture's (64, 64) model, its proposer) on ``"fused"`` and on
-   ``"kernel"``: K4 and K6, or K2, 20 x 5 times and nothing else; the port checkpoint it
-   writes, and the proposer's, load back bit for bit.
+   ``"kernel"``: K4 and K6, or K2, 20 x 5 times and nothing else; the checkpoint it writes is
+   the JAX package's format (below) and loads back bit for bit. Part D: each tree of Part A
+   loaded onto the card (handlers by ``DynamicsHandler.load``, proposers by
+   ``proposer_from_numpy``) and saved again by the port (``learning/orbax_write.py``):
+   ``restore_pytree`` of what it wrote gives the committed digests (the replay and its RNG
+   included); the save seconds per tree are printed beside Part A's read seconds.
+
+The loops of phases 6, 7, 8 D and 12 C checkpoint in the JAX package's format: each written
+``handler/checkpoint`` (and ``proposer/``) reads back to the leaves of
+``models/convert.py::handler_to_numpy`` (``proposer_to_numpy``) of the live objects on the card,
+bit for bit, and the directory holds no ``checkpoint.pt``, ``proposer.pt`` or OCDBT file (in
+12 C, none of the JAX-written trees it resumed).
 
 The line before the last two is ``{"kernels": [...]}`` (each kernel's launches on phase 5's
 main path, and ``launches_by_path`` on every path that runs it); then the card's name and
@@ -1316,6 +1327,38 @@ def checkpoint_matches(handler, loaded) -> None:
         raise AssertionError(f"checkpoint round trip differs: {bad}, step {a.step} vs {b.step}")
 
 
+# What a directory the port checkpointed may not hold: an OCDBT tree's files, or the payloads
+# that earlier versions of the port wrote instead of the JAX package's trees.
+NOT_WRITTEN = ("manifest.ocdbt", "d", "ocdbt.process_0", "_sharding", "array_metadatas",
+               "checkpoint.pt", "proposer.pt")
+
+
+def stray_files(directory: str) -> list:
+    """The paths under ``directory`` named in ``NOT_WRITTEN``."""
+    import os
+
+    return sorted(os.path.join(root, name) for root, dirs, files in os.walk(directory)
+                  for name in dirs + files if name in NOT_WRITTEN)
+
+
+def written_in_jax_format(directory: str, handler, proposer, label: str) -> None:
+    """The loop checkpoint in ``directory`` is the JAX package's: ``handler/checkpoint`` (and
+    ``proposer/`` where ``proposer`` is given) read back by ``restore_pytree`` to the leaves of
+    ``handler_to_numpy``/``proposer_to_numpy`` of the live objects, bit for bit, and no file
+    of ``NOT_WRITTEN`` anywhere in it."""
+    from blackbox_mpc_torch.learning.orbax_read import leaf_digests, restore_pytree
+    from blackbox_mpc_torch.models.convert import handler_to_numpy, proposer_to_numpy
+
+    gate_digests(leaf_digests(restore_pytree(f"{directory}/handler/checkpoint")),
+                 leaf_digests(handler_to_numpy(handler)[1]), f"{label}: handler/checkpoint")
+    if proposer is not None:
+        gate_digests(leaf_digests(restore_pytree(f"{directory}/proposer")),
+                     leaf_digests(proposer_to_numpy(proposer)), f"{label}: proposer/")
+    stray = stray_files(directory)
+    if stray:
+        raise AssertionError(f"{label}: the checkpoint holds {stray}")
+
+
 def mbrl_loop(device, backend: str) -> dict:
     """Phase 6 on one rollout backend: ``learn_dynamics_iteratively_w_mpc`` from a random
     bootstrap through MBRL["refinements"] refinements, each collecting one episode with
@@ -1400,8 +1443,10 @@ def mbrl_loop(device, backend: str) -> dict:
         taken = handler.replay.arrays()[1]
         if not (np.isfinite(taken).all() and np.abs(taken).max() <= 2.0):
             raise AssertionError(f"{label}: an action was not finite or out of bounds")
-        # Gate 5: the loop's last checkpoint is the returned handler, bit for bit; two policies
-        # with one seed act alike on both; a resumed loop continues at the next refinement.
+        # Gate 5: the loop's last checkpoint is the JAX package's tree of the returned handler
+        # and loads as it, bit for bit; two policies with one seed act alike on both; a resumed
+        # loop continues at the next refinement and checkpoints in that format too.
+        written_in_jax_format(ckpt, handler, None, label)
         loaded = DynamicsHandler.load(f"{ckpt}/handler", device=device)
         checkpoint_matches(handler, loaded)
         obs = env.reset()
@@ -1419,6 +1464,7 @@ def mbrl_loop(device, backend: str) -> dict:
         if (completed, grown) != (MBRL["refinements"] + 1, MBRL_RESUME_STEPS * MBRL["num_envs"]):
             raise AssertionError(f"{label}: resume ran to {completed} refinements and added "
                                  f"{grown} transitions")
+        written_in_jax_format(ckpt, resumed, None, f"{label}, resumed")
         trace = trace_act(policy, obs, f"{label}, trained", per_act=BACKEND_KERNELS[backend])
     history = writer.history
     res = {
@@ -1660,6 +1706,7 @@ def pets_loop(device) -> dict:
         taken = handler.replay.arrays()[1]
         if not (np.isfinite(taken).all() and np.abs(taken).max() <= 2.0):
             raise AssertionError(f"{label}: an action was not finite or out of bounds")
+        written_in_jax_format(ckpt, handler, None, label)
         loaded = DynamicsHandler.load(f"{ckpt}/handler", device=device)
         checkpoint_matches(handler, loaded)  # the bounds and their Adam state included
         obs = env.reset()
@@ -1674,6 +1721,7 @@ def pets_loop(device) -> dict:
                                   MBRL_RESUME_STEPS * MBRL["num_envs"]):
             raise AssertionError(f"{label}: resume ran to {completed} refinements and added "
                                  f"{grown} transitions")
+        written_in_jax_format(ckpt, resumed, None, f"{label}, resumed")
         trace = trace_act(policy, obs, f"{label}, trained")
         gate_waits(trace, f"{label}, trained")
     history = writer.history
@@ -2115,7 +2163,6 @@ def bc_loop(device) -> dict:
     import tempfile
 
     import numpy as np
-    import torch
 
     from blackbox_mpc_torch import (DynamicsHandler, LearnedDynamicsConfig, MetricsWriter,
                                     learn_dynamics_iteratively_w_mpc)
@@ -2175,15 +2222,8 @@ def bc_loop(device) -> dict:
         written = [v for _, v in writer.history.get("proposer/bc_loss", [])]
         if len(written) != MBRL["refinements"] or not np.all(np.isfinite(written)):
             raise AssertionError(f"{label}: proposer/bc_loss written {written}")
-        saved = torch.load(f"{ckpt}/proposer/proposer.pt", map_location=device)
+        written_in_jax_format(ckpt, handler, policy.proposer, label)
         current = policy.proposer.state_dict()
-        pairs = [(x, y) for a, b in zip(saved["params"], current["params"]) for k in a
-                 for x, y in ((a[k], b[k]),)]
-        for name in ("exp_avg", "exp_avg_sq"):
-            pairs += list(zip(saved["adam"][name], current["adam"][name]))
-        if saved["adam"]["step"] != current["adam"]["step"] or not all(
-                same_bits(x, y) for x, y in pairs):
-            raise AssertionError(f"{label}: the proposer's checkpoint differs")
         loaded = DynamicsHandler.load(f"{ckpt}/handler", device=device)
         checkpoint_matches(handler, loaded)
         resumed_handler, resumed = learn_dynamics_iteratively_w_mpc(
@@ -2655,10 +2695,16 @@ def cli_on_card(device, workdir: str, trained, probabilistic) -> dict:
 
 def phase9(device, workdir: str, trained, probabilistic) -> dict:
     """Phase 9, Parts A-D; ``trained`` and ``probabilistic`` are the handlers Part D saves
-    and runs the command line on."""
-    return {"auto": auto_backend(device), "episodes": device_episodes(device),
-            "serving": serving_on_cuda(device, workdir),
-            "cli": cli_on_card(device, workdir, trained, probabilistic)}
+    and runs the command line on. Part D's subprocesses run while Part C exports and serves
+    (both mostly host work, each minutes long), so Part C's numbers are taken beside them."""
+    import concurrent.futures
+
+    res = {"auto": auto_backend(device), "episodes": device_episodes(device)}
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        cli = pool.submit(cli_on_card, device, workdir, trained, probabilistic)
+        res["serving"] = serving_on_cuda(device, workdir)
+        res["cli"] = cli.result()
+    return res
 
 
 # Phase 10: the parallel layer at the flagship (CEM H=50, population 1000, 5 iterations, 50
@@ -3269,11 +3315,12 @@ def finish_tutorials(started: tuple) -> dict:
     return out
 
 
-# Phase 12: the JAX package's checkpoints on the card, read by learning/orbax_read.py with no
-# JAX, Orbax, tensorstore or zstandard. Part A reads every committed Orbax tree and the
-# JAX-written loop to the digests Orbax's own restore gave on the CPU; Part B plans on the
-# committed trained weights and stats (phase 7's PETS drives and phase 8 A's Gradient+BC);
-# Part C resumes the JAX-written loop with the port on "fused" and on "kernel".
+# Phase 12: the JAX package's checkpoints on the card, read by learning/orbax_read.py and
+# written by learning/orbax_write.py with no JAX, Orbax, tensorstore or zstandard. Part A reads
+# every committed Orbax tree and the JAX-written loop to the digests Orbax's own restore gave on
+# the CPU; Part B plans on the committed trained weights and stats (phase 7's PETS drives and
+# phase 8 A's Gradient+BC); Part C resumes the JAX-written loop with the port on "fused" and on
+# "kernel"; Part D saves every tree of Part A again from the card.
 JAX_DIGESTS = "tests/torch_fixtures/jax_checkpoint_digests.json"
 JAX_LOOP = "tests/torch_fixtures/jax_pendulum_loop"  # the digests' trees are named from the root
 TRAINED_LEARNING_RATE = 3e-3  # the committed runs' (benchmarks/cheetah_mbrl.py)
@@ -3297,28 +3344,6 @@ def in_repo(path: str) -> str:
     import os
 
     return os.path.join(os.path.dirname(os.path.abspath(__file__)), path)
-
-
-def jax_layout(handler) -> dict:
-    """A port handler's training state as the JAX package checkpoints it: params, optax's Adam
-    state ``[{count, mu, nu}, None]`` (int32 count), step (int32), stats and the replay, numpy."""
-    import numpy as np
-
-    from blackbox_mpc_torch.learning.trainer import flat_params
-    from blackbox_mpc_torch.models.dynamics import map_params
-    from blackbox_mpc_torch.models.normalizer import STATS_FIELDS
-
-    ts = handler.train_state
-    state = ts.optimizer.state_dict()["state"]
-    index = {id(t): i for i, t in enumerate(flat_params(ts.params))}
-    host = lambda t: t.detach().cpu().numpy()  # noqa: E731
-    moment = lambda key: map_params(lambda t: host(state[index[id(t)]][key]), ts.params)  # noqa: E731
-    return {"params": map_params(host, ts.params),
-            "opt_state": [{"count": np.asarray(int(state[0]["step"]), np.int32),
-                           "mu": moment("exp_avg"), "nu": moment("exp_avg_sq")}, None],
-            "step": np.asarray(ts.step, np.int32),
-            "stats": {f: host(getattr(handler.dynamics_params.stats, f)) for f in STATS_FIELDS},
-            "replay": handler.replay.state_dict()}
 
 
 def gate_digests(got: dict, want: dict, label: str) -> None:
@@ -3428,22 +3453,23 @@ def resume_jax_loop(device, backend: str, workdir: str, want: dict) -> dict:
     """Part C on one backend: a copy of the JAX-written loop, whose handler loads to the
     digests of its Orbax tree (``want``), resumed by the port for one refinement with its
     proposer; K2, or K4 and K6, launched ``RESUME_STEPS`` x their per-``act()`` counts and
-    nothing else; the port checkpoint it writes loads back bit for bit, the proposer's too."""
+    nothing else; the checkpoint it writes is the JAX package's trees of the live handler and
+    proposer, with no file of the JAX-written ones left, and loads back bit for bit."""
     import shutil
-
-    import torch
 
     from blackbox_mpc_torch import DynamicsHandler
     from blackbox_mpc_torch.envs import NativePendulumVecEnv
     from blackbox_mpc_torch.learning.orbax_read import leaf_digests
     from blackbox_mpc_torch.models.analytic import pendulum_reward
+    from blackbox_mpc_torch.models.convert import handler_to_numpy
     from blackbox_mpc_torch.workflows import learn_dynamics_iteratively_w_mpc
 
     label = f"resumed JAX loop, {backend}"
     work = f"{workdir}/jax_loop_{backend}"
     shutil.copytree(in_repo(JAX_LOOP), work)
     before = DynamicsHandler.load(f"{work}/handler", device=device)
-    gate_digests(leaf_digests(jax_layout(before)), want, f"{label}: the handler as loaded")
+    gate_digests(leaf_digests(handler_to_numpy(before)[1]), want,
+                 f"{label}: the handler as loaded")
     env = NativePendulumVecEnv(num_envs=2, seed=1, max_episode_steps=RESUME_STEPS)
     counters = zero_launches()
     t0 = time.perf_counter()
@@ -3466,22 +3492,53 @@ def resume_jax_loop(device, backend: str, workdir: str, want: dict) -> dict:
     grown = len(handler.replay) - len(before.replay)
     if (completed, grown) != (2, RESUME_STEPS * 2):
         raise AssertionError(f"{label}: resumed to {completed} refinements, {grown} transitions")
+    # The JAX package's trees replaced: no stale OCDBT file or payload beside them.
+    written_in_jax_format(work, handler, policy.proposer, label)
     checkpoint_matches(handler, DynamicsHandler.load(f"{work}/handler", device=device))
-    saved = torch.load(f"{work}/proposer/proposer.pt", map_location=device)
-    live = policy.proposer.state_dict()
-    pairs = [(layer[k], mine[k]) for layer, mine in zip(saved["params"], live["params"])
-             for k in ("w", "b")]
-    pairs += [(x, y) for key in ("exp_avg", "exp_avg_sq")
-              for x, y in zip(saved["adam"][key], live["adam"][key])]
-    if saved["adam"]["step"] != live["adam"]["step"] or not all(same_bits(x, y)
-                                                                for x, y in pairs):
-        raise AssertionError(f"{label}: the proposer's checkpoint differs from the proposer")
     return {"launches": launches, "loop_s": loop_s, "train_calls": handler._train_calls,
             "replay": len(handler.replay)}
 
 
+def resave_jax_trees(device, workdir: str, digests: dict) -> dict:
+    """Part D: each tree of the digests loaded onto the card (a handler through
+    ``DynamicsHandler.load``, a proposer through ``proposer_from_numpy``) and saved again by the
+    port under ``workdir``; ``restore_pytree`` of what it wrote must give the JSON's digests,
+    and no OCDBT file may be written. Returns the save seconds per tree."""
+    import os
+
+    from blackbox_mpc_torch import DynamicsHandler
+    from blackbox_mpc_torch.core.types import Bounds
+    from blackbox_mpc_torch.learning.orbax_read import leaf_digests, restore_pytree
+    from blackbox_mpc_torch.learning.orbax_write import save_pytree
+    from blackbox_mpc_torch.learning.proposer import ProposerConfig
+    from blackbox_mpc_torch.models.convert import proposer_from_numpy, proposer_to_numpy
+
+    seconds = {}
+    for tree, want in digests.items():
+        out = f"{workdir}/resaved/{tree}"
+        if tree.endswith("handler/checkpoint"):
+            handler = DynamicsHandler.load(in_repo(os.path.dirname(tree)), device=device)
+            t0 = time.perf_counter()
+            handler.save(os.path.dirname(out))
+        else:
+            state = restore_pytree(in_repo(tree))
+            widths = [layer["w"].shape for layer in state["params"]]
+            config = ProposerConfig(dim_s=widths[0][0], dim_u=widths[-1][1],
+                                    hidden=tuple(w[1] for w in widths[:-1]))
+            proposer = proposer_from_numpy(state, config,
+                                           Bounds.of(-1.0, 1.0, dim=config.dim_u), device=device)
+            t0 = time.perf_counter()
+            save_pytree(out, proposer_to_numpy(proposer))
+        seconds[tree] = time.perf_counter() - t0
+        gate_digests(leaf_digests(restore_pytree(out)), want, f"Part D: {tree}, saved again")
+        stray = stray_files(os.path.dirname(out))
+        if stray:
+            raise AssertionError(f"Part D: {tree} saved again holds {stray}")
+    return seconds
+
+
 def phase12(device, workdir: str, seeded: dict) -> dict:
-    """Phase 12, Parts A-C (see the module's doc); ``seeded`` holds phase 7's and 8 A's
+    """Phase 12, Parts A-D (see the module's doc); ``seeded`` holds phase 7's and 8 A's
     ``act()`` medians on seeded weights, by drive."""
     smi = nvidia_smi()
     with open(in_repo(JAX_DIGESTS)) as f:
@@ -3496,8 +3553,11 @@ def phase12(device, workdir: str, seeded: dict) -> dict:
     part_c = {backend: resume_jax_loop(device, backend, workdir, want)
               for backend in ("fused", "kernel")}
     print(json.dumps({"phase12_part_c": part_c, "card": smi}), flush=True)
+    part_d = {"save_s": resave_jax_trees(device, workdir, digests),
+              "read_s_part_a": part_a["read_s"], "card": smi}
+    print(json.dumps({"phase12_part_d": part_d}), flush=True)
     print(json.dumps({"phase12_s": time.perf_counter() - t0}), flush=True)
-    return {"part_a": part_a, "part_b": part_b, "part_c": part_c}
+    return {"part_a": part_a, "part_b": part_b, "part_c": part_c, "part_d": part_d}
 
 
 def main() -> int:

@@ -40,13 +40,13 @@ def test_port_imports_no_jax():
 
 
 # The modules of the solver registry's rest and the POPLIN half, the single-card entry points,
-# the parallel layer and the Orbax reader, each imported on its own.
+# the parallel layer and the Orbax reader and writer, each imported on its own.
 NEW_MODULES = ["solvers.gradient", "solvers.cem_gd", "solvers.pso", "solvers.spsa",
                "learning.proposer", "policies.pipeline", "ops.backend_select",
                "utils.profiling", "workflows.device_episode", "deploy", "deploy.export",
                "deploy.serving", "cli", "parallel", "parallel.mesh", "parallel.multihost",
                "parallel.sharding", "ops.fused_sharded", "learning._zstd",
-               "learning.orbax_read"]
+               "learning.orbax_read", "learning.orbax_write"]
 
 _ALONE = r"""
 import importlib, sys
@@ -137,3 +137,28 @@ def test_jax_checkpoints_read_without_jax_orbax_or_tensorstore():
     assert out.returncode == 0, out.stderr
     leaves, replay = map(int, out.stdout.split())
     assert leaves == 20 and replay == 200
+
+
+_WRITE_BLOCKED = r"""
+import sys, tempfile
+for name in ("jax", "jaxlib", "orbax", "tensorstore", "zstandard", "blackbox_mpc_tpu"):
+    sys.modules[name] = None  # any import of these raises ImportError
+from blackbox_mpc_torch import DynamicsHandler
+from blackbox_mpc_torch.learning.orbax_read import leaf_digests, restore_pytree
+from blackbox_mpc_torch.models.convert import handler_to_numpy
+handler = DynamicsHandler.load("tests/torch_fixtures/jax_pendulum_loop/handler", device="cpu")
+with tempfile.TemporaryDirectory() as out:
+    handler.save(out)
+    same = leaf_digests(restore_pytree(out + "/checkpoint")) == leaf_digests(
+        handler_to_numpy(handler)[1])
+print(same)
+"""
+
+
+def test_jax_checkpoints_written_without_jax_orbax_or_tensorstore():
+    """The port saves a handler in the JAX package's format, and reads it back leaf for leaf,
+    in a process where JAX, Orbax, tensorstore and zstandard cannot be imported."""
+    out = subprocess.run([sys.executable, "-c", _WRITE_BLOCKED], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["True"]

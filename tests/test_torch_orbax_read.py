@@ -37,7 +37,8 @@ from blackbox_mpc_torch.learning.orbax_read import (
 )
 from blackbox_mpc_torch.learning.trainer import flat_params
 from blackbox_mpc_torch.models.analytic import pendulum_reward
-from blackbox_mpc_torch.models.convert import handler_from_numpy
+from blackbox_mpc_torch.models.convert import (handler_from_numpy, handler_to_numpy,
+                                               proposer_to_numpy)
 from blackbox_mpc_torch.models.normalizer import STATS_FIELDS
 from blackbox_mpc_torch.workflows import iterative_mpc
 from tests.test_torch_cli import _last_json, _run
@@ -231,24 +232,19 @@ def test_handler_load_on_jax_saved_then_trains_as_jax(jax_saved):
     _assert_train_step_matches(th, jh)
 
 
-_smoke_spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
-chip_smoke = importlib.util.module_from_spec(_smoke_spec)
-_smoke_spec.loader.exec_module(chip_smoke)
-
-
 @pytest.mark.parametrize("tree", [t for t in maker.TREES if t.endswith("handler/checkpoint")])
 def test_loaded_handler_in_jax_layout_matches_digests(tree):
     """A JAX handler directory loaded by the port and laid out again as the JAX package
-    checkpoints it (``chip_smoke.py::jax_layout``, phase 12's gate) gives every leaf of the
-    Orbax tree bit for bit: nothing is lost or rounded on the way into the port."""
+    checkpoints it (``models/convert.py::handler_to_numpy``, phase 12's gate) gives every leaf
+    of the Orbax tree bit for bit: nothing is lost or rounded on the way into the port."""
     handler = DynamicsHandler.load(str((ROOT / tree).parent), device="cpu")
-    assert leaf_digests(chip_smoke.jax_layout(handler)) == DIGESTS[tree]
+    assert leaf_digests(handler_to_numpy(handler)[1]) == DIGESTS[tree]
 
 
 def test_loop_resumes_jax_directory(tmp_path):
     """``resume=True`` on the JAX-written loop: its handler, its Orbax proposer and its
-    counter; the loop then runs one refinement and checkpoints in the port's format, which
-    loads back bit for bit."""
+    counter; the loop then runs one refinement and checkpoints in the JAX package's format,
+    replacing the JAX-written trees, and the checkpoint loads back bit for bit."""
     work = tmp_path / "loop"
     shutil.copytree(LOOP, work)
     env = NativePendulumVecEnv(num_envs=2, seed=1, max_episode_steps=10)
@@ -272,8 +268,12 @@ def test_loop_resumes_jax_directory(tmp_path):
     assert len(handler.replay) == len(before.replay) + 20
     assert handler._train_calls == before._train_calls + 1
     assert policy.proposer is not None
-    assert (work / "handler" / "checkpoint.pt").exists()
-    assert (work / "proposer" / "proposer.pt").exists()
+    assert not (work / "handler" / "checkpoint.pt").exists()
+    assert not (work / "proposer" / "proposer.pt").exists()
+    assert leaf_digests(restore_pytree(work / "handler" / "checkpoint")) == leaf_digests(
+        handler_to_numpy(handler)[1])
+    assert leaf_digests(restore_pytree(work / "proposer")) == leaf_digests(
+        proposer_to_numpy(policy.proposer))
     _assert_same_handler(DynamicsHandler.load(str(work / "handler"), device="cpu"), handler)
 
 

@@ -15,7 +15,9 @@ import torch
 from blackbox_mpc_torch import (DynamicsHandler, LearnedDynamicsConfig, MetricsWriter, MPCPolicy,
                                 learn_dynamics_iteratively_w_mpc, perform_rollouts)
 from blackbox_mpc_torch.envs import NativePendulumVecEnv
+from blackbox_mpc_torch.learning.orbax_read import leaf_digests, restore_pytree
 from blackbox_mpc_torch.models.analytic import pendulum_dynamics, pendulum_reward
+from blackbox_mpc_torch.models.convert import proposer_to_numpy
 from blackbox_mpc_torch.policies import RandomPolicy
 from blackbox_mpc_torch.policies.pipeline import SpeculativePipeline
 
@@ -182,8 +184,9 @@ def test_loop_with_behaviour_cloning_and_overlap(tmp_path):
     assert len(writer.history["perf/spec_hit_rate"]) == 3
     out = policy.proposer.act(np.zeros((4, 3), np.float32))
     assert out.shape == (4, 1) and np.all(np.abs(out) <= 2.0)
-    saved = torch.load(tmp_path / "loop" / "proposer" / "proposer.pt")
-    assert same_state(saved, policy.proposer.state_dict())
+    saved = restore_pytree(tmp_path / "loop" / "proposer")
+    assert leaf_digests(saved) == leaf_digests(proposer_to_numpy(policy.proposer))
+    assert not (tmp_path / "loop" / "proposer" / "proposer.pt").exists()
 
 
 def test_loop_resume_restores_the_proposer(tmp_path):
