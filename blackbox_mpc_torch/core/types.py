@@ -40,12 +40,26 @@ class Bounds:
 
     ``on(device)`` returns the bounds, and ``constant(name, device)`` a derived quantity, as
     tensors on ``device``, made once per device: a solve then makes no copy from the host,
-    which would wait for the stream.
+    which would wait for the stream. The cache belongs to the instance: a ``replace``d, copied
+    or unpickled ``Bounds`` starts with an empty one, so it never reads another box's tensors.
     """
 
     lower: np.ndarray  # [U]
     upper: np.ndarray  # [U]
-    _tensors: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+    _tensors: dict = dataclasses.field(init=False, default_factory=dict, compare=False,
+                                       repr=False)
+
+    def replace(self, **changes) -> "Bounds":
+        """A copy with the given fields changed (``dataclasses.replace``), as JAX's flax
+        struct ``Bounds`` has; its device cache starts empty."""
+        return dataclasses.replace(self, **changes)
+
+    def __getstate__(self):
+        return {"lower": self.lower, "upper": self.upper}
+
+    def __setstate__(self, state):
+        for name, value in (*state.items(), ("_tensors", {})):
+            object.__setattr__(self, name, value)
 
     @classmethod
     def from_space(cls, space: BoxSpace, dtype=np.float32) -> "Bounds":

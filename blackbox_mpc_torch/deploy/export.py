@@ -149,6 +149,16 @@ def _program_bytes(program) -> bytes:
     return buf.getvalue()
 
 
+def _check_platforms(platforms: Sequence[str]) -> None:
+    """Raises ``ValueError`` unless every entry is a device type in ``_PLATFORMS`` that this
+    process can use."""
+    for kind in platforms:
+        if kind not in _PLATFORMS:
+            raise ValueError(f"platforms must be among {_PLATFORMS}, got {kind!r}")
+        if kind == "cuda" and not torch.cuda.is_available():
+            raise ValueError("platforms includes 'cuda' but CUDA is not available here")
+
+
 class _Step(torch.nn.Module):
     def __init__(self, run):
         super().__init__()
@@ -192,11 +202,7 @@ def export_policy_artifact(
             )
         dim_s = int(handler.config.dim_s)
     platforms = tuple(platforms) if platforms else (policy.device.type,)
-    for kind in platforms:
-        if kind not in _PLATFORMS:
-            raise ValueError(f"platforms must be among {_PLATFORMS}, got {kind!r}")
-        if kind == "cuda" and not torch.cuda.is_available():
-            raise ValueError("platforms includes 'cuda' but CUDA is not available here")
+    _check_platforms(platforms)
 
     home = policy.device
     mesh = policy.mesh
@@ -304,25 +310,35 @@ def export_policy_artifact(
     return meta
 
 
-def export_dynamics(handler, path: Optional[str] = None):
+def export_dynamics(handler, path: Optional[str] = None, *,
+                    platforms: Optional[Sequence[str]] = None):
     """Exports the learned dynamics model alone, with a polymorphic batch dimension.
 
     ``(states [b, S], actions [b, U]) -> next_states [b, S]``: normalize -> ensemble-mean MLP
     -> denormalize/integrate, with the weights in the program, callable at any batch size
     ``b >= 1``. Returns the ``torch.export.ExportedProgram``; also writes it to ``path`` when
     given (load with ``torch.export.load(path).module()``).
+
+    ``platforms``: the device types the caller wants, as JAX's ``platforms=`` (checked as
+    :func:`export_policy_artifact` checks them); default: the handler's. An
+    ``ExportedProgram`` holds one device, so the program is made on the first of them, with
+    a copy of the weights moved there; the handler stays where it is.
     """
     if handler.is_true_model:
         raise ValueError("true-model handlers have no learned dynamics to export")
+    platforms = tuple(platforms) if platforms else (handler.device.type,)
+    _check_platforms(platforms)
+    device = torch.device(platforms[0])
+    if device.type == handler.device.type:
+        device = handler.device
     cfg = handler.config
-    params = handler.dynamics_params
+    params = handler.dynamics_params.to(device)
     predict = handler.mean_dynamics_fn
 
     class _Predict(torch.nn.Module):
         def forward(self, states, actions):
             return predict(params, states, actions)
 
-    device = handler.device
     batch = torch.export.Dim("b", min=1)
     example = (torch.zeros((2, cfg.dim_s), device=device),
                torch.zeros((2, cfg.dim_u), device=device))

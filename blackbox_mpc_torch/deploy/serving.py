@@ -249,11 +249,12 @@ class ServingPolicy:
     # ------------------------------------------------------------------ construction
 
     @classmethod
-    def load(cls, path: str, device=None, *, seed: int | None = None,
-             compiled_cache: str | None = None) -> "ServingPolicy":
+    def load(cls, path: str, compiled_cache: str | None = None, device=None, *,
+             seed: int | None = None) -> "ServingPolicy":
         """Loads an artifact onto ``device`` (None: ``cuda``), whose type must be one of the
-        artifact's ``platforms``. ``seed`` starts a fresh stream (see :meth:`reseed`) in place
-        of the stored one, which only a device of the exporting type can continue.
+        artifact's ``platforms``; ``path`` and ``compiled_cache`` come first, in JAX's order.
+        ``seed`` starts a fresh stream (see :meth:`reseed`) in place of the stored one, which
+        only a device of the exporting type can continue.
         ``compiled_cache``: a file written by :meth:`save_compiled`; when its fingerprint
         matches this runtime and artifact, the compiled programs serve from the first ``act``
         and nothing is compiled (``used_compiled_cache`` is True). Otherwise it is ignored with

@@ -93,8 +93,8 @@ class DynamicsHandler:
         save_dir: Optional[str] = None,
         save_frequency: int = 1,
         seed: int = 0,
-        device=None,
         mesh=None,
+        device=None,
     ):
         """Exactly one of ``config`` (learned) / ``true_model`` (a torch
         ``(state [B,S], action [B,U]) -> next_state`` function) must be given. Learned

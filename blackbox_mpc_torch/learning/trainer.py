@@ -21,6 +21,7 @@ one flat buffer, and every rank takes the same optimizer step, so the weights st
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Callable, List, Optional, Tuple
 
@@ -58,6 +59,37 @@ class TrainState:
     params: Any
     optimizer: torch.optim.Optimizer
     step: int = 0
+
+    def replace(self, **changes) -> "TrainState":
+        """A copy with the given fields changed, as JAX's flax struct ``TrainState`` has; an
+        unknown field raises ``TypeError``.
+
+        With ``params=`` and no ``optimizer=``, the copy trains trainable copies of the new
+        tensors, as ``init`` does, so the caller's tensors are never stepped: an optimizer of
+        the old one's class, ``defaults`` and group sizes over them (in :func:`flat_params`
+        order), loaded with a copy of the old one's state, so each leaf's moments carry over
+        by position, as JAX's ``opt_state`` does when ``params`` is replaced. This state keeps
+        its own optimizer and tensors."""
+        if "params" in changes and "optimizer" not in changes:
+            params = map_params(lambda v: v.detach().clone().requires_grad_(True),
+                                changes["params"])
+            changes["params"] = params
+            changes["optimizer"] = _rebound(self.optimizer, flat_params(params))
+        return dataclasses.replace(self, **changes)
+
+
+def _rebound(old: torch.optim.Optimizer, tensors: List[torch.Tensor]) -> torch.optim.Optimizer:
+    """An optimizer like ``old`` over ``tensors``, with a copy of ``old``'s state by position."""
+    sizes = [len(group["params"]) for group in old.param_groups]
+    if sum(sizes) != len(tensors):
+        raise ValueError(f"params has {len(tensors)} tensors; the optimizer steps {sum(sizes)}")
+    groups, start = [], 0
+    for size in sizes:
+        groups.append({"params": tensors[start:start + size]})
+        start += size
+    new = type(old)(groups, **old.defaults)
+    new.load_state_dict(copy.deepcopy(old.state_dict()))
+    return new
 
 
 def flat_params(params) -> List[torch.Tensor]:

@@ -38,6 +38,11 @@ class NormalizerStats:
     def denormalize_targets(self, targets: torch.Tensor) -> torch.Tensor:
         return targets * (self.std_targets + _EPS) + self.mean_targets
 
+    def replace(self, **changes) -> "NormalizerStats":
+        """A copy with the given fields changed (``dataclasses.replace``), as JAX's flax
+        struct stats have."""
+        return dataclasses.replace(self, **changes)
+
     def to(self, device) -> "NormalizerStats":
         return NormalizerStats(*(getattr(self, f).to(device) for f in STATS_FIELDS))
 

@@ -6,12 +6,12 @@ action, predicted next observation and predicted reward to the host once.
 
 Rollout backends:
 
-* ``"eager"`` (default; the counterpart of ``"xla"``): the eager PyTorch evaluator
-  (:mod:`blackbox_mpc_torch.rollout.evaluator`), any dynamics, among them the PETS
+* ``"eager"`` (default; JAX's ``"xla"``, accepted as its alias): the eager PyTorch
+  evaluator (:mod:`blackbox_mpc_torch.rollout.evaluator`), any dynamics, among them the PETS
   propagations ``ts_inf``/``mm`` with ``num_particles`` and pessimistic planning
   (``plan_uncertainty_penalty``), which the kernel backends refuse as JAX's do;
-* ``"kernel"`` (the counterpart of ``"pallas"``): the hand-written CUDA rollout kernel
-  (:mod:`blackbox_mpc_torch.ops.rollout_kernel`), learned MLP dynamics with mean/ts1
+* ``"kernel"`` (JAX's ``"pallas"``, accepted as its alias): the hand-written CUDA rollout
+  kernel (:mod:`blackbox_mpc_torch.ops.rollout_kernel`), learned MLP dynamics with mean/ts1
   propagation;
 * ``"fused"`` (alias ``"fused_cem"``): the generate-in-kernel solver family
   (:mod:`blackbox_mpc_torch.ops.fused_cem`), whose CUDA kernels draw the candidates, roll them
@@ -79,6 +79,8 @@ logger = logging.getLogger(__name__)
 __all__ = ["MPCPolicy", "ROLLOUT_BACKENDS"]
 
 ROLLOUT_BACKENDS = ("eager", "kernel", "fused", "auto")
+# The JAX package's backend names, accepted for the port's.
+BACKEND_ALIASES = {"xla": "eager", "pallas": "kernel", "fused_cem": "fused"}
 # The fused solver family, by registry name: the factory of ops/fused_cem.py behind each, and
 # of ops/fused_sharded.py with a mesh ("make_sharded_" in place of "make_").
 _FUSED_FAMILY = {
@@ -107,15 +109,15 @@ class MPCPolicy(ModelBasedPolicy):
         exploration_noise_scale: float = 0.05,
         discount: float = 1.0,
         seed: int = 0,
+        metrics_writer=None,
+        mesh=None,
+        shard_axis: str = "population",
         rollout_backend: str = "eager",
         proposer=None,
         remat_rollout: bool = False,
         action_smoothness_weight: float = 0.0,
-        metrics_writer=None,
-        device=None,
-        mesh=None,
-        shard_axis: str = "population",
         rng_impl: str | None = None,
+        device=None,
         **solver_kwargs,
     ):
         """``solver_kwargs`` are forwarded into the solver's config dataclass.
@@ -157,12 +159,11 @@ class MPCPolicy(ModelBasedPolicy):
         self._planning_horizon = planning_horizon
         self._noise_scale = exploration_noise_scale
         self._discount = discount
-        if rollout_backend == "fused_cem":
-            rollout_backend = "fused"
+        rollout_backend = BACKEND_ALIASES.get(rollout_backend, rollout_backend)
         if rollout_backend not in ROLLOUT_BACKENDS:
             raise ValueError(
-                f"rollout_backend must be one of {ROLLOUT_BACKENDS} ('fused_cem' is an alias "
-                f"of 'fused'), got {rollout_backend!r}"
+                f"rollout_backend must be one of {ROLLOUT_BACKENDS} (or the JAX package's "
+                f"names {', '.join(map(repr, BACKEND_ALIASES))}), got {rollout_backend!r}"
             )
         kernel_backend = rollout_backend in ("kernel", "fused")
         if kernel_backend and dynamics_handler.is_true_model:

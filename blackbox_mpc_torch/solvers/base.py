@@ -4,7 +4,8 @@ Counterpart of ``blackbox_mpc_tpu/solvers/base.py``: bounds bookkeeping, midpoin
 initialization, warm-start time shifting, the bound-violation penalty, the iCEM colored noise
 in both candidate layouts (with the spectral-synthesis basis the fused kernels contract), the
 exploration-noise rule, and the projected Adam ascent the first-order solvers share
-(:func:`adam_polish`, over :func:`adam_update`, optax's ``adam`` written out).
+(:func:`adam_polish`, over :func:`adam_update`, optax's ``adam`` written out, or over a
+``torch.optim`` optimizer).
 """
 from __future__ import annotations
 
@@ -260,7 +261,7 @@ def adam_update(state: AdamState, grads: Sequence[torch.Tensor], lr: float
     return AdamState(step, mus, nus), updates
 
 
-def adam_polish(evaluate, bounds: Bounds, lr: float, plans: torch.Tensor,
+def adam_polish(evaluate, bounds: Bounds, optimizer, plans: torch.Tensor,
                 iterations: int) -> torch.Tensor:
     """Projected Adam ascent of ``evaluate`` over a batch of plans ``[P, A, H, U]``.
 
@@ -270,8 +271,16 @@ def adam_polish(evaluate, bounds: Bounds, lr: float, plans: torch.Tensor,
     ``eps`` expects it. The plans are clipped to the bounds after every step. Gradients flow
     into the plans only (the planning parameters carry none), also when the caller runs
     under ``torch.no_grad()``; the result is detached.
+
+    ``optimizer`` (JAX's takes an optax transformation): a float is the learning rate of
+    ``optax.adam`` (:func:`adam_update`); a callable takes the list ``[plans]`` (a leaf that
+    requires grad) and returns a ``torch.optim.Optimizer`` over it, which steps the plans in
+    place before each clip.
     """
     plans = plans.detach()
+    if callable(optimizer):
+        return _optimizer_polish(evaluate, bounds, optimizer, plans, iterations)
+    lr = float(optimizer)
     state = AdamState.zeros_like([plans])
     with torch.enable_grad():
         for _ in range(iterations):
@@ -281,3 +290,17 @@ def adam_polish(evaluate, bounds: Bounds, lr: float, plans: torch.Tensor,
             state, (update,) = adam_update(state, [grad], lr)
             plans = bounds.clip(leaf.detach() + update)
     return plans
+
+
+def _optimizer_polish(evaluate, bounds: Bounds, make_optimizer, plans: torch.Tensor,
+                      iterations: int) -> torch.Tensor:
+    leaf = plans.clone().requires_grad_(True)
+    opt = make_optimizer([leaf])
+    lower, upper = bounds.on(leaf.device)
+    with torch.enable_grad():
+        for _ in range(iterations):
+            (leaf.grad,) = torch.autograd.grad(-torch.mean(evaluate(leaf)), leaf)
+            opt.step()
+            with torch.no_grad():
+                leaf.clamp_(lower.to(leaf.dtype), upper.to(leaf.dtype))
+    return leaf.detach()

@@ -175,7 +175,21 @@ It imports nothing of JAX and nothing of the JAX package. Phases, each fatal on 
    loaded onto the card (handlers by ``DynamicsHandler.load``, proposers by
    ``proposer_from_numpy``) and saved again by the port (``learning/orbax_write.py``):
    ``restore_pytree`` of what it wrote gives the committed digests (the replay and its RNG
-   included); the save seconds per tree are printed beside Part A's read seconds.
+   included); the save seconds per tree are printed beside Part A's read seconds. Part E,
+   the JAX package's surface on the card, with the flagship ensemble: a ``Bounds`` whose old
+   box's tensors and constants were made on the card is ``replace``d by a box of half the
+   width, off centre; fused CEM (K4 and K6 five times), fused RandomSearch (K4 and the row draw
+   K3 once each) and CEM on the rollout kernel (K2 five times) each solve on it with a fresh
+   ``Bounds``' bits, every action and plan inside the new box, the launches exact, and a traced
+   fused CEM ``act()`` on it waits exactly twice; ``export_dynamics(handler on the card,
+   platforms=("cpu",))`` predicts on the CPU within 1e-4 of max(1, max|card|) of the handler;
+   phase 8 A's Gradient solver with ``adam_polish`` given the float rate and a
+   ``torch.optim.Adam`` callable at the same rate, on the same plans (those of the first
+   polish of an ``act()``): the callable's plans finite, in bounds and within 0.01 of the float
+   path's, relative to how far the float path moved them; both polish calls and both paths'
+   ``act()`` timed here, the callable's ``act()`` at most 2 waits when profiled;
+   ``rollout_backend="pallas"`` launches K2 as ``"kernel"`` and ``"xla"`` nothing, as
+   ``"eager"``, each with the bits of the port's name.
 
 The loops of phases 6, 7, 8 D and 12 C checkpoint in the JAX package's format: each written
 ``handler/checkpoint`` (and ``proposer/``) reads back to the leaves of
@@ -183,9 +197,12 @@ The loops of phases 6, 7, 8 D and 12 C checkpoint in the JAX package's format: e
 bit for bit, and the directory holds no ``checkpoint.pt``, ``proposer.pt`` or OCDBT file (in
 12 C, none of the JAX-written trees it resumed).
 
-The line before the last two is ``{"kernels": [...]}`` (each kernel's launches on phase 5's
-main path, and ``launches_by_path`` on every path that runs it); then the card's name and
-power limit; the last line is ``{"ok": true, "device": {...}}``.
+Before the kernels line, ``{"phase_seconds": {...}}`` gives the wall seconds of each phase
+and part (``"9C"`` and ``"9D"`` overlap, as do ``"11A"`` and ``"11B"``; ``"10B"`` holds Parts
+B-D at two ranks) and of the whole run (``"total"``). The line before the last two is
+``{"kernels": [...]}`` (each kernel's launches on phase 5's main path, and ``launches_by_path``
+on every path that runs it); then the card's name and power limit; the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -194,6 +211,7 @@ import json
 import subprocess
 import sys
 import time
+from typing import Any, NamedTuple
 
 FLAGSHIP = dict(dim_s=17, dim_u=6, hidden=(500, 500, 500), ensemble_size=5)
 ROWS, HORIZON, STEPS, ITERS = 1000, 50, 3, 5
@@ -225,6 +243,20 @@ RNG_OPS = 38
 FUSED_TILE = 128  # ts1's logical tile in phase 3: 8 tiles of 1000 rows for 5 members
 EXTRA_SLOTS = 6  # the iCEM drive's injected candidates: keep_elites 5 + the mean
 COLORED_BETA = 2.0
+
+
+# Wall seconds of each phase and part (Parts 9 C and D, and 11 A and B, overlap), printed
+# before the kernels line.
+PHASE_SECONDS: dict = {}
+
+
+@contextlib.contextmanager
+def phase_timer(name: str):
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + time.perf_counter() - t0
 
 
 def nvidia_smi() -> str:
@@ -1016,16 +1048,28 @@ def gate_traced_launches(trace: dict, label: str, per_act: dict) -> None:
                                  f"the act() launches {per_act.get(kernel, 0)}")
 
 
+class TraceLost(AssertionError):
+    """The profiler recorded no device operation in a traced ``act()``."""
+
+
 def trace_act(policy, obs, label: str, exploration_noise: bool = False, per_act=None,
               every_try: bool = False) -> dict:
-    """``trace_once``; with ``per_act`` (K4's and K6's launches per ``act()``) traced again
-    until the trace records each launch, at most TRACE_TRIES times, and gated: no idle share
-    is read from a trace that lost records. ``every_try``: trace TRACE_TRIES times whatever
-    they record (ranks of one world, whose act()s must stay in step), keeping the first whole
-    one, ungated. ``lost_record_traces`` counts the traces that lacked a launch."""
-    whole, lost = None, 0
-    for _ in range(TRACE_TRIES if per_act is not None else 1):
-        trace = trace_once(policy, obs, label, exploration_noise)
+    """``trace_once``, traced again where the profiler recorded no device operation of the
+    ``act()`` (a 3-5 ms compiled ``act()`` can fall inside the 8-10 ms the tracer sometimes
+    loses), at most TRACE_TRIES times; with ``per_act`` (K4's and K6's launches per
+    ``act()``) also until the trace records each launch, and gated: no idle share is read from
+    a trace that lost records. ``every_try``: trace TRACE_TRIES times whatever they record
+    (ranks of one world, whose act()s must stay in step), keeping the first whole one,
+    ungated. ``lost_record_traces`` counts the traces that lacked a launch or every
+    operation."""
+    whole, trace, lost = None, None, 0
+    for _ in range(TRACE_TRIES):
+        try:
+            trace = trace_once(policy, obs, label, exploration_noise)
+        except TraceLost as err:
+            lost += 1
+            print(json.dumps({"trace_lost_records": label, "error": str(err)}), flush=True)
+            continue
         if per_act is None or all(trace[key] == per_act.get(kernel, 0)
                                   for key, kernel in TRACED_KERNELS):
             whole = whole or trace
@@ -1035,11 +1079,35 @@ def trace_act(policy, obs, label: str, exploration_noise: bool = False, per_act=
             lost += 1
             print(json.dumps({"trace_lost_records": label, "k4_kernels": trace["k4_kernels"],
                               "k6_kernels": trace["k6_kernels"]}), flush=True)
+    if trace is None:
+        raise AssertionError(f"{label}: the profiler saw no device activity in "
+                             f"{TRACE_TRIES} traced act()s")
     trace = whole or trace
     trace["lost_record_traces"] = lost
     if per_act is not None and not every_try:  # a rank's caller gates after the world ends
         gate_traced_launches(trace, label, per_act)
     return trace
+
+
+class ProfiledEvent(NamedTuple):
+    name: str
+    device_type: Any  # torch.autograd.DeviceType
+    start_us: float  # from the trace's start
+    end_us: float
+    is_user_annotation: bool
+
+
+def profiled_events(prof) -> list:
+    """The events of a finished ``torch.profiler`` run, read from its Kineto results: those
+    ``prof.events()`` gives (no memory records, no hidden events), with the fields the gates
+    read, without building ``FunctionEvent``s, which took 4.8 s for the 80 000 events of one
+    Gradient ``act()`` on the CPU, against 0.25 s for these."""
+    results = prof.profiler.kineto_results
+    t0 = results.trace_start_ns()
+    return [ProfiledEvent(e.name(), e.device_type(), (e.start_ns() - t0) / 1000,
+                          (e.end_ns() - t0) / 1000, e.is_user_annotation())
+            for e in results.events()
+            if e.name() not in ("[memory]", "[OutOfMemory]") and not e.is_hidden_event()]
 
 
 def trace_once(policy, obs, label: str, exploration_noise: bool = False) -> dict:
@@ -1063,37 +1131,36 @@ def trace_once(policy, obs, label: str, exploration_noise: bool = False) -> dict
         policy.act(obs, exploration_noise=exploration_noise)
         with record_function("act"):
             policy.act(obs, exploration_noise=exploration_noise)
-    events = prof.events()
-    window = next(e.time_range for e in events
-                  if e.name == "act" and e.device_type == DeviceType.CPU)
+    events = profiled_events(prof)
+    window = next(e for e in events if e.name == "act" and e.device_type == DeviceType.CPU)
+    lo_us, hi_us = window.start_us, window.end_us
     # The host's waits for the device: each cudaStreamSynchronize (a blocking copy, a read of
     # a device value) holds the host until the stream drains.
     syncs, event_syncs = (sum(1 for e in events if e.name == name
                               and e.device_type == DeviceType.CPU
-                              and window.start <= e.time_range.start <= window.end)
+                              and lo_us <= e.start_us <= hi_us)
                           for name in ("cudaStreamSynchronize", "cudaEventSynchronize"))
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
-                   if e.device_type == DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)
-                   and window.start <= e.time_range.start <= window.end)
+    spans = sorted((e.start_us, e.end_us, e.name) for e in events
+                   if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                   and lo_us <= e.start_us <= hi_us)
     if not spans:
-        raise AssertionError(f"{label}: the profiler saw no device activity in act()")
-    busy, reached = 0.0, window.start
+        raise TraceLost(f"{label}: the profiler saw no device activity in act()")
+    busy, reached = 0.0, lo_us
     by_name: dict = {}
     gaps = []  # (idle us, its start from the window's, the device operation after it)
     for start, end, name in spans:
-        lo, hi = min(max(start, reached), window.end), min(end, window.end)
+        lo, hi = min(max(start, reached), hi_us), min(end, hi_us)
         if lo > reached:
-            gaps.append((lo - reached, reached - window.start, name[:60]))
+            gaps.append((lo - reached, reached - lo_us, name[:60]))
         if hi > lo:
             busy += hi - lo
         reached = max(reached, hi)
         total, count = by_name.get(name, (0.0, 0))
         by_name[name] = (total + end - start, count + 1)
-    gaps.append((window.end - reached, reached - window.start, "(end of act)"))
+    gaps.append((hi_us - reached, reached - lo_us, "(end of act)"))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    res = {"trace": label, "act_window_us": window.end - window.start, "device_busy_us": busy,
-           "device_idle_share": 1.0 - busy / (window.end - window.start),
+    res = {"trace": label, "act_window_us": hi_us - lo_us, "device_busy_us": busy,
+           "device_idle_share": 1.0 - busy / (hi_us - lo_us),
            "idle_gaps_us": [{"us": us, "at_us": at, "before": name}
                             for us, at, name in sorted(gaps, reverse=True)[:6]],
            "device_ops": len(spans), "stream_syncs": syncs, "event_syncs": event_syncs,
@@ -2440,7 +2507,7 @@ def count_waits(fn) -> tuple:
 
     with tempfile.TemporaryDirectory() as log_dir, profiling.trace(log_dir) as prof:
         out = fn()
-    events = prof.events()
+    events = profiled_events(prof)
     syncs = sum(1 for e in events if e.name == "cudaStreamSynchronize"
                 and e.device_type == DeviceType.CPU)
     ops = sum(1 for e in events if e.device_type == DeviceType.CUDA)
@@ -2699,10 +2766,18 @@ def phase9(device, workdir: str, trained, probabilistic) -> dict:
     (both mostly host work, each minutes long), so Part C's numbers are taken beside them."""
     import concurrent.futures
 
-    res = {"auto": auto_backend(device), "episodes": device_episodes(device)}
+    def timed_cli():
+        with phase_timer("9D"):
+            return cli_on_card(device, workdir, trained, probabilistic)
+
+    with phase_timer("9A"):
+        res = {"auto": auto_backend(device)}
+    with phase_timer("9B"):
+        res["episodes"] = device_episodes(device)
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        cli = pool.submit(cli_on_card, device, workdir, trained, probabilistic)
-        res["serving"] = serving_on_cuda(device, workdir)
+        cli = pool.submit(timed_cli)
+        with phase_timer("9C"):
+            res["serving"] = serving_on_cuda(device, workdir)
         res["cli"] = cli.result()
     return res
 
@@ -2988,87 +3063,88 @@ def phase10(device, trained, workdir: str, eager_per_byte: float) -> dict:
 
     smi = nvidia_smi()
     # Part A: a 1-rank NCCL world; every sharded drive against its unsharded twin, bit for bit.
-    initialize_multihost(f"file://{workdir}/nccl-store", 1, 0, device=device)
-    mesh = make_pop_mesh(device=device)
-    handler = flagship_handler(device)
-    part_a = {}
-    try:
-        for label in SHARDED_DRIVES:
-            single = sharded_acts(sharded_policy(device, handler, label, None), label)
-            policy = sharded_policy(device, handler, label, mesh)
-            sharded = sharded_acts(policy, f"1-rank NCCL: {label}")
-            if not np.array_equal(single["outs"], sharded["outs"]):
-                raise AssertionError(f"1-rank NCCL: {label}: act() differs from the "
-                                     "single-device one")
-            part_a[label] = {"act_ms_median": sharded["act_ms_median"],
-                             "single_device_act_ms_median": single["act_ms_median"],
-                             "launches": sharded["launches"]}
-            if label == "CEM":
-                trace = trace_act(policy, np.zeros(17, np.float32),
-                                  "1-rank NCCL: sharded fused CEM",
-                                  per_act=BACKEND_KERNELS["fused"])
-                gate_waits(trace, "1-rank NCCL: sharded fused CEM")
-                part_a[label]["k4_kernels_traced"] = trace["k4_kernels"]
-                part_a[label]["lost_record_traces"] = trace["lost_record_traces"]
-                part_a[label]["stream_syncs"] = trace["stream_syncs"]
-                part_a[label]["device_idle_share"] = trace["device_idle_share"]
-        # A data-parallel train() on phase 6's replay, bit for bit with the unsharded one.
-        runs = []
-        for m in (None, mesh):
-            h = DynamicsHandler(trained.config, seed=0, device=device, mesh=m)
-            h._replay = copy.deepcopy(trained.replay)
-            info = h.train(epochs=5, batch_size=128)
-            runs.append((info["train_loss"], info["val_loss"],
-                         [t.cpu() for t in flat_params(h.dynamics_params.params)]))
-        (loss, val, params), (s_loss, s_val, s_params) = runs
-        if (loss, val) != (s_loss, s_val) or not all(
-                torch.equal(a, b) for a, b in zip(params, s_params)):
-            raise AssertionError("1-rank NCCL: data-parallel train() differs from the "
-                                 "unsharded one")
-        part_a["train"] = {"bitwise": True, "train_loss": s_loss, "val_loss": s_val}
-        part_c = {"D=1": capacity_act(device, handler, mesh)}
-    finally:
-        torch.distributed.destroy_process_group()
-    print(json.dumps({"phase10_part_a": part_a, "card": smi}), flush=True)
+    with phase_timer("10A"):  # Part C at D=1 included
+        initialize_multihost(f"file://{workdir}/nccl-store", 1, 0, device=device)
+        mesh = make_pop_mesh(device=device)
+        handler = flagship_handler(device)
+        part_a = {}
+        try:
+            for label in SHARDED_DRIVES:
+                single = sharded_acts(sharded_policy(device, handler, label, None), label)
+                policy = sharded_policy(device, handler, label, mesh)
+                sharded = sharded_acts(policy, f"1-rank NCCL: {label}")
+                if not np.array_equal(single["outs"], sharded["outs"]):
+                    raise AssertionError(f"1-rank NCCL: {label}: act() differs from the "
+                                         "single-device one")
+                part_a[label] = {"act_ms_median": sharded["act_ms_median"],
+                                 "single_device_act_ms_median": single["act_ms_median"],
+                                 "launches": sharded["launches"]}
+                if label == "CEM":
+                    trace = trace_act(policy, np.zeros(17, np.float32),
+                                      "1-rank NCCL: sharded fused CEM",
+                                      per_act=BACKEND_KERNELS["fused"])
+                    gate_waits(trace, "1-rank NCCL: sharded fused CEM")
+                    part_a[label]["k4_kernels_traced"] = trace["k4_kernels"]
+                    part_a[label]["lost_record_traces"] = trace["lost_record_traces"]
+                    part_a[label]["stream_syncs"] = trace["stream_syncs"]
+                    part_a[label]["device_idle_share"] = trace["device_idle_share"]
+            # A data-parallel train() on phase 6's replay, bit for bit with the unsharded one.
+            runs = []
+            for m in (None, mesh):
+                h = DynamicsHandler(trained.config, seed=0, device=device, mesh=m)
+                h._replay = copy.deepcopy(trained.replay)
+                info = h.train(epochs=5, batch_size=128)
+                runs.append((info["train_loss"], info["val_loss"],
+                             [t.cpu() for t in flat_params(h.dynamics_params.params)]))
+            (loss, val, params), (s_loss, s_val, s_params) = runs
+            if (loss, val) != (s_loss, s_val) or not all(
+                    torch.equal(a, b) for a, b in zip(params, s_params)):
+                raise AssertionError("1-rank NCCL: data-parallel train() differs from the "
+                                     "unsharded one")
+            part_a["train"] = {"bitwise": True, "train_loss": s_loss, "val_loss": s_val}
+            part_c = {"D=1": capacity_act(device, handler, mesh)}
+        finally:
+            torch.distributed.destroy_process_group()
+        print(json.dumps({"phase10_part_a": part_a, "card": smi}), flush=True)
 
     # Part B, and Parts C and D at D=2: two ranks on this card over gloo.
-    t0 = time.perf_counter()
-    mp.spawn(part_b_rank, args=(workdir, str(device)), nprocs=PART_B_RANKS, join=True)
-    ranks = []
-    for r in range(PART_B_RANKS):
-        with open(f"{workdir}/rank{r}.pkl", "rb") as f:
-            ranks.append(pickle.load(f))
-    for label in SHARDED_DRIVES:
-        if not np.array_equal(ranks[0]["drives"][label]["outs"],
-                              ranks[1]["drives"][label]["outs"]):
-            raise AssertionError(f"gloo 2 ranks: {label}: the ranks' act()s differ")
-    part_b = {label: {"act_ms_median": [r["drives"][label]["act_ms_median"] for r in ranks],
-                      "launches_per_rank": ranks[0]["drives"][label]["launches"]}
-              for label in SHARDED_DRIVES}
-    part_b["waits_per_traced_act"] = [r["waits"] for r in ranks]  # gloo: through the host
-    part_b["traced_launches"] = [r["traced_launches"] for r in ranks]
-    for r, rank in enumerate(ranks):
-        gate_traced_launches(rank["traced_launches"], f"gloo rank {r}: sharded fused CEM",
-                             BACKEND_KERNELS["fused"])
-    part_b["card_vs_cpu"] = [r["card_vs_cpu"] for r in ranks]
-    # The sharded eager path holds the whole candidate tensor on every rank: the capacity
-    # threshold, set from the unsharded eager peak, holds for it only if no rank peaks higher.
-    per_byte = [r["eager_peak"]["peak_per_candidate_byte"] for r in ranks]
-    if max(per_byte) > eager_per_byte:
-        raise AssertionError(f"gloo 2 ranks: sharded eager peaks at {per_byte} bytes per "
-                             f"candidate byte, above the unsharded {eager_per_byte}")
-    total = torch.cuda.get_device_properties(0).total_memory
-    part_b["eager_peak"] = {
-        "peak_bytes": [r["eager_peak"]["peak_bytes"] for r in ranks],
-        "peak_per_candidate_byte": per_byte, "unsharded_per_candidate_byte": eager_per_byte,
-        "fused_min_bytes_measured": FUSED_MEMORY_SHARE * total / max(per_byte)}
-    if not np.array_equal(ranks[0]["ts_inf"]["action"], ranks[1]["ts_inf"]["action"]):
-        raise AssertionError("gloo 2 ranks: sharded ts_inf: the ranks' act()s differ")
-    part_b["ts_inf"] = {
-        "single_act_ms_median": float(np.median(ranks[0]["ts_inf"]["single_act_ms"])),
-        "sharded_act_ms_median": [float(np.median(r["ts_inf"]["sharded_act_ms"]))
-                                  for r in ranks]}
-    part_b["seconds"] = time.perf_counter() - t0
+    with phase_timer("10B"):  # Parts C and D at D=2 included
+        mp.spawn(part_b_rank, args=(workdir, str(device)), nprocs=PART_B_RANKS, join=True)
+        ranks = []
+        for r in range(PART_B_RANKS):
+            with open(f"{workdir}/rank{r}.pkl", "rb") as f:
+                ranks.append(pickle.load(f))
+        for label in SHARDED_DRIVES:
+            if not np.array_equal(ranks[0]["drives"][label]["outs"],
+                                  ranks[1]["drives"][label]["outs"]):
+                raise AssertionError(f"gloo 2 ranks: {label}: the ranks' act()s differ")
+        part_b = {label: {"act_ms_median": [r["drives"][label]["act_ms_median"] for r in ranks],
+                          "launches_per_rank": ranks[0]["drives"][label]["launches"]}
+                  for label in SHARDED_DRIVES}
+        part_b["waits_per_traced_act"] = [r["waits"] for r in ranks]  # gloo: through the host
+        part_b["traced_launches"] = [r["traced_launches"] for r in ranks]
+        for r, rank in enumerate(ranks):
+            gate_traced_launches(rank["traced_launches"], f"gloo rank {r}: sharded fused CEM",
+                                 BACKEND_KERNELS["fused"])
+        part_b["card_vs_cpu"] = [r["card_vs_cpu"] for r in ranks]
+        # The sharded eager path holds the whole candidate tensor on every rank: the capacity
+        # threshold, set from the unsharded eager peak, holds for it only if no rank peaks higher.
+        per_byte = [r["eager_peak"]["peak_per_candidate_byte"] for r in ranks]
+        if max(per_byte) > eager_per_byte:
+            raise AssertionError(f"gloo 2 ranks: sharded eager peaks at {per_byte} bytes per "
+                                 f"candidate byte, above the unsharded {eager_per_byte}")
+        total = torch.cuda.get_device_properties(0).total_memory
+        part_b["eager_peak"] = {
+            "peak_bytes": [r["eager_peak"]["peak_bytes"] for r in ranks],
+            "peak_per_candidate_byte": per_byte, "unsharded_per_candidate_byte": eager_per_byte,
+            "fused_min_bytes_measured": FUSED_MEMORY_SHARE * total / max(per_byte)}
+        if not np.array_equal(ranks[0]["ts_inf"]["action"], ranks[1]["ts_inf"]["action"]):
+            raise AssertionError("gloo 2 ranks: sharded ts_inf: the ranks' act()s differ")
+        part_b["ts_inf"] = {
+            "single_act_ms_median": float(np.median(ranks[0]["ts_inf"]["single_act_ms"])),
+            "sharded_act_ms_median": [float(np.median(r["ts_inf"]["sharded_act_ms"]))
+                                      for r in ranks]}
+    part_b["seconds"] = PHASE_SECONDS["10B"]
     part_c["D=2"] = [r["capacity"] for r in ranks]
     print(json.dumps({"phase10_part_b": part_b, "card": smi}), flush=True)
     print(json.dumps({"phase10_part_c": part_c, "card": smi}), flush=True)
@@ -3320,7 +3396,8 @@ def finish_tutorials(started: tuple) -> dict:
 # every committed Orbax tree and the JAX-written loop to the digests Orbax's own restore gave on
 # the CPU; Part B plans on the committed trained weights and stats (phase 7's PETS drives and
 # phase 8 A's Gradient+BC); Part C resumes the JAX-written loop with the port on "fused" and on
-# "kernel"; Part D saves every tree of Part A again from the card.
+# "kernel"; Part D saves every tree of Part A again from the card; Part E holds the JAX
+# package's surface on the card (below).
 JAX_DIGESTS = "tests/torch_fixtures/jax_checkpoint_digests.json"
 JAX_LOOP = "tests/torch_fixtures/jax_pendulum_loop"  # the digests' trees are named from the root
 TRAINED_LEARNING_RATE = 3e-3  # the committed runs' (benchmarks/cheetah_mbrl.py)
@@ -3538,26 +3615,305 @@ def resave_jax_trees(device, workdir: str, digests: dict) -> dict:
 
 
 def phase12(device, workdir: str, seeded: dict) -> dict:
-    """Phase 12, Parts A-D (see the module's doc); ``seeded`` holds phase 7's and 8 A's
+    """Phase 12, Parts A-E (see the module's doc); ``seeded`` holds phase 7's and 8 A's
     ``act()`` medians on seeded weights, by drive."""
     smi = nvidia_smi()
     with open(in_repo(JAX_DIGESTS)) as f:
         digests = json.load(f)
     t0 = time.perf_counter()
-    part_a = {"read_s": read_jax_trees(digests), "leaves": sum(map(len, digests.values())),
-              "card": smi}
+    with phase_timer("12A"):
+        part_a = {"read_s": read_jax_trees(digests), "leaves": sum(map(len, digests.values())),
+                  "card": smi}
     print(json.dumps({"phase12_part_a": part_a}), flush=True)
-    part_b = trained_drives(device, smi, seeded)
+    with phase_timer("12B"):
+        part_b = trained_drives(device, smi, seeded)
     print(json.dumps({"phase12_part_b": part_b}), flush=True)
     want = digests[f"{JAX_LOOP}/handler/checkpoint"]
-    part_c = {backend: resume_jax_loop(device, backend, workdir, want)
-              for backend in ("fused", "kernel")}
+    with phase_timer("12C"):
+        part_c = {backend: resume_jax_loop(device, backend, workdir, want)
+                  for backend in ("fused", "kernel")}
     print(json.dumps({"phase12_part_c": part_c, "card": smi}), flush=True)
-    part_d = {"save_s": resave_jax_trees(device, workdir, digests),
-              "read_s_part_a": part_a["read_s"], "card": smi}
+    with phase_timer("12D"):
+        part_d = {"save_s": resave_jax_trees(device, workdir, digests),
+                  "read_s_part_a": part_a["read_s"], "card": smi}
     print(json.dumps({"phase12_part_d": part_d}), flush=True)
+    with phase_timer("12E"):
+        part_e = jax_surface_on_card(device, workdir)
     print(json.dumps({"phase12_s": time.perf_counter() - t0}), flush=True)
-    return {"part_a": part_a, "part_b": part_b, "part_c": part_c, "part_d": part_d}
+    return {"part_a": part_a, "part_b": part_b, "part_c": part_c, "part_d": part_d,
+            "part_e": part_e}
+
+
+# Phase 12 Part E: the JAX package's surface on the card. The flagship's bounds are replaced
+# (``Bounds.replace``) by a box of half the width, off centre, after the old box's tensors were
+# made on the card; every solve on the replaced Bounds must be a fresh Bounds' solve, bit for bit.
+HALF_BOX = (-0.25, 0.75)
+# The solves on the replaced Bounds, by label: the kernels one solve launches, and how often.
+SURFACE_SOLVES = {"fused CEM": BACKEND_KERNELS["fused"],
+                  "fused RandomSearch": FUSED_FAMILY["fused RandomSearch"][2],
+                  "kernel CEM": BACKEND_KERNELS["kernel"]}
+EXPORT_CPU_TOLERANCE = 1e-4  # export_dynamics(platforms=("cpu",)) against the card
+# adam_polish with a torch.optim.Adam callable against the float path (optax's Adam written
+# out) on the same plans: the distance between the two results, relative to how far the
+# float path moved the plans.
+POLISH_AGREEMENT = 0.01
+
+
+class SolverAct:
+    """``act()`` of one solver on the card as ``MPCPolicy.act`` makes it (the observation in,
+    one solve, the action and the plan out in one copy), for ``trace_act``."""
+
+    def __init__(self, solver, device, seed: int = 0):
+        import torch
+
+        self.solver, self.device = solver, device
+        self.generator = torch.Generator(device=device).manual_seed(seed)
+        self.state = solver.init(self.generator)
+
+    def act(self, obs, t: int = 0, exploration_noise: bool = False):
+        import numpy as np
+        import torch
+
+        del exploration_noise
+        with torch.no_grad():
+            o = torch.as_tensor(np.asarray(obs, np.float32).reshape(1, -1), device=self.device)
+            action, self.state, aux = self.solver.solve(self.state, o, t, self.generator)
+            flat = torch.cat([action.reshape(-1), aux.plan.reshape(-1)]).cpu().numpy()
+        return flat[:action.numel()].reshape(action.shape), flat[action.numel():]
+
+
+def surface_solver(label: str, bounds, handler, device):
+    """The solve of SURFACE_SOLVES ``label`` at the flagship (H=50, population 1000, 5
+    iterations, 50 elites) on ``bounds``."""
+    from blackbox_mpc_torch.ops import fused_cem as fc
+    from blackbox_mpc_torch.ops.rollout_kernel import make_rollout_kernel_evaluator
+    from blackbox_mpc_torch.solvers import make_solver
+    from blackbox_mpc_torch.solvers.cem import CEMConfig
+    from blackbox_mpc_torch.solvers.random_search import RandomSearchConfig
+
+    cem = dict(planning_horizon=HORIZON, population=ROWS, num_elite=50, max_iterations=ITERS)
+    params = lambda: handler.dynamics_params  # noqa: E731
+    if label == "fused CEM":
+        return fc.make_fused_cem(CEMConfig(**cem), bounds, handler.config, params, reward_fn)
+    if label == "fused RandomSearch":
+        return fc.make_fused_random_search(
+            RandomSearchConfig(planning_horizon=HORIZON, population=ROWS), bounds,
+            handler.config, params, reward_fn)
+    evaluate = make_rollout_kernel_evaluator(handler.config, reward_fn, device=device)
+    return make_solver("CEM", bounds, lambda obs, a: evaluate(params(), obs, a), **cem)
+
+
+def replaced_bounds_solves(device, handler, smi: str) -> dict:
+    """Each solve of SURFACE_SOLVES on ``Bounds.replace``d bounds whose old box's tensors and
+    constants were made on the card, and on a fresh ``Bounds`` of the new box: the same bits,
+    every action and plan inside the new box, the launches exact; one traced fused CEM
+    ``act()`` on the replaced bounds waits exactly twice."""
+    import numpy as np
+
+    from blackbox_mpc_torch.core.types import Bounds
+
+    obs = np.zeros(FLAGSHIP["dim_s"], np.float32)
+    lower, upper = (np.full(FLAGSHIP["dim_u"], x, np.float32) for x in HALF_BOX)
+    res = {}
+    for label, per_act in SURFACE_SOLVES.items():
+        old = Bounds.of(-1.0, 1.0, dim=FLAGSHIP["dim_u"])
+        old.on(device)
+        for name in ("midpoint", "default_variance"):
+            old.constant(name, device)
+        SolverAct(surface_solver(label, old, handler, device), device).act(obs)  # old box
+        runs = {}
+        for which, bounds in (("replaced", old.replace(lower=lower, upper=upper)),
+                              ("fresh", Bounds(lower, upper))):
+            actor = SolverAct(surface_solver(label, bounds, handler, device), device, seed=1)
+            counters = zero_launches()
+            t0 = time.perf_counter()
+            action, plan = actor.act(obs)
+            ms = (time.perf_counter() - t0) * 1e3
+            runs[which] = {"action": action, "plan": plan, "ms": ms,
+                           "launches": read_launches(counters), "actor": actor}
+        got, want = runs["replaced"], runs["fresh"]
+        expected = {name: per_act.get(name, 0) for name in got["launches"]}
+        if got["launches"] != expected:
+            raise AssertionError(f"replaced Bounds, {label}: launches {got['launches']}, "
+                                 f"expected {expected}")
+        if not (same_bits(got["action"], want["action"]) and same_bits(got["plan"], want["plan"])):
+            raise AssertionError(f"replaced Bounds, {label}: the solve differs from a fresh "
+                                 "Bounds' of the same box")
+        inside = all(np.all(x >= HALF_BOX[0]) and np.all(x <= HALF_BOX[1])
+                     for x in (got["action"], got["plan"]))
+        if not inside:
+            raise AssertionError(f"replaced Bounds, {label}: an action outside {HALF_BOX}")
+        res[label] = {"launches": got["launches"], "bitwise_with_fresh_bounds": True,
+                      "ms": got["ms"], "action": [float(a) for a in got["action"].ravel()]}
+        if label == "fused CEM":
+            trace = trace_act(got["actor"], obs, "replaced Bounds, fused CEM", per_act=per_act)
+            if trace["stream_syncs"] != MAX_SYNCS:
+                raise AssertionError(f"replaced Bounds, fused CEM: {trace['stream_syncs']} "
+                                     f"cudaStreamSynchronize calls in one act(), expected "
+                                     f"{MAX_SYNCS}")
+            res[label].update(stream_syncs=trace["stream_syncs"],
+                              device_idle_share=trace["device_idle_share"])
+    print(json.dumps({"phase12_part_e_bounds": res, "card": smi}), flush=True)
+    return res
+
+
+def export_dynamics_for_cpu(device, handler, workdir: str, smi: str) -> dict:
+    """``export_dynamics(handler on the card, platforms=("cpu",))``: the program loads and
+    predicts on the CPU as the handler does on the card, within EXPORT_CPU_TOLERANCE of
+    max(1, max|card|), and the handler stays on the card."""
+    import torch
+
+    from blackbox_mpc_torch.deploy import export_dynamics
+
+    path = f"{workdir}/dynamics_cpu.pt2"
+    home = (handler.device, handler.dynamics_params.stats.std_states.device)
+    t0 = time.perf_counter()
+    export_dynamics(handler, path, platforms=("cpu",))
+    export_s = time.perf_counter() - t0
+    program = torch.export.load(path).module()
+    g = torch.Generator(device=device).manual_seed(11)
+    s = torch.randn((PREDICT_ROWS, FLAGSHIP["dim_s"]), generator=g, device=device)
+    a = torch.rand((PREDICT_ROWS, FLAGSHIP["dim_u"]), generator=g, device=device) * 2 - 1
+    with torch.no_grad():
+        want = handler.mean_dynamics_fn(handler.dynamics_params, s, a).cpu()
+        got = program(s.cpu(), a.cpu())
+    err = float((got - want).abs().max() / want.abs().max().clamp(min=1))
+    if not err <= EXPORT_CPU_TOLERANCE:
+        raise AssertionError(f"export_dynamics(platforms=('cpu',)) differs from the card by "
+                             f"{err} of max(1, max|card|)")
+    if (handler.device, handler.dynamics_params.stats.std_states.device) != home:
+        raise AssertionError("export_dynamics moved the handler off the card")
+    res = {"rows": PREDICT_ROWS, "cpu_vs_card": err, "export_s": export_s, "card": smi}
+    print(json.dumps({"phase12_part_e_export_dynamics": res}), flush=True)
+    return res
+
+
+def adam_polish_optimizers(device, smi: str) -> dict:
+    """Phase 8 A's Gradient solver with ``adam_polish`` given a float (optax's Adam written
+    out) and a callable making ``torch.optim.Adam`` at the same rate, betas and eps, on the
+    same inputs: the ones the first polish of a float-path ``act()`` received. The callable's
+    plans must lie within POLISH_AGREEMENT of the float path's, relative to how far the float
+    path moved them (a callable whose optimizer never stepped would be 1.0 away). Both polish
+    calls and both paths' ``act()`` are timed; the callable's ``act()`` launches no kernel and
+    waits at most twice when profiled."""
+    import numpy as np
+    import torch
+
+    from blackbox_mpc_torch import DynamicsHandler, LearnedDynamicsConfig, MPCPolicy
+    from blackbox_mpc_torch.core.spaces import BoxSpace
+    from blackbox_mpc_torch.solvers import base
+
+    config = LearnedDynamicsConfig(**GBC_NET)
+    handler = DynamicsHandler(config, seed=0, device=device)
+    handler.set_params(pets_params(config, device))
+    float_polish = base.adam_polish
+    inputs = []
+
+    def torch_adam(lr):
+        return lambda ps: torch.optim.Adam(ps, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+    def recorded(evaluate, bounds, lr, plans, iterations):
+        if not inputs:
+            inputs.append((evaluate, bounds, lr, plans.clone(), iterations))
+        return float_polish(evaluate, bounds, lr, plans, iterations)
+
+    def with_torch_adam(evaluate, bounds, lr, plans, iterations):
+        return float_polish(evaluate, bounds, torch_adam(lr), plans, iterations)
+
+    obs = np.zeros((GBC_AGENTS, config.dim_s), np.float32)
+    res, policies = {}, {}
+    try:
+        for label, polish in (("float", recorded), ("torch.optim.Adam", with_torch_adam)):
+            base.adam_polish = polish
+            policies[label] = MPCPolicy(BoxSpace.of(-1.0, 1.0, dim=config.dim_u), cheetah_reward,
+                                        handler, solver_name="Gradient", num_agents=GBC_AGENTS,
+                                        planning_horizon=GBC_HORIZON, seed=0, device=device,
+                                        **FIRST_ORDER["Gradient"])
+            times, launches, _, (_, nxt, _) = timed_acts(policies[label], obs, 2,
+                                                         f"Gradient, adam_polish {label}")
+            if any(launches.values()):
+                raise AssertionError(f"adam_polish {label}: kernels launched {launches}")
+            res[label] = {"act_ms": times}  # the first includes the warm-up
+        label = "Gradient, adam_polish torch.optim.Adam"
+        _, syncs, _ = count_waits(lambda: policies["torch.optim.Adam"].act(nxt))
+    finally:
+        base.adam_polish = float_polish
+    gate_waits({"stream_syncs": syncs}, label)
+    res["torch.optim.Adam"]["stream_syncs"] = syncs
+    evaluate, bounds, lr, plans, iterations = inputs[0]
+    outs, polish_ms = {}, {}
+    for name, optimizer in (("float", lr), ("torch.optim.Adam", torch_adam(lr))):
+        polish_ms[name] = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[name] = float_polish(evaluate, bounds, optimizer, plans, iterations)
+            torch.cuda.synchronize()
+            polish_ms[name].append((time.perf_counter() - t0) * 1e3)
+    lower, upper = bounds.on(device)
+    moved = float(torch.linalg.vector_norm(outs["float"] - bounds.clip(plans)))
+    off = float(torch.linalg.vector_norm(outs["torch.optim.Adam"] - outs["float"]))
+    inside = bool(((outs["torch.optim.Adam"] >= lower) & (outs["torch.optim.Adam"] <= upper))
+                  .all())
+    if not (moved > 0 and off <= POLISH_AGREEMENT * moved and inside
+            and bool(torch.isfinite(outs["torch.optim.Adam"]).all())):
+        raise AssertionError(f"adam_polish(torch.optim.Adam callable): {off} from the float "
+                             f"path, which moved the plans {moved} (at most "
+                             f"{POLISH_AGREEMENT} of it), inside the bounds: {inside}")
+    res["polish"] = {"plans": list(plans.shape), "iterations": iterations,
+                     "float_path_moved": moved, "callable_off": off,
+                     "relative": off / moved, "ms": polish_ms}
+    print(json.dumps({"phase12_part_e_adam_polish": res, "card": smi}), flush=True)
+    return res
+
+
+def jax_backend_names(device, smi: str) -> dict:
+    """``rollout_backend="pallas"`` builds the ``"kernel"`` policy (K2 five times an
+    ``act()``) and ``"xla"`` the ``"eager"`` one (no kernel), each with the bits of the
+    policy built by the port's name."""
+    import numpy as np
+
+    handler = flagship_handler(device)
+    obs = np.zeros(FLAGSHIP["dim_s"], np.float32)
+    res = {}
+    for jax_name, port_name in (("pallas", "kernel"), ("xla", "eager")):
+        outs = []
+        for name in (jax_name, port_name):
+            policy = flagship_policy(device, handler, name)
+            if policy.rollout_backend != port_name:
+                raise AssertionError(f"rollout_backend={name!r} built "
+                                     f"{policy.rollout_backend!r}, not {port_name!r}")
+            policy.act(obs)  # warm-up
+            counters = zero_launches()
+            outs.append(policy.act(obs))
+            launches = read_launches(counters)
+            expected = {k: BACKEND_KERNELS[port_name].get(k, 0) for k in launches}
+            if launches != expected:
+                raise AssertionError(f"rollout_backend={name!r}: launches {launches}, "
+                                     f"expected {expected}")
+        if not all(same_bits(a, b) for a, b in zip(*outs)):
+            raise AssertionError(f"rollout_backend={jax_name!r} acts otherwise than "
+                                 f"{port_name!r}")
+        res[jax_name] = {"builds": port_name, "launches": launches, "bitwise": True}
+    print(json.dumps({"phase12_part_e_backend_names": res, "card": smi}), flush=True)
+    return res
+
+
+def jax_surface_on_card(device, workdir: str) -> dict:
+    """Phase 12 Part E (see the module's doc)."""
+    smi = nvidia_smi()
+    handler = flagship_handler(device)
+    parts = {"bounds": lambda: replaced_bounds_solves(device, handler, smi),
+             "export_dynamics": lambda: export_dynamics_for_cpu(device, handler, workdir, smi),
+             "adam_polish": lambda: adam_polish_optimizers(device, smi),
+             "backend_names": lambda: jax_backend_names(device, smi)}
+    res, seconds = {}, {}
+    for name, run in parts.items():
+        t0 = time.perf_counter()
+        res[name] = run()
+        seconds[name] = time.perf_counter() - t0
+    print(json.dumps({"phase12_part_e_seconds": seconds, "card": smi}), flush=True)
+    return res
 
 
 def main() -> int:
@@ -3572,58 +3928,70 @@ def main() -> int:
     from blackbox_mpc_torch.core.device import resolve_device
     from blackbox_mpc_torch.ops import _build
 
-    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions run in full f32
-    torch.backends.cudnn.allow_tf32 = False
-    device = resolve_device(None)
-    smi = nvidia_smi()
-    print(f"device: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    t_start = time.perf_counter()
+    with phase_timer("1"):
+        torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions run in full f32
+        torch.backends.cudnn.allow_tf32 = False
+        device = resolve_device(None)
+        smi = nvidia_smi()
+        print(f"device: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     if "--compiled-flagship" in sys.argv[1:]:  # phase 11 Part A alone, at the flagship
         with tempfile.TemporaryDirectory() as workdir:
             compiled_cache_times(*compiled_cache_on_card(device, workdir, COMPILED_FLAGSHIP))
         print(smi)
         return 0
 
-    t0 = time.perf_counter()
-    logs = _build.build("rollout", "fused_cem")
-    print(json.dumps({"build_s": time.perf_counter() - t0,
+    with phase_timer("2"):
+        logs = _build.build("rollout", "fused_cem")
+    print(json.dumps({"build_s": PHASE_SECONDS["2"],
                       "compiled": sorted(name for name, log in logs.items() if log)}), flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"{name}: {line.strip()}")
 
-    cases = [kernel_vs_plain(device, p, d)
-             for p, d in (("mean", "float32"), ("mean", "bfloat16"), ("ts1", "float32"))]
-    fused = [fused_vs_plain(device, p, d)
-             for p, d in (("mean", "float32"), ("mean", "bfloat16"), ("ts1", "float32"))]
-    streamed = fused_vs_plain(device, "mean", "float32", streamed=True)
-    kernel_vs_plain(device, "mean", "float32", rows=ROWS * BIG_AGENTS)
-    fused_vs_plain(device, "mean", "float32", agents=BIG_AGENTS)
-    for options in ("icem", "mppi", "uniform"):
-        fused_vs_plain(device, "mean", "float32", options=options)
-    retime_in_turns(device)
-    tiny = torch.zeros(1, device=device)  # the reference for K3's and K6's device times
-    print(json.dumps({"empty_launch_ms": graph_ms(lambda: tiny.add_(1.0))}), flush=True)
-    draws = draw_rows_vs_plain(device)
-    moments = [moments_vs_plain(device, w)
-               for w in ("elite_mask", "softmax", "logrank", "zeros", "single")]
-    for weights, options in (("elite_mask", "icem"), ("softmax", "icem"), ("single", "icem"),
-                             ("softmax", "clip"), ("logrank", "clip"), ("zeros", "clip")):
-        moments_vs_plain(device, weights, options)
-    moments_see_fused_rollout(device)
-    small_reference(device)
-    kernel_run = drive_policy(device, "kernel", STEPS)
-    fused_run = drive_policy(device, "fused", STEPS)
-    family = {label: drive_policy(device, "fused", STEPS, label) for label in FUSED_FAMILY}
-    drive_policy(device, "eager", 3)
-    mbrl = {backend: mbrl_loop(device, backend) for backend in ("kernel", "fused")}
-    pets = {label: pets_act(device, label) for label in PETS_DRIVES}
-    pets_rollout_card_vs_cpu(device)
-    pets_trained = pets_loop(device)["handler"]
-    first_order = first_order_drives(device)
-    on_kernels = kernel_solver_drives(device)
-    pipeline_runs(device)
-    bc_loop(device)
+    with phase_timer("3"):
+        cases = [kernel_vs_plain(device, p, d)
+                 for p, d in (("mean", "float32"), ("mean", "bfloat16"), ("ts1", "float32"))]
+        fused = [fused_vs_plain(device, p, d)
+                 for p, d in (("mean", "float32"), ("mean", "bfloat16"), ("ts1", "float32"))]
+        streamed = fused_vs_plain(device, "mean", "float32", streamed=True)
+        kernel_vs_plain(device, "mean", "float32", rows=ROWS * BIG_AGENTS)
+        fused_vs_plain(device, "mean", "float32", agents=BIG_AGENTS)
+        for options in ("icem", "mppi", "uniform"):
+            fused_vs_plain(device, "mean", "float32", options=options)
+        retime_in_turns(device)
+        tiny = torch.zeros(1, device=device)  # the reference for K3's and K6's device times
+        print(json.dumps({"empty_launch_ms": graph_ms(lambda: tiny.add_(1.0))}), flush=True)
+        draws = draw_rows_vs_plain(device)
+        moments = [moments_vs_plain(device, w)
+                   for w in ("elite_mask", "softmax", "logrank", "zeros", "single")]
+        for weights, options in (("elite_mask", "icem"), ("softmax", "icem"), ("single", "icem"),
+                                 ("softmax", "clip"), ("logrank", "clip"), ("zeros", "clip")):
+            moments_vs_plain(device, weights, options)
+        moments_see_fused_rollout(device)
+    with phase_timer("4"):
+        small_reference(device)
+    with phase_timer("5"):
+        kernel_run = drive_policy(device, "kernel", STEPS)
+        fused_run = drive_policy(device, "fused", STEPS)
+        family = {label: drive_policy(device, "fused", STEPS, label) for label in FUSED_FAMILY}
+        drive_policy(device, "eager", 3)
+    with phase_timer("6"):
+        mbrl = {backend: mbrl_loop(device, backend) for backend in ("kernel", "fused")}
+    with phase_timer("7A"):
+        pets = {label: pets_act(device, label) for label in PETS_DRIVES}
+        pets_rollout_card_vs_cpu(device)
+    with phase_timer("7B"):
+        pets_trained = pets_loop(device)["handler"]
+    with phase_timer("8A"):
+        first_order = first_order_drives(device)
+    with phase_timer("8B"):
+        on_kernels = kernel_solver_drives(device)
+    with phase_timer("8C"):
+        pipeline_runs(device)
+    with phase_timer("8D"):
+        bc_loop(device)
     print(json.dumps({"phase8_act_ms_median": {
         label: run["act_ms_median"] for part in (first_order, on_kernels)
         for label, run in part["drives"].items()}, "card": smi}), flush=True)
@@ -3642,9 +4010,13 @@ def main() -> int:
     # host), and end before Part A's timings.
     cxx_with_openmp()  # the deploy tutorial compiles too
     with tempfile.TemporaryDirectory() as workdir, tutorials_running() as started:
-        part_a, policies = compiled_cache_on_card(device, workdir)
-        tutorials = finish_tutorials(started)["tutorials"]
-        compiled_cache_times({**part_a, "compiled_beside": list(TUTORIALS_ON_CARD)}, policies)
+        with phase_timer("11A"):
+            part_a, policies = compiled_cache_on_card(device, workdir)
+        tutorials_part = finish_tutorials(started)
+        PHASE_SECONDS["11B"], tutorials = tutorials_part["seconds"], tutorials_part["tutorials"]
+        with phase_timer("11A"):
+            compiled_cache_times({**part_a, "compiled_beside": list(TUTORIALS_ON_CARD)},
+                                 policies)
     with tempfile.TemporaryDirectory() as workdir:
         twelfth = phase12(device, workdir, {
             **{label: run["act_ms_median"] for label, run in pets.items()},
@@ -3666,6 +4038,9 @@ def main() -> int:
              **{f"resumed JAX loop, {backend}, {RESUME_STEPS} steps": run["launches"]
                 for backend, run in twelfth["part_c"].items()}}
 
+    print(json.dumps({"phase_seconds": {**PHASE_SECONDS,
+                                        "total": time.perf_counter() - t_start},
+                      "card": smi}), flush=True)
     # The first case of each kernel is mean/f32 (K6: the 50-elite mask; draw_rows: the iCEM
     # shape), as the policy ran. K6's and draw_rows' ms is the device's, host_ms the host's.
     entries = [

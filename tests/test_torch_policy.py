@@ -97,7 +97,9 @@ def test_constructor_errors(monkeypatch):
         return MPCPolicy(space, t_reward, handler, device="cpu", **kw)
 
     with pytest.raises(ValueError, match="rollout_backend"):
-        build(rollout_backend="xla")
+        build(rollout_backend="triton")
+    # JAX's names are aliases of the port's
+    assert build(rollout_backend="xla").rollout_backend == "eager"
     assert build(rollout_backend="auto").rollout_backend == "eager"  # no CUDA: eager
     # mesh= is ported: a one-device mesh builds, the kernel backend refuses any mesh
     assert build(mesh=make_pop_mesh(device="cpu")).mesh.size == 1
