@@ -47,6 +47,7 @@ from blackbox_mpc_torch.models.dynamics import (
     true_model_dynamics,
 )
 from blackbox_mpc_torch.models.normalizer import STATS_FIELDS, NormalizerStats, fit_normalizer
+from blackbox_mpc_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -254,6 +255,13 @@ class DynamicsHandler:
         dim_s, dim_u = self._config.dim_s, self._config.dim_u
         return torch.split(packed, [dim_s, dim_u, dim_s], dim=-1)
 
+    def _next_batch(self, minibatches):
+        """The next of ``minibatches`` on the device (the replay's gather and the copy), None
+        after the last."""
+        with span("learning.batch"):
+            minibatch = next(minibatches, None)
+            return None if minibatch is None else self._batch(*minibatch)
+
     def validation_losses(self, params, batch_size: int = 128) -> Optional[np.ndarray]:
         """Per-member validation loss ``[E]`` of ``params`` under the current stats: the
         size-weighted mean over the deterministic full validation split, read once; None
@@ -318,9 +326,11 @@ class DynamicsHandler:
         epochs_ran = 0
         for _ in range(epochs):
             losses = []
-            for s, a, ns in self._replay.minibatches(batch_size, ensemble):
-                self._train_state, member_losses = self._train_step(
-                    self._train_state, stats, *self._batch(s, a, ns))
+            minibatches = self._replay.minibatches(batch_size, ensemble)
+            while (batch := self._next_batch(minibatches)) is not None:
+                with span("learning.step"):  # forward, backward and the optimizer's step
+                    self._train_state, member_losses = self._train_step(
+                        self._train_state, stats, *batch)
                 losses.append(member_losses)
             if losses:
                 last_train = float(np.mean(torch.stack(losses).cpu().numpy()))

@@ -15,6 +15,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from blackbox_mpc_torch.utils.profiling import span
+
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "load_library"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -53,31 +55,33 @@ def build(*names: str) -> dict:
     Returns ``{name: compiler output}``: with ``-Xptxas -v``, registers, shared memory and
     spills per kernel; ``""`` for a library that was already built.
     """
-    logs = {name: "" for name in names}
-    running = []
-    for name in names:
-        target = _target(name)
-        if target.exists():
-            continue
-        nvcc = _nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        running.append((name, proc, tmp, target))
-    failures = []
-    for name, proc, tmp, target in running:
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            failures.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{out}")
-        else:
-            os.replace(tmp, target)  # atomic: a concurrent build never loads a partial file
-            logs[name] = out
-    if failures:
-        raise RuntimeError("\n".join(failures))
-    return logs
+    with span("kernels.build"):
+        logs = {name: "" for name in names}
+        running = []
+        for name in names:
+            target = _target(name)
+            if target.exists():
+                continue
+            nvcc = _nvcc()
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)
+            running.append((name, proc, tmp, target))
+        failures = []
+        for name, proc, tmp, target in running:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                failures.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{out}")
+            else:
+                os.replace(tmp, target)  # atomic: a concurrent build never loads a partial file
+                logs[name] = out
+        if failures:
+            raise RuntimeError("\n".join(failures))
+        return logs
 
 
 def load_library(name: str) -> ctypes.CDLL:

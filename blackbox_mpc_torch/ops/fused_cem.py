@@ -50,6 +50,7 @@ from blackbox_mpc_torch.solvers.cem import CEMConfig, CEMState, check_config, it
 from blackbox_mpc_torch.solvers.cma_es import CMAESConfig, CMAESState
 from blackbox_mpc_torch.solvers.pi2 import PI2Config, PI2State, softmax_weights
 from blackbox_mpc_torch.solvers.random_search import RandomSearchConfig, RandomSearchState
+from blackbox_mpc_torch.utils.profiling import span
 
 __all__ = [
     "Features", "draw_rows", "draw_seed", "elite_moments", "elite_moments_plain",
@@ -422,13 +423,14 @@ def fused_rollout(
     ``(states, actions, penalty, dots)``: the actions are the ones rolled out (clipped, or
     injected), ``penalty [rows]`` is the squared bound violation (None without ``clip``) and ``dots [rows]`` is ``<gvec, centered>``
     (None without ``gvec``). CPU tensors take :func:`fused_rollout_plain`."""
-    if mean.device.type == "cpu":
-        return fused_rollout_plain(config, ops, s0, mean, std, seed, rows, tile_member,
-                                   member_tile, features=features)
-    out = _launch_rollout(False, config, ops, s0, mean, std, seed, rows, tile_member,
-                          member_tile, features)
-    fused_rollout.launches += 1
-    return out
+    with span("kernels.K4"):
+        if mean.device.type == "cpu":
+            return fused_rollout_plain(config, ops, s0, mean, std, seed, rows, tile_member,
+                                       member_tile, features=features)
+        out = _launch_rollout(False, config, ops, s0, mean, std, seed, rows, tile_member,
+                              member_tile, features)
+        fused_rollout.launches += 1
+        return out
 
 
 def fused_rollout_streamed(
@@ -438,13 +440,14 @@ def fused_rollout_streamed(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K5's wrapper: the same function as :func:`fused_rollout` without options, by the kernel
     that draws step h's actions inside step h."""
-    if mean.device.type == "cpu":
-        return fused_rollout_plain(config, ops, s0, mean, std, seed, rows, tile_member,
-                                   member_tile, streamed=True)
-    out = _launch_rollout(True, config, ops, s0, mean, std, seed, rows, tile_member,
-                          member_tile)
-    fused_rollout_streamed.launches += 1
-    return out
+    with span("kernels.K5"):
+        if mean.device.type == "cpu":
+            return fused_rollout_plain(config, ops, s0, mean, std, seed, rows, tile_member,
+                                       member_tile, streamed=True)
+        out = _launch_rollout(True, config, ops, s0, mean, std, seed, rows, tile_member,
+                              member_tile)
+        fused_rollout_streamed.launches += 1
+        return out
 
 
 fused_rollout.launches = 0
@@ -501,47 +504,48 @@ def elite_moments(std: torch.Tensor, weights: torch.Tensor, seed: torch.Tensor,
     or any weights), ``seed [1]`` int32 -> ``(sum, sumsq)``, each ``[A, H*U]``. ``features``
     with a clip or injected candidates need the sampling ``mean [A, H*U]``. One launch, which
     draws only the rows whose weight is not 0. CPU tensors take :func:`elite_moments_plain`."""
-    f = features or _NO_FEATURES
-    if (f.clip is not None or f.extra is not None) and mean is None:
-        raise ValueError("elite_moments needs mean with a bounds clip or injected candidates")
-    if std.device.type == "cpu":
-        return elite_moments_plain(std, weights, seed, mean, features)
-    device = _check_cuda(std, "elite_moments")
-    agents, hu = std.shape
-    rows = weights.numel()
-    if weights.dim() != 1 or rows == 0 or rows % agents:
-        raise ValueError(f"weights must be [population * {agents}], got {tuple(weights.shape)}")
-    population = rows // agents
-    rk.check_tensor(std, "std", torch.float32, (agents, hu), device)
-    rk.check_tensor(weights, "weights", torch.float32, (rows,), device)
-    rk.check_tensor(seed, "seed", torch.int32, (1,), device)
-    if mean is not None:
-        rk.check_tensor(mean, "mean", torch.float32, (agents, hu), device)
-    # The kernel splits a column into (h, u) only for the colored draw and the clip.
-    if f.basis is not None:
-        horizon = f.basis.shape[1]
-    elif f.clip is not None:
-        horizon = hu // f.clip.shape[1]
-    else:
-        horizon = hu
-    if horizon < 1 or hu % horizon:
-        raise ValueError(f"std width {hu} is no multiple of the horizon {horizon}")
-    if f.extra is not None and f.population != population:
-        raise ValueError(f"features.population ({f.population}) != population ({population})")
-    code, n_cols, two_f, slots = _check_features(
-        dataclasses.replace(f, gvec=None), agents, horizon, hu // horizon, device)
-    out = torch.empty((2, agents, hu), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _lib().bbmpc_elite_moments(
-            _ptr(mean), std.data_ptr(), weights.data_ptr(), seed.data_ptr(), out[0].data_ptr(),
-            out[1].data_ptr(), population, agents, horizon, hu // horizon, code, n_cols, two_f,
-            _ptr(f.basis), _ptr(f.extra), slots, _ptr(f.clip), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"elite_moments kernel launch failed: CUDA error {err}")
-    elite_moments.launches += 1
-    return out[0], out[1]
+    with span("kernels.K6"):
+        f = features or _NO_FEATURES
+        if (f.clip is not None or f.extra is not None) and mean is None:
+            raise ValueError("elite_moments needs mean with a bounds clip or injected candidates")
+        if std.device.type == "cpu":
+            return elite_moments_plain(std, weights, seed, mean, features)
+        device = _check_cuda(std, "elite_moments")
+        agents, hu = std.shape
+        rows = weights.numel()
+        if weights.dim() != 1 or rows == 0 or rows % agents:
+            raise ValueError(f"weights must be [population * {agents}], got {tuple(weights.shape)}")
+        population = rows // agents
+        rk.check_tensor(std, "std", torch.float32, (agents, hu), device)
+        rk.check_tensor(weights, "weights", torch.float32, (rows,), device)
+        rk.check_tensor(seed, "seed", torch.int32, (1,), device)
+        if mean is not None:
+            rk.check_tensor(mean, "mean", torch.float32, (agents, hu), device)
+        # The kernel splits a column into (h, u) only for the colored draw and the clip.
+        if f.basis is not None:
+            horizon = f.basis.shape[1]
+        elif f.clip is not None:
+            horizon = hu // f.clip.shape[1]
+        else:
+            horizon = hu
+        if horizon < 1 or hu % horizon:
+            raise ValueError(f"std width {hu} is no multiple of the horizon {horizon}")
+        if f.extra is not None and f.population != population:
+            raise ValueError(f"features.population ({f.population}) != population ({population})")
+        code, n_cols, two_f, slots = _check_features(
+            dataclasses.replace(f, gvec=None), agents, horizon, hu // horizon, device)
+        out = torch.empty((2, agents, hu), dtype=torch.float32, device=device)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = _lib().bbmpc_elite_moments(
+                _ptr(mean), std.data_ptr(), weights.data_ptr(), seed.data_ptr(), out[0].data_ptr(),
+                out[1].data_ptr(), population, agents, horizon, hu // horizon, code, n_cols, two_f,
+                _ptr(f.basis), _ptr(f.extra), slots, _ptr(f.clip), stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"elite_moments kernel launch failed: CUDA error {err}")
+        elite_moments.launches += 1
+        return out[0], out[1]
 
 
 elite_moments.launches = 0
@@ -559,35 +563,36 @@ def draw_rows(seed, row_ids: torch.Tensor, n_flat: int, basis: torch.Tensor | No
     RandomSearch's argmax) without the population. ``seed`` is an int32 ``[1]`` tensor on the
     rows' device, or an int with CPU rows. CPU tensors take :func:`_mirror_z`; CUDA ones launch
     the kernel."""
-    on_cpu = not torch.is_tensor(seed) or seed.device.type == "cpu"
-    if on_cpu != (row_ids.device.type == "cpu"):
-        raise ValueError(f"draw_rows: row_ids is on {row_ids.device}, the seed on "
-                         f"{seed.device if torch.is_tensor(seed) else 'cpu'}")
-    if on_cpu:
-        dense = None if basis is None else _dense_basis(basis, n_flat // basis.shape[1])
-        return _mirror_z(seed, row_ids, n_flat, dense, sampling)
-    device = _check_cuda(seed, "draw_rows")
-    rk.check_tensor(seed, "seed", torch.int32, (1,), device)
-    if row_ids.device != device or row_ids.dim() != 1 or row_ids.numel() == 0:
-        raise ValueError(f"row_ids must be [N > 0] on {device}, got {tuple(row_ids.shape)} on "
-                         f"{row_ids.device}")
-    horizon = n_flat if basis is None else basis.shape[1]
-    if n_flat < 1 or n_flat % horizon:
-        raise ValueError(f"n_flat ({n_flat}) is no multiple of the basis' horizon ({horizon})")
-    code, n_cols, two_f, _ = _check_features(Features(sampling=sampling, basis=basis), 1,
-                                             horizon, n_flat // horizon, device)
-    rows = row_ids.to(torch.int32).contiguous()
-    z = torch.empty((rows.numel(), n_flat), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        err = _lib().bbmpc_draw_rows(
-            seed.data_ptr(), rows.data_ptr(), z.data_ptr(), rows.numel(), horizon,
-            n_flat // horizon, code, n_cols, two_f, _ptr(basis),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"draw_rows kernel launch failed: CUDA error {err}")
-    draw_rows.launches += 1
-    return z
+    with span("kernels.K3"):
+        on_cpu = not torch.is_tensor(seed) or seed.device.type == "cpu"
+        if on_cpu != (row_ids.device.type == "cpu"):
+            raise ValueError(f"draw_rows: row_ids is on {row_ids.device}, the seed on "
+                             f"{seed.device if torch.is_tensor(seed) else 'cpu'}")
+        if on_cpu:
+            dense = None if basis is None else _dense_basis(basis, n_flat // basis.shape[1])
+            return _mirror_z(seed, row_ids, n_flat, dense, sampling)
+        device = _check_cuda(seed, "draw_rows")
+        rk.check_tensor(seed, "seed", torch.int32, (1,), device)
+        if row_ids.device != device or row_ids.dim() != 1 or row_ids.numel() == 0:
+            raise ValueError(f"row_ids must be [N > 0] on {device}, got {tuple(row_ids.shape)} on "
+                             f"{row_ids.device}")
+        horizon = n_flat if basis is None else basis.shape[1]
+        if n_flat < 1 or n_flat % horizon:
+            raise ValueError(f"n_flat ({n_flat}) is no multiple of the basis' horizon ({horizon})")
+        code, n_cols, two_f, _ = _check_features(Features(sampling=sampling, basis=basis), 1,
+                                                 horizon, n_flat // horizon, device)
+        rows = row_ids.to(torch.int32).contiguous()
+        z = torch.empty((rows.numel(), n_flat), dtype=torch.float32, device=device)
+        with torch.cuda.device(device):
+            err = _lib().bbmpc_draw_rows(
+                seed.data_ptr(), rows.data_ptr(), z.data_ptr(), rows.numel(), horizon,
+                n_flat // horizon, code, n_cols, two_f, _ptr(basis),
+                torch.cuda.current_stream(device).cuda_stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"draw_rows kernel launch failed: CUDA error {err}")
+        draw_rows.launches += 1
+        return z
 
 
 draw_rows.launches = 0

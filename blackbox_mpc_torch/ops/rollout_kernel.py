@@ -30,6 +30,7 @@ from blackbox_mpc_torch.models.dynamics import DynamicsParams, LearnedDynamicsCo
 from blackbox_mpc_torch.models.normalizer import STATS_FIELDS
 from blackbox_mpc_torch.ops import _kernel_common as kc
 from blackbox_mpc_torch.rollout.evaluator import NAN_REWARD
+from blackbox_mpc_torch.utils.profiling import span
 
 __all__ = [
     "OCCUPANCY_FIELDS", "TILE_MEAN", "TILE_TS1", "KernelOperands", "check_operands",
@@ -207,38 +208,41 @@ def rollout_states(
     launch the kernel on the current stream or raise (a shape whose tile does not fit the
     CTA's shared memory, a cluster the card refuses); there is no fallback.
     """
-    if actions.device.type == "cpu":
-        return rollout_states_plain(config, ops, actions, s0, tile_member)
-    if actions.device.type != "cuda":
-        raise ValueError(f"rollout kernel runs on cuda or cpu tensors, not {actions.device}")
-    kc.check_kernel_support(config, "rollout kernel")
-    device = actions.device
-    horizon, rows, dim_u = actions.shape
-    dim_s = config.dim_s
-    tile = tile_rows(tile_member is not None)
-    if rows % tile or dim_u != config.dim_u:
-        raise ValueError(f"rows ({rows}) must be a multiple of tile ({tile}) and U={config.dim_u}")
-    check_tensor(actions, "actions", torch.float32, (horizon, rows, dim_u), device)
-    check_tensor(s0, "s0", torch.float32, (rows, dim_s), device)
-    widths = check_operands(config, ops, device)
-    ensemble = config.ensemble_size
-    if tile_member is not None:
-        check_tensor(tile_member, "tile_member", torch.int32, (rows // tile,), device)
-    out = torch.empty((horizon, rows, dim_s), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _lib().bbmpc_rollout_states(
-            actions.data_ptr(), s0.data_ptr(), ops.stats.data_ptr(), ops.packed_w.data_ptr(),
-            ops.packed_b.data_ptr(), None if tile_member is None else tile_member.data_ptr(),
-            out.data_ptr(), horizon, rows, dim_s, dim_u, ops.stats.shape[1],
-            ensemble, len(widths) - 1, int_array(widths),
-            kc.KERNEL_ACTIVATIONS[config.activation], int(config.normalized),
-            int(config.predict_delta), int(config.compute_dtype == torch.bfloat16), tile, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"rollout kernel launch failed: CUDA error {err}")
-    rollout_states.launches += 1
-    return out
+    with span("kernels.K2"):
+        if actions.device.type == "cpu":
+            return rollout_states_plain(config, ops, actions, s0, tile_member)
+        if actions.device.type != "cuda":
+            raise ValueError(f"rollout kernel runs on cuda or cpu tensors, not {actions.device}")
+        kc.check_kernel_support(config, "rollout kernel")
+        device = actions.device
+        horizon, rows, dim_u = actions.shape
+        dim_s = config.dim_s
+        tile = tile_rows(tile_member is not None)
+        if rows % tile or dim_u != config.dim_u:
+            raise ValueError(
+                f"rows ({rows}) must be a multiple of tile ({tile}) and U={config.dim_u}")
+        check_tensor(actions, "actions", torch.float32, (horizon, rows, dim_u), device)
+        check_tensor(s0, "s0", torch.float32, (rows, dim_s), device)
+        widths = check_operands(config, ops, device)
+        ensemble = config.ensemble_size
+        if tile_member is not None:
+            check_tensor(tile_member, "tile_member", torch.int32, (rows // tile,), device)
+        out = torch.empty((horizon, rows, dim_s), dtype=torch.float32, device=device)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = _lib().bbmpc_rollout_states(
+                actions.data_ptr(), s0.data_ptr(), ops.stats.data_ptr(), ops.packed_w.data_ptr(),
+                ops.packed_b.data_ptr(), None if tile_member is None else tile_member.data_ptr(),
+                out.data_ptr(), horizon, rows, dim_s, dim_u, ops.stats.shape[1],
+                ensemble, len(widths) - 1, int_array(widths),
+                kc.KERNEL_ACTIVATIONS[config.activation], int(config.normalized),
+                int(config.predict_delta), int(config.compute_dtype == torch.bfloat16), tile,
+                stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"rollout kernel launch failed: CUDA error {err}")
+        rollout_states.launches += 1
+        return out
 
 
 rollout_states.launches = 0

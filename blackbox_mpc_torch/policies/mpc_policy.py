@@ -73,6 +73,7 @@ from blackbox_mpc_torch.policies.base import ModelBasedPolicy
 from blackbox_mpc_torch.rollout.evaluator import make_trajectory_evaluator
 from blackbox_mpc_torch.solvers import lookup
 from blackbox_mpc_torch.solvers.base import exploration_noise as _exploration_noise
+from blackbox_mpc_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -361,7 +362,20 @@ class MPCPolicy(ModelBasedPolicy):
 
     def _make_evaluate(self, time_major: bool, backend: str, params=None):
         """The solver's ``evaluate(obs, candidates)``, reading the dynamics parameters at every
-        call: ``params()`` (default: the handler's current ones)."""
+        call: ``params()`` (default: the handler's current ones). Every backend's evaluation
+        is one ``evaluator.evaluate`` span."""
+        backend_evaluate = self._backend_evaluate(time_major, backend, params)
+
+        def evaluate(obs, actions):
+            with span("evaluator.evaluate"):
+                return backend_evaluate(obs, actions)
+
+        return evaluate
+
+    def _backend_evaluate(self, time_major: bool, backend: str, params):
+        """``_make_evaluate``'s evaluation on ``backend``: the rollout kernel's, or the eager
+        evaluator's (sharded over the mesh, drawing the rollout noise of stochastic
+        dynamics)."""
         handler, reward_fn, device = self._handler, self._reward_fn, self._device
         if params is None:
             params = lambda: handler.dynamics_params  # noqa: E731
@@ -431,13 +445,15 @@ class MPCPolicy(ModelBasedPolicy):
             current = getattr(solver_state, self._proposer_field)
             solver_state = dataclasses.replace(solver_state, **{
                 self._proposer_field: proposed.reshape(current.shape).to(current.dtype)})
-        return solver.solve(solver_state, obs, t, generator)
+        with span("solver.solve"):
+            return solver.solve(solver_state, obs, t, generator)
 
     def _lookahead(self, dynamics_params, obs: torch.Tensor, action: torch.Tensor):
         """The one-step lookahead on the posterior-mean dynamics (the unpenalized head
         means): ``(predicted next state, predicted reward)``."""
-        next_obs = self._handler.mean_dynamics_fn(dynamics_params, obs, action)
-        return next_obs, self._reward_fn(obs, action, next_obs)
+        with span("policy.lookahead"):
+            next_obs = self._handler.mean_dynamics_fn(dynamics_params, obs, action)
+            return next_obs, self._reward_fn(obs, action, next_obs)
 
     def _step(self, solver_state, obs: torch.Tensor, t: int, generator: torch.Generator,
               noise_generator: torch.Generator, add_noise: bool):
@@ -451,15 +467,16 @@ class MPCPolicy(ModelBasedPolicy):
         return action, new_state, aux, next_obs, pred_reward
 
     def _obs(self, observations) -> tuple[torch.Tensor, bool]:
-        obs = np.asarray(observations, dtype=np.float32)
-        batched = obs.ndim > 1
-        if not batched:
-            obs = np.tile(obs[None], (self._num_agents, 1))
-        if obs.shape[0] != self._num_agents:
-            raise ValueError(
-                f"observations batch {obs.shape[0]} != num_agents {self._num_agents}"
-            )
-        return torch.as_tensor(obs, device=self._device), batched
+        with span("policy.obs_in"):
+            obs = np.asarray(observations, dtype=np.float32)
+            batched = obs.ndim > 1
+            if not batched:
+                obs = np.tile(obs[None], (self._num_agents, 1))
+            if obs.shape[0] != self._num_agents:
+                raise ValueError(
+                    f"observations batch {obs.shape[0]} != num_agents {self._num_agents}"
+                )
+            return torch.as_tensor(obs, device=self._device), batched
 
     # ------------------------------------------------------------------ public API
 
@@ -500,25 +517,28 @@ class MPCPolicy(ModelBasedPolicy):
         ``[num_agents, S]`` array. Returns numpy ``(action, predicted_next_obs,
         predicted_reward)``, un-batched iff the input was un-batched.
         """
-        obs, batched = self._obs(observations)
-        action, self._solver_state, _, next_obs, pred_reward = self._step(
-            self._solver_state, obs, t, self._generator, self._noise_generator,
-            bool(exploration_noise)
-        )
-        flat = torch.cat([action.reshape(-1), next_obs.reshape(-1), pred_reward.reshape(-1)])
-        flat = flat.float().cpu().numpy()
-        n_a, n_o = action.numel(), next_obs.numel()
-        action = flat[:n_a].reshape(action.shape)
-        next_obs = flat[n_a:n_a + n_o].reshape(next_obs.shape)
-        pred_reward = flat[n_a + n_o:].reshape(pred_reward.shape)
-        self._act_counter += 1
-        if self._writer is not None:
-            self._writer.scalar(
-                "rewards/predicted_reward", float(np.mean(pred_reward)), self._act_counter
+        with span("policy.act"):
+            obs, batched = self._obs(observations)
+            action, self._solver_state, _, next_obs, pred_reward = self._step(
+                self._solver_state, obs, t, self._generator, self._noise_generator,
+                bool(exploration_noise)
             )
-        if batched:
-            return action, next_obs, pred_reward
-        return action[0], next_obs[0], pred_reward[0]
+            flat = torch.cat([action.reshape(-1), next_obs.reshape(-1),
+                              pred_reward.reshape(-1)])
+            with span("policy.wait"):
+                flat = flat.float().cpu().numpy()
+            n_a, n_o = action.numel(), next_obs.numel()
+            action = flat[:n_a].reshape(action.shape)
+            next_obs = flat[n_a:n_a + n_o].reshape(next_obs.shape)
+            pred_reward = flat[n_a + n_o:].reshape(pred_reward.shape)
+            self._act_counter += 1
+            if self._writer is not None:
+                self._writer.scalar(
+                    "rewards/predicted_reward", float(np.mean(pred_reward)), self._act_counter
+                )
+            if batched:
+                return action, next_obs, pred_reward
+            return action[0], next_obs[0], pred_reward[0]
 
     @torch.no_grad()
     def plan(self, observations, t: int = 0):

@@ -19,6 +19,7 @@ from torch.utils.checkpoint import checkpoint
 
 from blackbox_mpc_torch.core.device import resolve_device
 from blackbox_mpc_torch.core.types import DynamicsFn, RewardFn, TrajectoryEvaluator
+from blackbox_mpc_torch.utils.profiling import span
 
 __all__ = [
     "make_trajectory_evaluator", "rollout_trajectories", "action_smoothness_penalty",
@@ -62,13 +63,14 @@ def rollout_trajectories(
     states = []
 
     def step(state, actions_t, noise_t):
-        out = (dynamics_fn(state, actions_t) if noise_t is None
-               else dynamics_fn(state, actions_t, noise_t))
-        next_state, penalty = out if dynamics_returns_penalty else (out, None)
-        r = reward_fn(state, actions_t, next_state)
-        if penalty is not None:
-            r = r - penalty
-        return next_state, r
+        with span("models.step"):
+            out = (dynamics_fn(state, actions_t) if noise_t is None
+                   else dynamics_fn(state, actions_t, noise_t))
+            next_state, penalty = out if dynamics_returns_penalty else (out, None)
+            r = reward_fn(state, actions_t, next_state)
+            if penalty is not None:
+                r = r - penalty
+            return next_state, r
 
     for t, actions_t in enumerate(actions):
         noise_t = None if noise is None else noise[t]

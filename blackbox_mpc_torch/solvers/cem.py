@@ -28,6 +28,7 @@ from blackbox_mpc_torch.core.types import (
     truncated_normal,
 )
 from blackbox_mpc_torch.solvers import base
+from blackbox_mpc_torch.utils.profiling import span
 
 __all__ = [
     "CEMConfig", "CEMState", "make_cem", "cem_iteration", "check_config", "init_carried",
@@ -83,10 +84,20 @@ def cem_iteration(config: CEMConfig, bounds: Bounds, evaluate, obs, mean, var, g
     ``config.time_major``: the candidates are ``[H, P, A, U]`` and ``carried`` is
     ``[H, keep, A, U]`` (``[A, keep, H, U]`` otherwise); everything else keeps its layout.
     """
+    with span("solver.iteration"):
+        with span("solver.sample"):
+            samples = _candidates(config, bounds, mean, var, generator, carried, population)
+        rewards = evaluate(obs, samples)  # [P, A]
+        with span("solver.update"):
+            return _update(config, bounds, mean, var, samples, rewards, carried, n_extract)
+
+
+def _candidates(config: CEMConfig, bounds: Bounds, mean, var, generator, carried, population):
+    """``cem_iteration``'s population: the fresh samples, the clipped mean and the carried
+    elites, ``[P, A, H, U]`` (``[H, P, A, U]`` time-major)."""
     horizon, agents = config.planning_horizon, config.num_agents
     pop = config.population if population is None else population
-    k, alpha, keep = config.num_elite, config.alpha, config.keep_elites
-    tm = config.time_major
+    keep, tm = config.keep_elites, config.time_major
     std = torch.sqrt(base.constrain_variance(mean, var, bounds))
     n_fresh = pop - keep - (1 if config.mean_as_candidate else 0)
     if tm:
@@ -106,7 +117,17 @@ def cem_iteration(config: CEMConfig, bounds: Bounds, evaluate, obs, mean, var, g
         samples = torch.cat([samples, bounds.clip(center if tm else mean[None])], dim=p_axis)
     if keep:
         samples = torch.cat([samples, carried if tm else carried.transpose(0, 1)], dim=p_axis)
-    rewards = evaluate(obs, samples)  # [P, A]
+    return samples
+
+
+def _update(config: CEMConfig, bounds: Bounds, mean, var, samples, rewards, carried,
+            n_extract):
+    """``cem_iteration``'s update from the candidates' ``rewards [P, A]``: top-k, the elite
+    mask and moments, the elites' gather and the blend into ``mean``/``var``."""
+    horizon, agents = config.planning_horizon, config.num_agents
+    k, alpha, keep = config.num_elite, config.alpha, config.keep_elites
+    tm = config.time_major
+    pop = samples.shape[1 if tm else 0]
     elite_vals, elite_idx = torch.topk(rewards.T, k, dim=1)  # [A, k]
     # scatter_ from a source on the device: a Python scalar would be a host copy that waits
     # for the rollout.

@@ -12,6 +12,7 @@ import torch
 
 from blackbox_mpc_torch.core.types import Bounds, Solver, SolverAux, TrajectoryEvaluator
 from blackbox_mpc_torch.solvers import base
+from blackbox_mpc_torch.utils.profiling import span
 
 __all__ = ["RandomSearchConfig", "RandomSearchState", "make_random_search"]
 
@@ -46,17 +47,19 @@ def make_random_search(
 
     def solve(state: RandomSearchState, obs: torch.Tensor, t, generator: torch.Generator):
         del t
-        lower, upper = bounds.on(obs.device)
-        samples = lower + unit_uniform(generator, shape) * (upper - lower)
+        with span("solver.sample"):
+            lower, upper = bounds.on(obs.device)
+            samples = lower + unit_uniform(generator, shape) * (upper - lower)
         rewards = evaluate(obs, samples)  # [P, A]
-        best_idx = torch.argmax(rewards, dim=0)  # [A]
-        agent_ids = torch.arange(agents, device=obs.device)
-        if tm:
-            best_plan = samples[:, best_idx, agent_ids].permute(1, 0, 2)  # [A, H, U]
-        else:
-            best_plan = samples[best_idx, agent_ids]
-        aux = SolverAux(expected_reward=rewards[best_idx, agent_ids], plan=best_plan)
-        return best_plan[:, 0], state, aux
+        with span("solver.update"):
+            best_idx = torch.argmax(rewards, dim=0)  # [A]
+            agent_ids = torch.arange(agents, device=obs.device)
+            if tm:
+                best_plan = samples[:, best_idx, agent_ids].permute(1, 0, 2)  # [A, H, U]
+            else:
+                best_plan = samples[best_idx, agent_ids]
+            aux = SolverAux(expected_reward=rewards[best_idx, agent_ids], plan=best_plan)
+            return best_plan[:, 0], state, aux
 
     def reset(state: RandomSearchState, generator: torch.Generator) -> RandomSearchState:
         del generator

@@ -4,6 +4,14 @@ Counterpart of ``blackbox_mpc_tpu/utils/profiling.py``: a context manager captur
 the host and, where CUDA is, the device over any region and writes it as a Chrome trace
 (``chrome://tracing``, Perfetto or TensorBoard read it); ``profile_policy_solve`` wraps a few
 ``act()`` steps.
+
+:func:`span` names the program's own regions in such a trace. Each name is its layer, a dot
+and the region (``policy.act``, ``solver.iteration``, ``evaluator.evaluate``, ``models.step``,
+``kernels.K2``, ``learning.step``, ...). A span is a host event of the profiler's own trace, on
+the clock of the device's operations, so each gap of the device can be put down to the span
+open on the host at the time. Spans nest on the calling thread: every span of one ``act()``
+lies inside its ``policy.act``. With no profiler running a span is one shared object that does
+nothing.
 """
 from __future__ import annotations
 
@@ -14,11 +22,26 @@ import time
 from typing import Iterator
 
 import torch
-from torch.profiler import ProfilerActivity, profile, schedule
+import torch.autograd.profiler as autograd_profiler
+from torch.profiler import ProfilerActivity, profile, record_function, schedule
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["trace", "profile_policy_solve"]
+__all__ = ["trace", "profile_policy_solve", "span"]
+
+
+_NO_SPAN = contextlib.nullcontext()  # the span outside a profiler's session
+
+
+def span(name: str):
+    """``with span("solver.iteration"):`` records the region as a host event while a
+    ``torch.profiler`` session records (``record_function``), and is one shared object that
+    does nothing otherwise: reading the profiler's flag is all it costs, with no allocation
+    and no call into the profiler. It does nothing either while ``torch.export`` or
+    ``torch.compile`` traces, so their programs hold no profiler node."""
+    if not autograd_profiler._is_profiler_enabled or torch.compiler.is_compiling():
+        return _NO_SPAN
+    return record_function(name)
 
 
 @contextlib.contextmanager
