@@ -51,6 +51,11 @@ Stochastic dynamics draw their rollout noise from a generator of their own, seed
 ``seed``, so the solver's draws are those of a deterministic model. Every evaluation of one
 solve scores its candidates under the same noise (common random numbers: the generator is set
 back to the solve's start before each draw), and the next solve draws new noise.
+
+On the card, the eager evaluations of a policy without a mesh or ``remat_rollout`` replay CUDA
+graphs where grad is off (:class:`~blackbox_mpc_torch.rollout.evaluator.GraphedEvaluator`,
+:attr:`MPCPolicy.rollout_graphs`): one graph per candidate shape, captured again when the
+handler's parameters are replaced. The noise is still drawn eagerly, as before, and copied in.
 """
 from __future__ import annotations
 
@@ -66,11 +71,11 @@ from blackbox_mpc_torch.core.spaces import BoxSpace, as_box_space
 from blackbox_mpc_torch.core.types import Bounds
 # One definition of the streams for the policy and its artifact: ServingPolicy's reseed and
 # its rng_impl gate hold only while the two agree.
-from blackbox_mpc_torch.deploy.serving import NOISE_SEED_OFFSET, RNG_IMPLS
+from blackbox_mpc_torch.deploy.serving import NOISE_SEED_OFFSET, RNG_IMPLS, tree_leaves
 from blackbox_mpc_torch.learning.handler import DynamicsHandler
 from blackbox_mpc_torch.parallel.sharding import SHARD_AXES, make_sharded_evaluator
 from blackbox_mpc_torch.policies.base import ModelBasedPolicy
-from blackbox_mpc_torch.rollout.evaluator import make_trajectory_evaluator
+from blackbox_mpc_torch.rollout.evaluator import GraphedEvaluator, make_trajectory_evaluator
 from blackbox_mpc_torch.solvers import lookup
 from blackbox_mpc_torch.solvers.base import exploration_noise as _exploration_noise
 from blackbox_mpc_torch.utils.profiling import span
@@ -330,6 +335,7 @@ class MPCPolicy(ModelBasedPolicy):
                 f"time_major=True requires the eager evaluator; the "
                 f"{backend!r} backend's candidate contract is [P, A, H, U]"
             )
+        self._rollout_graphs = None  # _backend_evaluate sets it where the evaluations replay
         if backend == "fused":
             from blackbox_mpc_torch.ops import fused_cem, fused_sharded
 
@@ -375,9 +381,12 @@ class MPCPolicy(ModelBasedPolicy):
     def _backend_evaluate(self, time_major: bool, backend: str, params):
         """``_make_evaluate``'s evaluation on ``backend``: the rollout kernel's, or the eager
         evaluator's (sharded over the mesh, drawing the rollout noise of stochastic
-        dynamics)."""
+        dynamics). The eager evaluator of the policy's own parameters on one device, without
+        ``remat``, replays CUDA graphs (``self._rollout_graphs``); one of other parameters
+        (the program ``deploy/export.py`` traces) stays eager."""
         handler, reward_fn, device = self._handler, self._reward_fn, self._device
-        if params is None:
+        own = params is None
+        if own:
             params = lambda: handler.dynamics_params  # noqa: E731
         if backend == "kernel":
             from blackbox_mpc_torch.ops.rollout_kernel import make_rollout_kernel_evaluator
@@ -406,6 +415,9 @@ class MPCPolicy(ModelBasedPolicy):
         step = lambda s, a, noise=None: dynamics_fn(params(), s, a, noise)  # noqa: E731
         if self._mesh is None:
             evaluate = make_trajectory_evaluator(step, reward_fn, device=device, **options)
+            if own and not self._remat:
+                evaluate = self._rollout_graphs = GraphedEvaluator(
+                    evaluate, lambda: tree_leaves(handler.dynamics_params))
         else:
             evaluate = make_sharded_evaluator(step, reward_fn, self._mesh,
                                               shard_axis=self._shard_axis, **options)
@@ -508,6 +520,13 @@ class MPCPolicy(ModelBasedPolicy):
     def rollout_backend(self) -> str:
         """The backend the current solver runs on (``"auto"`` resolved)."""
         return self._rollout_backend
+
+    @property
+    def rollout_graphs(self) -> GraphedEvaluator | None:
+        """The current solver's graphed eager evaluator (its ``captures``, ``replays`` and
+        ``graphs``; off the card it never engages), or None where no evaluation may replay a
+        graph: another backend, a mesh or ``remat_rollout``."""
+        return self._rollout_graphs
 
     @torch.no_grad()
     def act(self, observations, t: int = 0, exploration_noise: bool = False):

@@ -11,8 +11,13 @@ into H step keys and draws ``normal(key_t, [B, S])``.
 ``remat`` (JAX's ``jax.checkpoint`` of the scan body) runs each horizon step through
 ``torch.utils.checkpoint``: differentiating through the rollout (the Gradient and CEM-GD
 solvers) then keeps each step's inputs only and computes the step again in the backward pass.
+
+:class:`GraphedEvaluator` replays an evaluation on the card as one CUDA graph: the host then
+launches one graph where the eager loop launches every op of every model step.
 """
 from __future__ import annotations
+
+import logging
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -21,13 +26,20 @@ from blackbox_mpc_torch.core.device import resolve_device
 from blackbox_mpc_torch.core.types import DynamicsFn, RewardFn, TrajectoryEvaluator
 from blackbox_mpc_torch.utils.profiling import span
 
+logger = logging.getLogger(__name__)
+
 __all__ = [
     "make_trajectory_evaluator", "rollout_trajectories", "action_smoothness_penalty",
-    "NAN_REWARD",
+    "GraphedEvaluator", "GRAPH_MAX_MEMORY_SHARE", "NAN_REWARD",
 ]
 
 # NaN rewards are clamped to this, matching the reference's guard.
 NAN_REWARD = -1e6
+# The most of the card's memory that the graphs of one GraphedEvaluator may hold (their pool
+# and their static inputs): a pool is the evaluation's working memory, kept for the graph's
+# life and lent to nothing else. A larger evaluation is device-bound, where a graph saves
+# nothing, and stays eager.
+GRAPH_MAX_MEMORY_SHARE = 1 / 16
 
 
 def rollout_trajectories(
@@ -179,3 +191,156 @@ def make_trajectory_evaluator(
         return rewards
 
     return evaluate
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    return x.is_cuda
+
+
+def _memory(device, release: bool = False) -> tuple:
+    """``(reserved, total)``: the bytes the caching allocator holds on the card, after
+    releasing its free cache where ``release``, and the card's memory."""
+    if release:
+        torch.cuda.empty_cache()
+    return (torch.cuda.memory_reserved(device),
+            torch.cuda.get_device_properties(device).total_memory)
+
+
+def _graphable(inputs) -> bool:
+    """Whether an evaluation of ``inputs`` may replay a graph: contiguous inputs on the card,
+    grad disabled (a graph keeps no autograd history), and no ``torch.compile`` or
+    ``torch.export`` tracing (whose tensors have no memory to capture)."""
+    return (not torch.is_grad_enabled() and not torch.compiler.is_compiling()
+            and all(x is None or (_on_card(x) and x.is_contiguous()) for x in inputs))
+
+
+class _Graph:
+    """One evaluation captured: static input buffers of the call's shapes, the graph, and its
+    static rewards. ``pool`` is the memory pool it shares (None: a new one, then
+    ``self.pool``); ``bytes`` is what the capture added to the card's reserved memory."""
+
+    def __init__(self, evaluate, inputs, pool):
+        device = inputs[0].device
+        stream = torch.cuda.current_stream(device)
+        before, _ = _memory(device, release=True)  # as the capture does: the growth is its own
+        self.inputs = [None if x is None else torch.empty_like(x) for x in inputs]
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
+                self.rewards = evaluate(*self.inputs)
+        except RuntimeError:
+            torch.cuda.set_stream(stream)  # a failed capture leaves its own stream current
+            raise
+        self.pool = self.graph.pool()
+        self.bytes = _memory(device)[0] - before
+
+    def __call__(self, inputs) -> torch.Tensor:
+        for static, x in zip(self.inputs, inputs):
+            if x is not None:
+                static.copy_(x)
+        self.graph.replay()
+        return self.rewards.clone()  # the next replay writes the static rewards again
+
+
+class GraphedEvaluator:
+    """An evaluator of :func:`make_trajectory_evaluator`, ``evaluate(initial_states,
+    action_sequences, noise=None)``, whose evaluations on the card replay CUDA graphs.
+
+    One graph per shape of the inputs. The first evaluation of a shape runs eagerly (its lazy
+    set-up, such as ``member_permutation``'s constants, happens there) and then captures the
+    evaluation over static input buffers. Every later evaluation of that shape copies its
+    inputs into those buffers, replays the graph and returns a copy of its rewards. A replay
+    runs the eager evaluation's kernels in the same order on the same values: the rewards are
+    the same bits.
+
+    ``reads()`` gives every tensor the evaluation reads besides its inputs (the dynamics'
+    parameters and normalizer statistics). The graphs are keyed on their identity (address,
+    shape, dtype, strides; :meth:`key`) and hold them: where one is replaced
+    (``DynamicsHandler.train``, ``set_params``), the next evaluation drops every graph and
+    captures again. An edit in place is read by the replay as it is.
+
+    It engages only for contiguous inputs on the card with grad disabled and outside
+    ``torch.compile``/``torch.export`` tracing; any other call is the eager evaluation. Where a
+    capture fails (a host sync inside the dynamics or the reward, say), the evaluations stay
+    eager until the key changes, logged once. Where the first evaluation's working memory and
+    inputs would take the graphs past ``GRAPH_MAX_MEMORY_SHARE`` of the card, the shape stays
+    eager. ``captures`` and ``replays`` count the graphs captured and replayed; ``graphs`` is
+    the number alive and ``graph_bytes`` the memory their captures reserved.
+    """
+
+    def __init__(self, evaluate: TrajectoryEvaluator, reads):
+        self._evaluate = evaluate
+        self._reads = reads
+        self._key = None
+        self._held = ()  # the tensors of the key, kept alive while graphs read them
+        self._graphs = {}  # the inputs' shapes and dtypes -> _Graph, or None: eager
+        self._pool = None  # one memory pool for the key's graphs, replayed one at a time
+        self._bytes = 0
+        self._eager = False  # a capture under this key failed
+        self._logged = set()
+        self.captures = 0
+        self.replays = 0
+
+    @property
+    def graphs(self) -> int:
+        return sum(graph is not None for graph in self._graphs.values())
+
+    @property
+    def graph_bytes(self) -> int:
+        return self._bytes
+
+    def key(self, held=None) -> tuple:
+        """The identity of the tensors ``reads()`` gives (or ``held``)."""
+        held = self._reads() if held is None else held
+        return tuple((t.data_ptr(), t.shape, t.dtype, t.stride()) for t in held)
+
+    def __call__(self, initial_states, action_sequences, noise=None) -> torch.Tensor:
+        inputs = (initial_states, action_sequences, noise)
+        if not _graphable(inputs):
+            return self._evaluate(*inputs)
+        held = self._reads()
+        key = self.key(held)
+        if key != self._key:
+            self._graphs, self._pool, self._bytes, self._eager = {}, None, 0, False
+            self._key, self._held = key, held
+        shapes = tuple(None if x is None else (x.shape, x.dtype) for x in inputs)
+        graph = self._graphs.get(shapes)
+        if graph is not None:
+            with span("evaluator.replay"):
+                self.replays += 1
+                return graph(inputs)
+        if self._eager or shapes in self._graphs:
+            return self._evaluate(*inputs)
+        before, card = _memory(initial_states.device, release=True)
+        rewards = self._evaluate(*inputs)
+        need = (_memory(initial_states.device)[0] - before
+                + sum(x.nbytes for x in inputs if x is not None))
+        with span("evaluator.capture"):
+            self._graphs[shapes] = self._capture(inputs, need, card)
+        return rewards
+
+    def _capture(self, inputs, need: int, card: int) -> _Graph | None:
+        """A graph of ``inputs``' shapes, or None; ``need``: the eager evaluation's working
+        memory and the inputs' bytes, ``card``: the card's memory."""
+        if self._bytes + need > GRAPH_MAX_MEMORY_SHARE * card:
+            self._log("memory", "no CUDA graph of a rollout of %s: with %.2f GB of working "
+                      "memory and inputs, the graphs would pass GRAPH_MAX_MEMORY_SHARE of the "
+                      "card; it stays eager", [None if x is None else list(x.shape)
+                                               for x in inputs], need / 1e9)
+            return None
+        try:
+            graph = _Graph(self._evaluate, inputs, self._pool)
+        except RuntimeError as err:
+            self._eager = True
+            self._log("failure", "no CUDA graph of the rollout (it stays eager until the "
+                      "dynamics' parameters change): %s", err)
+            return None
+        self._pool = graph.pool
+        self._bytes += graph.bytes
+        self.captures += 1
+        return graph
+
+    def _log(self, kind: str, message: str, *args) -> None:
+        if kind not in self._logged:
+            self._logged.add(kind)
+            logger.warning(message, *args)

@@ -1595,23 +1595,39 @@ def pets_params(config, device):
 
 
 @contextlib.contextmanager
+def eager_loop():
+    """Every eager evaluation inside runs the eager loop, none a CUDA graph."""
+    from blackbox_mpc_torch.rollout import evaluator
+
+    graphable = evaluator._graphable
+    evaluator._graphable = lambda inputs: False
+    try:
+        yield
+    finally:
+        evaluator._graphable = graphable
+
+
+@contextlib.contextmanager
 def uncached_member_permutation():
     """``ts1``/``ts_inf`` make their member permutation from numpy at every step, as before
-    it was cached: two host-to-device copies a step, each a wait."""
+    it was cached: two host-to-device copies a step, each a wait. The evaluations run the
+    eager loop (a replayed graph makes no permutation)."""
     from blackbox_mpc_torch.models import dynamics
 
     cached = dynamics.member_permutation
     dynamics.member_permutation = cached.__wrapped__
     try:
-        yield
+        with eager_loop():
+            yield
     finally:
         dynamics.member_permutation = cached
 
 
 def pets_act(device, label: str, steps: int = STEPS) -> dict:
     """``steps`` closed-loop ``act()`` calls on ``"eager"`` after a warm-up; the kernel
-    backends must refuse the configuration, no kernel may launch, and one traced ``act()``
-    may wait for the card at most MAX_SYNCS times."""
+    backends must refuse the configuration, no kernel may launch, every evaluation after the
+    warm-up's first must replay its CUDA graph, and one traced ``act()`` may wait for the card
+    at most MAX_SYNCS times."""
     import numpy as np
 
     from blackbox_mpc_torch import DynamicsHandler, LearnedDynamicsConfig, MPCPolicy
@@ -1641,11 +1657,17 @@ def pets_act(device, label: str, steps: int = STEPS) -> dict:
     if any(launches.values()) or any(plain_calls.values()):
         raise AssertionError(f"PETS {label}: kernels launched {launches}, plain RNG on CUDA "
                              f"{plain_calls}; the PETS path launches none")
+    graphs = eager.rollout_graphs
+    counts = {"captures": graphs.captures, "replays": graphs.replays, "graphs": graphs.graphs,
+              "graph_bytes": graphs.graph_bytes}
+    if (graphs.captures, graphs.replays) != (1, (steps + 1) * ITERS - 1):
+        raise AssertionError(f"PETS {label}: rollout graphs {counts}, expected one capture "
+                             "and every later evaluation replayed")
     res = {"pets": label, "card": nvidia_smi(), "rows_per_step": (
         PETS_SOLVER["population"] * PETS_AGENTS
         * (PETS_PARTICLES if config.propagation in ("ts_inf", "mm") else 1)),
         "act_ms": times, "act_ms_median": float(np.median(times)), "launches": launches,
-        "refusals": refusals}
+        "rollout_graphs": counts, "refusals": refusals}
     if label in UNCACHED:
         with uncached_member_permutation():
             res["stream_syncs_uncached_permutation"] = trace_act(
@@ -2398,9 +2420,12 @@ def fused_threshold(device, handler) -> dict:
                                  ("eager", EAGER_PEAK_POPULATIONS)):
         peaks[backend] = {}
         for population in populations:
-            policy = flagship_policy(device, handler, backend, population)
-            policy.act(obs)  # warm-up
-            peaks[backend][population] = act_peak_bytes(policy, obs)
+            # The eager loop's own peak, as it runs near the threshold: there an evaluation's
+            # working memory is past GRAPH_MAX_MEMORY_SHARE and no CUDA graph is captured.
+            with eager_loop():
+                policy = flagship_policy(device, handler, backend, population)
+                policy.act(obs)  # warm-up
+                peaks[backend][population] = act_peak_bytes(policy, obs)
             del policy
         low, high = populations
         per_row = (peaks[backend][high] - peaks[backend][low]) / (high - low)
