@@ -14,6 +14,7 @@ from blackbox_mpc_torch.models.dynamics import (
     true_model_dynamics,
     ts_member_ids,
 )
+from blackbox_mpc_torch.models.latent import LatentModelConfig, LatentWorldModel
 from blackbox_mpc_torch.models.mlp import (
     MLPConfig,
     ensemble_apply,
@@ -24,7 +25,8 @@ from blackbox_mpc_torch.models.mlp import (
 from blackbox_mpc_torch.models.normalizer import NormalizerStats, fit_normalizer, identity_stats
 
 __all__ = [
-    "ANALYTIC_MODELS", "DynamicsParams", "LearnedDynamicsConfig", "MLPConfig",
+    "ANALYTIC_MODELS", "DynamicsParams", "LatentModelConfig", "LatentWorldModel",
+    "LearnedDynamicsConfig", "MLPConfig",
     "NormalizerStats", "angle_normalize", "cartpole_dynamics", "cartpole_reward",
     "dynamics_params_from_numpy", "ensemble_apply", "ensemble_init", "fit_normalizer",
     "identity_stats", "make_learned_dynamics", "mlp_apply", "mlp_init", "pendulum_dynamics",

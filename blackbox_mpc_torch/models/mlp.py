@@ -9,6 +9,10 @@ accumulates in float32 and adds a float32 bias; a hidden activation is applied a
 to ``compute_dtype``; the head returns float32. Operands in ``compute_dtype`` are upcast to
 float32 before the matmul: a product of two bfloat16 values is exact in float32, so this is a
 bfloat16 matmul with float32 accumulation, as ``preferred_element_type=float32`` asks.
+
+:func:`normed_linear` is a layer of another kind, which the latent world model
+(``models/latent.py``) stacks: a Linear, then a LayerNorm, then an activation (TD-MPC2's
+``NormedLinear``).
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ import torch.nn.functional as F
 
 __all__ = [
     "ACTIVATIONS", "MLPConfig", "mlp_apply", "mlp_init", "ensemble_init", "ensemble_apply",
-    "ensemble_forward", "round_to",
+    "ensemble_forward", "round_to", "LAYER_NORM_EPS", "linear", "normed_linear",
 ]
 
 ACTIVATIONS = {
@@ -30,7 +34,11 @@ ACTIVATIONS = {
     # jax.nn.gelu defaults to the tanh approximation.
     "gelu": lambda x: F.gelu(x, approximate="tanh"),
     "swish": F.silu,
+    # x * tanh(softplus(x)): the hidden activation of TD-MPC2's layers.
+    "mish": F.mish,
 }
+# torch.nn.LayerNorm's default.
+LAYER_NORM_EPS = 1e-5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,3 +106,28 @@ def ensemble_apply(params, x: torch.Tensor, *, config: MLPConfig) -> torch.Tenso
 def mlp_apply(params, x: torch.Tensor, *, config: MLPConfig) -> torch.Tensor:
     """Forward of a one-member ensemble: ``[B, in] -> [B, out]``."""
     return ensemble_apply(params, x, config=config)[0]
+
+
+def linear(x: torch.Tensor, layer) -> torch.Tensor:
+    """``x @ w + b`` in float32. ``layer``: ``{"w": [in, out], "b": [out]}``, or a stack of
+    ``n`` such layers (``w`` [n, in, out], ``b`` [n, out]) that meets ``x`` [B, in] (every
+    layer on the same rows) or [n, B, in] and gives [n, B, out]."""
+    w, b, x = layer["w"].float(), layer["b"].float(), x.float()
+    if w.dim() == 2:
+        return torch.addmm(b, x, w)
+    if x.dim() == 2:
+        x = x.expand(w.shape[0], *x.shape)
+    return torch.baddbmm(b[:, None, :], x, w)
+
+
+def normed_linear(x: torch.Tensor, layer, activation: str | None = "mish") -> torch.Tensor:
+    """``activation(LayerNorm(x @ w + b))`` over the last axis (eps ``LAYER_NORM_EPS``, scale
+    ``ln_w`` and shift ``ln_b`` [out], or [n, out] for a stack); ``activation=None`` stops after
+    the LayerNorm. ``layer`` and the stacking as :func:`linear`; float32 out."""
+    h = linear(x, layer)
+    if h.dim() == 2:
+        h = F.layer_norm(h, h.shape[-1:], layer["ln_w"], layer["ln_b"], LAYER_NORM_EPS)
+    else:
+        h = (F.layer_norm(h, h.shape[-1:], eps=LAYER_NORM_EPS) * layer["ln_w"][:, None, :]
+             + layer["ln_b"][:, None, :])
+    return h if activation is None else ACTIVATIONS[activation](h)

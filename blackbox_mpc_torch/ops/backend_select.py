@@ -21,7 +21,9 @@ without touching the code.
   it never enables).
 
 Everything else is ``"eager"``: a device other than ``cuda`` (the kernels are CUDA, so a CPU
-policy asked for ``auto`` is an eager policy), true models, probabilistic heads, propagation
+policy asked for ``auto`` is an eager policy), true models, latent world models
+(``models/latent.py``: K2 and K4 compute only the MLP ensemble, and TD-MPC2's layers are past
+``KERNEL_MAX_WIDTH``), probabilistic heads, propagation
 other than mean/ts1 with an ensemble, an activation or dtype the kernels refuse, the
 first-order solvers (the kernels have no backward) and the time-major layout.
 
@@ -40,6 +42,7 @@ from typing import Optional
 
 import torch
 
+from blackbox_mpc_torch.models.latent import LatentModelConfig
 from blackbox_mpc_torch.ops._kernel_common import check_kernel_support
 from blackbox_mpc_torch.parallel.mesh import POP_AXIS
 
@@ -75,7 +78,7 @@ def _platform() -> str:
 
 
 def choose_backend(
-    config,  # LearnedDynamicsConfig | None (None: a true model)
+    config,  # LearnedDynamicsConfig | LatentModelConfig | None (None: a true model)
     population: int,
     num_agents: int,
     mesh: Optional[object] = None,
@@ -94,7 +97,7 @@ def choose_backend(
     """
     if platform is None:
         platform = _platform()
-    if platform != "cuda" or config is None:
+    if platform != "cuda" or config is None or isinstance(config, LatentModelConfig):
         return "eager"
     try:
         check_kernel_support(config, "auto")

@@ -56,6 +56,15 @@ On the card, the eager evaluations of a policy without a mesh or ``remat_rollout
 graphs where grad is off (:class:`~blackbox_mpc_torch.rollout.evaluator.GraphedEvaluator`,
 :attr:`MPCPolicy.rollout_graphs`): one graph per candidate shape, captured again when the
 handler's parameters are replaced. The noise is still drawn eagerly, as before, and copied in.
+
+A latent world model (:class:`~blackbox_mpc_torch.models.latent.LatentWorldModel`, TD-MPC2's)
+stands in the handler's place, with its ``reward_fn`` as the reward function. ``act()`` then
+encodes the observation into the latent and plans there: the solver's states are latents,
+each candidate's return gains ``discount^H`` times the model's terminal value of the latent it
+ends in, and ``act()`` returns the action, the predicted next latent and the predicted reward.
+Each evaluation draws the value's inputs (``pi``'s normals and a pair of Q heads) from the
+noise generator, fresh for every evaluation as TD-MPC2 draws them; the solver's draws are
+those of any other model. It plans on ``"eager"`` (``"auto"`` picks it) on one device.
 """
 from __future__ import annotations
 
@@ -175,7 +184,17 @@ class MPCPolicy(ModelBasedPolicy):
         if kernel_backend and dynamics_handler.is_true_model:
             raise ValueError(f"rollout_backend={rollout_backend!r} requires learned MLP dynamics")
         dyn_cfg = dynamics_handler.config
-        self._stochastic = dyn_cfg is not None and dyn_cfg.propagation in ("ts_inf", "mm")
+        # A latent world model encodes the observation and ends each rollout in its value.
+        self._encode = getattr(dynamics_handler, "encode", None)
+        self._terminal_value = getattr(dynamics_handler, "terminal_value", None)
+        if self._terminal_value is not None and (kernel_backend or mesh is not None):
+            raise ValueError(
+                "a latent world model plans on the single-device 'eager' backend (the kernels "
+                "roll out MLP ensembles, and the sharded evaluator has no terminal value); got "
+                f"rollout_backend={rollout_backend!r}"
+                + ("" if mesh is None else " with a mesh"))
+        self._stochastic = (dyn_cfg is not None
+                            and getattr(dyn_cfg, "propagation", None) in ("ts_inf", "mm"))
         self._penalized = dynamics_handler.penalized_dynamics_fn is not None
         if kernel_backend and self._penalized:
             raise ValueError(
@@ -413,6 +432,9 @@ class MPCPolicy(ModelBasedPolicy):
                        dynamics_returns_penalty=self._penalized, time_major=time_major,
                        remat=self._remat)
         step = lambda s, a, noise=None: dynamics_fn(params(), s, a, noise)  # noqa: E731
+        if self._terminal_value is not None:
+            value = self._terminal_value
+            options["terminal_value"] = lambda z, *draws: value(params(), z, *draws)
         if self._mesh is None:
             evaluate = make_trajectory_evaluator(step, reward_fn, device=device, **options)
             if own and not self._remat:
@@ -421,6 +443,17 @@ class MPCPolicy(ModelBasedPolicy):
         else:
             evaluate = make_sharded_evaluator(step, reward_fn, self._mesh,
                                               shard_axis=self._shard_axis, **options)
+        if self._terminal_value is not None:
+            from blackbox_mpc_torch.models.latent import value_draws
+
+            p_axis = 1 if time_major else 0
+
+            def valued_evaluate(obs, actions):
+                rows = actions.shape[p_axis] * obs.shape[0]
+                return evaluate(obs, actions, None, *value_draws(
+                    self._noise_start[0], rows, handler.config, device))
+
+            return valued_evaluate
         if not self._stochastic:
             return evaluate
         dim_s = handler.config.dim_s
@@ -444,9 +477,10 @@ class MPCPolicy(ModelBasedPolicy):
         solver = self._solver if solver is None else solver
         if dynamics_params is None:
             dynamics_params = self._handler.dynamics_params
-        if self._stochastic:
-            # The noise generator's state lives on the host: reading and setting it waits for
-            # nothing.
+        if self._stochastic or self._terminal_value is not None:
+            # The evaluations draw from this solve's noise generator (set back to the start
+            # for stochastic dynamics). Its state lives on the host: reading and setting it
+            # waits for nothing.
             self._noise_start = (noise_generator, noise_generator.get_state())
         if self._proposer is not None:
             # POPLIN-style seeding: the policy net's unroll replaces the carried plan (reshaped
@@ -488,7 +522,10 @@ class MPCPolicy(ModelBasedPolicy):
                 raise ValueError(
                     f"observations batch {obs.shape[0]} != num_agents {self._num_agents}"
                 )
-            return torch.as_tensor(obs, device=self._device), batched
+            obs = torch.as_tensor(obs, device=self._device)
+        if self._encode is not None:
+            obs = self._encode(obs)
+        return obs, batched
 
     # ------------------------------------------------------------------ public API
 
@@ -534,7 +571,9 @@ class MPCPolicy(ModelBasedPolicy):
 
         Accepts an unbatched ``[S]`` observation (tiled across agents) or a batched
         ``[num_agents, S]`` array. Returns numpy ``(action, predicted_next_obs,
-        predicted_reward)``, un-batched iff the input was un-batched.
+        predicted_reward)``, un-batched iff the input was un-batched. With a latent world model
+        the observation is encoded first and the prediction is the next latent
+        ``[..., latent_dim]``.
         """
         with span("policy.act"):
             obs, batched = self._obs(observations)

@@ -8,6 +8,10 @@ Stochastic dynamics (PETS ``ts_inf``/``mm``) take their randomness as a tensor: 
 ``[H, B, S]`` of standard normals, step ``t`` reading ``noise[t]``, where JAX splits one key
 into H step keys and draws ``normal(key_t, [B, S])``.
 
+A terminal value (a latent world model's, ``models/latent.py``) is added to each return at the
+state the rollout ends in, discounted by ``discount^H``; its own draws are inputs of the
+evaluation (``value_inputs``), as the noise is.
+
 ``remat`` (JAX's ``jax.checkpoint`` of the scan body) runs each horizon step through
 ``torch.utils.checkpoint``: differentiating through the rollout (the Gradient and CEM-GD
 solvers) then keeps each step's inputs only and computes the step again in the backward pass.
@@ -17,6 +21,7 @@ launches one graph where the eager loop launches every op of every model step.
 """
 from __future__ import annotations
 
+import gc
 import logging
 
 import torch
@@ -54,6 +59,7 @@ def rollout_trajectories(
     dynamics_returns_penalty: bool = False,
     time_major: bool = False,
     remat: bool = False,
+    terminal_value=None,
 ):
     """Rolls a batch of action sequences through the dynamics, accumulating reward.
 
@@ -61,7 +67,8 @@ def rollout_trajectories(
     is carried by repeated multiplication, as the JAX scan carries it. ``noise`` ([H, B, S]):
     step ``t`` calls ``dynamics_fn(state, action, noise[t])``; None keeps the two-argument
     call. ``dynamics_returns_penalty``: the dynamics return ``(next_state, penalty [B])`` and
-    each step adds ``discount^t * (r - penalty)``.
+    each step adds ``discount^t * (r - penalty)``. ``terminal_value`` (``state [B, S] -> [B]``)
+    adds ``discount^H * terminal_value(final state)``; None adds nothing.
 
     ``remat``: each step runs under ``torch.utils.checkpoint`` (non-reentrant), which stores
     the step's inputs instead of its activations and recomputes them in the backward pass.
@@ -97,6 +104,8 @@ def rollout_trajectories(
         state = next_state
         if return_states:
             states.append(next_state)
+    if terminal_value is not None:
+        total = total + disc * terminal_value(state)
     if return_states:
         return total, torch.stack(states)
     return total
@@ -131,9 +140,10 @@ def make_trajectory_evaluator(
     time_major: bool = False,
     remat: bool = False,
     device=None,
+    terminal_value=None,
 ) -> TrajectoryEvaluator:
-    """Builds ``evaluate(initial_states [A,S], action_sequences [P,A,H,U], noise=None) ->
-    rewards [P,A]``.
+    """Builds ``evaluate(initial_states [A,S], action_sequences [P,A,H,U], noise=None,
+    *value_inputs) -> rewards [P,A]``.
 
     The initial state of agent ``a`` is tiled across the population agent-minor, each
     candidate is rolled out for H steps, the discounted rewards are summed, the smoothness
@@ -145,6 +155,10 @@ def make_trajectory_evaluator(
     candidate ``i`` on rows ``(i*K + j)*A + a``, and the K returns are averaged (the PETS
     estimator); without noise K is 1. ``dynamics_returns_penalty`` and ``remat``: see
     :func:`rollout_trajectories`.
+
+    ``terminal_value`` (``(final states [P*K*A, S], *value_inputs) -> [P*K*A]``): each
+    rollout's return gains ``discount^H`` times the value of the state it ends in, computed
+    from the evaluation's ``value_inputs`` (tensors whose draws the caller made).
     """
     if num_particles < 1:
         raise ValueError(f"num_particles must be >= 1, got {num_particles}")
@@ -155,7 +169,7 @@ def make_trajectory_evaluator(
     device = resolve_device(device)
 
     def evaluate(initial_states: torch.Tensor, action_sequences: torch.Tensor,
-                 noise: torch.Tensor | None = None) -> torch.Tensor:
+                 noise: torch.Tensor | None = None, *value_inputs) -> torch.Tensor:
         if initial_states.device != device or action_sequences.device != device:
             raise ValueError(f"inputs must be on {device}")
         k = num_particles if noise is not None else 1
@@ -175,10 +189,12 @@ def make_trajectory_evaluator(
                              f"S], got {list(noise.shape)}")
         # [A, S] -> [P*K*A, S], agent minor (as tf.tile(current_states, [pop, 1])).
         flat_states = initial_states.repeat(pop * k, 1)
+        value = (None if terminal_value is None
+                 else lambda final: terminal_value(final, *value_inputs))
         total = rollout_trajectories(
             dynamics_fn, reward_fn, flat_states, flat_actions, discount=discount, noise=noise,
             dynamics_returns_penalty=dynamics_returns_penalty, time_major=time_major,
-            remat=remat,
+            remat=remat, terminal_value=value,
         )
         rewards = total.reshape(pop, k, agents).mean(1) if k > 1 else total.reshape(pop, agents)
         if action_smoothness_weight > 0.0:
@@ -225,12 +241,20 @@ class _Graph:
         before, _ = _memory(device, release=True)  # as the capture does: the growth is its own
         self.inputs = [None if x is None else torch.empty_like(x) for x in inputs]
         self.graph = torch.cuda.CUDAGraph()
+        # No garbage collection inside the capture: one could destroy a dead evaluator's
+        # graph there, which a capture does not allow (torch.cuda.graph no longer collects
+        # before it begins).
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
                 self.rewards = evaluate(*self.inputs)
         except RuntimeError:
             torch.cuda.set_stream(stream)  # a failed capture leaves its own stream current
             raise
+        finally:
+            if collecting:
+                gc.enable()
         self.pool = self.graph.pool()
         self.bytes = _memory(device)[0] - before
 
@@ -244,7 +268,8 @@ class _Graph:
 
 class GraphedEvaluator:
     """An evaluator of :func:`make_trajectory_evaluator`, ``evaluate(initial_states,
-    action_sequences, noise=None)``, whose evaluations on the card replay CUDA graphs.
+    action_sequences, noise=None, *value_inputs)``, whose evaluations on the card replay CUDA
+    graphs. The noise and the value's inputs are inputs of the graph like the others.
 
     One graph per shape of the inputs. The first evaluation of a shape runs eagerly (its lazy
     set-up, such as ``member_permutation``'s constants, happens there) and then captures the
@@ -294,8 +319,9 @@ class GraphedEvaluator:
         held = self._reads() if held is None else held
         return tuple((t.data_ptr(), t.shape, t.dtype, t.stride()) for t in held)
 
-    def __call__(self, initial_states, action_sequences, noise=None) -> torch.Tensor:
-        inputs = (initial_states, action_sequences, noise)
+    def __call__(self, initial_states, action_sequences, noise=None,
+                 *value_inputs) -> torch.Tensor:
+        inputs = (initial_states, action_sequences, noise, *value_inputs)
         if not _graphable(inputs):
             return self._evaluate(*inputs)
         held = self._reads()
