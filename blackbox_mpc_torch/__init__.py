@@ -8,7 +8,8 @@ generate-in-kernel solvers, whose CUDA kernels draw, roll out and reduce the can
 storing them (``"fused"``); and the loop around it: vectorized envs, rollouts, the replay, the
 trainer, checkpoints and the MBRL workflows. Probabilistic (PETS) ensembles plan on
 ``"eager"``: Gaussian heads with fixed or learned logvar bounds, ``ts_inf``/``mm`` propagation
-with particles, the uncertainty penalty, and the heads' calibration after each training. All
+with particles, the uncertainty penalty, and the heads' calibration after each training;
+``ts_inf`` plans on ``"kernel"`` too. All
 nine solvers of the JAX registry run, the sampled ones in both candidate layouts; the
 first-order Gradient and CEM-GD differentiate through the eager rollout. A behaviour-cloned
 policy proposer seeds the solver's plan, and a speculative pipeline overlaps the next solve

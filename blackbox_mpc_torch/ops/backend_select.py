@@ -10,7 +10,12 @@ without touching the code.
   JAX package's ``PALLAS_MAX_WIDTH``/``PALLAS_MAX_ROWS``, which are 0 there: on its TPU the
   XLA path won every shape that fits in memory. On the H100 the CUDA kernel wins: ``act()``
   at H=50 over populations 100-10 000 and hidden widths (64, 64) and (500, 500, 500),
-  ``chip_smoke.py`` phase 9 Part A (PERF.md section 5 has the table and the card).
+  ``chip_smoke.py`` phase 9 Part A (PERF.md section 5 has the table and the card). PETS'
+  TS-infinity (a probabilistic head with ``propagation="ts_inf"``, which JAX sends to XLA)
+  takes the kernel too, its rows counted as particle rows (population x particles x agents)
+  against the same limit: at PETS' shape the kernel beat the graphed eager path through
+  10 000 particle rows (the measurement is beside ``KERNEL_MAX_ROWS``). Its layers may be no
+  wider than ``KERNEL_TS_INF_MAX_WIDTH``, the widest measured.
 * ``"fused"`` (the generate-in-kernel family: CEM, PI2, MPPI, RandomSearch, CMA-ES with
   ``diagonal=True``) only for capacity, as in JAX: when the candidate tensor ``[P, A, H, U]``
   reaches ``FUSED_MIN_BYTES``, which the other two paths materialize. The fused family clips
@@ -23,9 +28,12 @@ without touching the code.
 Everything else is ``"eager"``: a device other than ``cuda`` (the kernels are CUDA, so a CPU
 policy asked for ``auto`` is an eager policy), true models, latent world models
 (``models/latent.py``: K2 and K4 compute only the MLP ensemble, and TD-MPC2's layers are past
-``KERNEL_MAX_WIDTH``), probabilistic heads, propagation
-other than mean/ts1 with an ensemble, an activation or dtype the kernels refuse, the
-first-order solvers (the kernels have no backward) and the time-major layout.
+``KERNEL_MAX_WIDTH``), probabilistic heads but ts_inf's, ``mm`` and propagation other than
+mean/ts1/ts_inf with an ensemble, pessimistic planning (``plan_uncertainty_penalty``), an
+activation or dtype the kernels refuse (swish runs in ts_inf's kernel only), the first-order
+solvers (the kernels have no backward) and the time-major layout. ts_inf never goes to
+``"fused"``, whose kernels are deterministic: past its capacity threshold it stays on
+"kernel" or "eager" by the kernel regime.
 
 With a ``mesh`` of D devices: never ``"kernel"`` (K2 is single-device, as JAX's ``pallas``).
 The capacity threshold applies to the whole candidate tensor, where JAX divides it by D: JAX
@@ -47,14 +55,21 @@ from blackbox_mpc_torch.ops._kernel_common import check_kernel_support
 from blackbox_mpc_torch.parallel.mesh import POP_AXIS
 
 __all__ = ["choose_backend", "FUSED_FAMILY", "FUSED_MIN_BYTES", "KERNEL_MAX_ROWS",
-           "KERNEL_MAX_WIDTH"]
+           "KERNEL_MAX_WIDTH", "KERNEL_TS_INF_MAX_WIDTH"]
 
 # The "kernel" regime (JAX: PALLAS_MAX_WIDTH / PALLAS_MAX_ROWS, both 0 on its TPU). Set from
 # chip_smoke.py phase 9 Part A (NVIDIA H100 80GB HBM3, 700 W): "kernel" beat "eager" at every
 # measured shape, up to the 500-wide flagship and 10 000 rows, where the two nearly meet
 # (448.5 against 459.5 ms an act(); PERF.md section 5).
+# ts_inf counts particle rows against KERNEL_MAX_ROWS: at PETS' shape (4 x 200 swish, 5 members,
+# 20 particles, H=30; ops/measure.py cases, the same H100) the kernel's evaluation beat the
+# graphed eager one at every measured size, 2.16 against 2.86 ms at 1000 particle rows, 2.25
+# against 4.71 at 5000, 4.29 against 7.36 at 10 000 and 8.40 against 12.58 at 20 000. That
+# tile (TILE_TS_INF: 40 rows on 512 threads, K split over lane pairs) was timed on PETS'
+# 200-wide layers only, so no wider ts_inf net goes to the kernel (KERNEL_TS_INF_MAX_WIDTH).
 KERNEL_MAX_WIDTH = 500
 KERNEL_MAX_ROWS = 10_000
+KERNEL_TS_INF_MAX_WIDTH = 200
 
 # The "fused" regime (JAX: FUSED_CEM_MIN_BYTES, 4 GiB for its 16 GB TPU). Set from
 # chip_smoke.py phase 9 Part A (NVIDIA H100 80GB HBM3, 700 W) at the flagship (H=50, U=6,
@@ -100,16 +115,19 @@ def choose_backend(
     if platform != "cuda" or config is None or isinstance(config, LatentModelConfig):
         return "eager"
     try:
-        check_kernel_support(config, "auto")
+        check_kernel_support(config, "auto", rollout=True)
     except ValueError:
         return "eager"
-    if solver_name in _FIRST_ORDER:
+    if solver_name in _FIRST_ORDER or config.plan_uncertainty_penalty > 0:
         return "eager"
     time_major = bool(getattr(solver_config, "time_major", False))
     devices = 1 if mesh is None else int(mesh.shape[POP_AXIS])
     rows = population * num_agents
     local_rows = -(-rows // devices)  # each rank's block of a sharded fused solve
     ts1 = config.propagation == "ts1" and config.ensemble_size > 1
+    ts_inf = config.propagation == "ts_inf"
+    # K2's rows: ts_inf rolls each candidate out once per particle.
+    kernel_rows = rows * (config.num_particles if ts_inf else 1)
     # The whole tensor: the eager path holds it on every rank of a mesh.
     candidate_bytes = rows * horizon * dim_u * 4
     rng_cols = (((horizon // 2 + 1) * 2) * dim_u
@@ -118,7 +136,8 @@ def choose_backend(
     fused_family = solver_name in FUSED_FAMILY and (
         solver_name != "CMA-ES" or getattr(solver_config, "diagonal", False))
     if (
-        fused_family
+        not ts_inf  # the fused kernels are deterministic
+        and fused_family
         and candidate_bytes >= FUSED_MIN_BYTES
         and local_rows * rng_cols < 2**32  # the in-kernel RNG counter range
         # ts1 gives every member at least one logical tile
@@ -150,10 +169,11 @@ def choose_backend(
         mesh is None  # K2 is single-device
         and not time_major  # the kernel's candidate contract is [P, A, H, U]
         and KERNEL_MAX_WIDTH
-        and max(config.hidden, default=0) <= KERNEL_MAX_WIDTH
-        and rows <= KERNEL_MAX_ROWS
-        # the kernel evaluator's ts1 member-major blocks need rows % E == 0
-        and not (ts1 and rows % config.ensemble_size)
+        and max(config.hidden, default=0) <= (KERNEL_TS_INF_MAX_WIDTH if ts_inf
+                                              else KERNEL_MAX_WIDTH)
+        and kernel_rows <= KERNEL_MAX_ROWS
+        # the kernel evaluator's member-major blocks (ts1, ts_inf) need rows % E == 0
+        and not ((ts1 or ts_inf) and kernel_rows % config.ensemble_size)
     ):
         return "kernel"
     return "eager"

@@ -2,9 +2,11 @@
 // kernel (rollout.cu, K2) and the fused CEM kernels (fused_cem.cu, K4/K5). It is K1 of the JAX
 // package: ops/_kernel_common.py::build_step_fn, without the reward.
 //
-// Per step: normalize (eps 1e-7) -> E-member MLP (tanh/relu/gelu, float32 accumulation,
+// Per step: normalize (eps 1e-7) -> E-member MLP (tanh/relu/gelu/swish, float32 accumulation,
 // float32 bias, activation then cast to the compute type) -> member mean, or the tile's one
-// member for ts1 -> denormalize -> delta.
+// member for ts1 and ts_inf -> for ts_inf (PETS' TS-infinity) the Gaussian head's sample
+// mean + exp(logvar / 2) * noise, the log-variance soft-bounded as models/dynamics.py's
+// bound_logvar bounds it -> denormalize -> delta.
 //
 // The design, for Hopper. The members of an ensemble are independent inside a step, so with
 // mean propagation a thread-block cluster of C = min(E, 8) CTAs owns one tile of T rows and
@@ -52,18 +54,22 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-// Rows per tile, one per propagation; ops/rollout_kernel.py holds the same two numbers
-// (TILE_MEAN, TILE_TS1) with the measurement behind them, and every entry point checks the
-// tile it is given against them. The macros exist for that measurement's sweep only.
+// Rows per tile, one per propagation; ops/rollout_kernel.py holds the same three numbers
+// (TILE_MEAN, TILE_TS1, TILE_TS_INF) with the measurement behind them, and every entry point
+// checks the tile it is given against them. The macros exist for that measurement's sweep only.
 #ifndef BBMPC_TILE_MEAN
 #define BBMPC_TILE_MEAN 48
 #endif
 #ifndef BBMPC_TILE_TS1
 #define BBMPC_TILE_TS1 8
 #endif
+#ifndef BBMPC_TILE_TS_INF
+#define BBMPC_TILE_TS_INF 40
+#endif
 
 constexpr int kTileMean = BBMPC_TILE_MEAN;
 constexpr int kTileTs1 = BBMPC_TILE_TS1;
+constexpr int kTileTsInf = BBMPC_TILE_TS_INF;
 constexpr int kMaxCluster = 8;  // the portable cluster size
 constexpr int kMaxLayers = 8;
 constexpr float kEps = 1e-7f;
@@ -79,12 +85,16 @@ constexpr bool kIsBf16<__nv_bfloat16> = true;
 template <int T, typename W>
 struct Cfg {
   // A float32 tile of 32 rows or more gives each thread 8 columns x T/4 rows, so that a layer
-  // of 500 columns fills 256 threads of up to 255 registers; else 4 columns on 512 threads.
+  // of 500 columns fills 256 threads of up to 255 registers; else 4 columns on 512 threads. A
+  // tile of 20 rows or more that five divides (ts_inf's 40) takes 512 threads of T/10 rows: a
+  // 200-wide layer's 25 groups of 8 columns x 10 row blocks x 2 K slices keep 500 busy, four
+  // warps to a scheduler (PERF.md: 7 % faster than 256 threads of 8 x 8 at PETS' shape).
+  static constexpr bool kFives = !kIsBf16<W> && T >= 20 && T % 5 == 0;
   static constexpr bool kWide = !kIsBf16<W> && T >= 32;
-  static constexpr int kThreads = kWide ? 256 : 512;
+  static constexpr int kThreads = kWide && !kFives ? 256 : 512;
   static constexpr int kWarps = kThreads / 32;
   static constexpr int kColVecs = kWide ? 2 : 1;      // float4 weight vectors per thread and k
-  static constexpr int kRows = T >= 16 ? T / 4 : T;   // rows of a thread's register block
+  static constexpr int kRows = T >= 16 ? (kFives ? T / 10 : T / 4) : T;  // a thread's rows
   // CTAs per SM that the design counts on, declared in each kernel's __launch_bounds__: a
   // tile of 32 rows or more fills an SM's shared memory alone.
   static constexpr int kMinBlocks = T >= 32 ? 1 : 2;
@@ -127,9 +137,18 @@ __device__ __forceinline__ void load4(const float* p, float (&w)[4]) {
   w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
 }
 
+// Activation ids as ops/_kernel_common.py numbers them. Only an instantiation with kSwish
+// takes swish: the others compile without its branch, as they did before it was added
+// (register allocation of the 64-register kernels moved with it).
+constexpr int kSwishId = 3;
+
+template <bool kSwish>
 __device__ __forceinline__ float activate(float x, int act) {
   if (act == 0) return tanhf(x);
   if (act == 1) return x < 0.f ? 0.f : x;
+  if constexpr (kSwish) {
+    if (act == kSwishId) return x / (1.f + expf(-x));  // torch's silu
+  }
   // jax.nn.gelu's default tanh approximation.
   const float c = 0.7978845608028654f;  // sqrt(2 / pi)
   return x * (0.5f * (1.f + tanhf(c * (x + 0.044715f * (x * x * x)))));
@@ -185,7 +204,7 @@ int k_slices(int k, int n) {
 // float32: out[n*T + r] = f(sum_k in[k*T + r] * w[k*N + n] + b[n]) for n < N, r < T, f the
 // activation, or the identity for the head (`last`). A thread owns CV float4 column vectors x
 // RB rows over one K slice; `red` holds ks_count * N * T partials where ks_count > 1.
-template <int T>
+template <int T, bool kSwish>
 __device__ void dense(const float* in, int K, int N, int ks_count, const float* __restrict__ w,
                       const float* __restrict__ b, float* red, float* out, bool last, int act) {
   using C = Cfg<T, float>;
@@ -247,7 +266,7 @@ __device__ void dense(const float* in, int K, int N, int ks_count, const float* 
 #pragma unroll
           for (int r = 0; r < RB; ++r) {
             const float h = acc[v][c][r] + bias;
-            acc[v][c][r] = last ? h : activate(h, act);
+            acc[v][c][r] = last ? h : activate<kSwish>(h, act);
           }
           store_rows<RB, V>(out + n * T + rb * RB, acc[v][c]);
         } else {
@@ -262,7 +281,99 @@ __device__ void dense(const float* in, int K, int N, int ks_count, const float* 
       float sum = 0.f;
       for (int ks = 0; ks < ks_count; ++ks) sum += red[(long long)ks * N * T + idx];
       const float h = sum + b[idx / T];
-      out[idx] = last ? h : activate(h, act);
+      out[idx] = last ? h : activate<kSwish>(h, act);
+    }
+  }
+  __syncthreads();
+}
+
+// float32, K split in two over the lanes of a pair (ts_inf's layers of two K slices): lane
+// 2i + h sums slice h's products for item i's columns and rows as dense does, the pair swaps
+// half of those sums (__shfl_xor), and each lane finishes two of every four columns: the two
+// slices' sum, the bias, the activation, the store. dense instead writes both slices' partial
+// sums to shared memory and adds them in a second pass behind a barrier. Measured on the H100
+// at PETS' shape (T = 40, 8 x 8 blocks on 256 threads, clock64 of one CTA, PERF.md): a
+// 200-wide layer took 39 700 cycles a step in dense, 15 500 of them in the second pass, and
+// 34 000 here.
+template <int T, bool kSwish>
+__device__ void dense_pairs(const float* in, int K, int N, const float* __restrict__ w,
+                            const float* __restrict__ b, float* out, int act) {
+  using C = Cfg<T, float>;
+  constexpr int RB = C::kRows, CV = C::kColVecs, kThreads = C::kThreads;
+  constexpr int RBN = T / RB;
+  constexpr int V = RB % 4 == 0 ? 4 : (RB % 2 == 0 ? 2 : 1);
+  constexpr int kUnroll = C::kWide ? 8 : (RB >= 8 ? 4 : 8);
+  const int vecs = N / 4;
+  const int groups = (vecs + CV - 1) / CV;
+  // Slice 1 starts kc rows on, 16 banks away from slice 0's rows where the row stride allows,
+  // so that the two lanes' activation loads meet in fewer banks. Measured on the H100 at PETS'
+  // shape (8 x 8 blocks on 256 threads): a 200-wide layer took 34 000 cycles a step with
+  // kc = 102, 41 000 with kc = 100 (and 104).
+  int kc = (K + 1) / 2;
+  for (int d = 0; d < 4 && kc + d < K; ++d) {
+    if ((kc + d) * T % 32 == 16) {
+      kc += d;
+      break;
+    }
+  }
+  const int items = groups * RBN * 2;
+  for (int first = 0; first < items; first += kThreads) {
+    const int item = first + threadIdx.x;
+    const unsigned live = __ballot_sync(0xffffffffu, item < items);
+    if (item >= items) continue;
+    const int half = item & 1, rest = item >> 1;
+    const int rb = rest % RBN, cgp = rest / RBN;
+    const int k0 = half * kc;
+    const int k1 = min(K, k0 + kc);
+    int col[CV];
+    bool own[CV];
+#pragma unroll
+    for (int v = 0; v < CV; ++v) {
+      own[v] = cgp + v * groups < vecs;
+      col[v] = 4 * min(cgp + v * groups, vecs - 1);
+    }
+    float acc[CV][4][RB];
+#pragma unroll
+    for (int v = 0; v < CV; ++v)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int r = 0; r < RB; ++r) acc[v][c][r] = 0.f;
+    const float* xp = in + rb * RB;
+#pragma unroll kUnroll
+    for (int k = k0; k < k1; ++k) {
+      float wv[CV][4], x[RB];
+#pragma unroll
+      for (int v = 0; v < CV; ++v) load4(w + (long long)k * N + col[v], wv[v]);
+      load_rows<RB, V>(xp + k * T, x);
+#pragma unroll
+      for (int v = 0; v < CV; ++v)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int r = 0; r < RB; ++r) acc[v][c][r] = fmaf(x[r], wv[v][c], acc[v][c][r]);
+    }
+    // Lane h keeps columns 2h and 2h + 1 of each vector: it sends the partner the other two.
+#pragma unroll
+    for (int v = 0; v < CV; ++v) {
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        float sum[RB];
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          const float mine = half ? acc[v][2 + cc][r] : acc[v][cc][r];
+          const float theirs =
+              __shfl_xor_sync(live, half ? acc[v][cc][r] : acc[v][2 + cc][r], 1);
+          // slice 0's sum plus slice 1's
+          sum[r] = half ? theirs + mine : mine + theirs;
+        }
+        if (!own[v]) continue;
+        const int n = col[v] + 2 * half + cc;
+        const float bias = b[n];
+#pragma unroll
+        for (int r = 0; r < RB; ++r) sum[r] = activate<kSwish>(sum[r] + bias, act);
+        store_rows<RB, V>(out + n * T + rb * RB, sum);
+      }
     }
   }
   __syncthreads();
@@ -282,7 +393,7 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint4& a, uint32_t
 // a lane's registers a0..a3 of mma.m16n8k16 (A[m][k] = W[k][m]). `in` is [rows][in_stride]
 // bf16. Hidden layers write bf16(f(acc + b)) to out [rows][out_stride]; the head (head !=
 // nullptr) writes float32 acc + b to head [feature][T] for feature < out_w, row < T.
-template <int T, int MW, int NW>
+template <int T, int MW, int NW, bool kSwish>
 __device__ __forceinline__ void dense_mma_tiles(const __nv_bfloat16* in, int in_stride, int Kt,
                                                 int Mt, int N, const uint4* __restrict__ wf,
                                                 const float* __restrict__ b,
@@ -337,7 +448,7 @@ __device__ __forceinline__ void dense_mma_tiles(const __nv_bfloat16* in, int in_
             if (head != nullptr) {
               if (feature < out_w && row < T) head[feature * T + row] = h;
             } else {
-              out[row * out_stride + feature] = __float2bfloat16_rn(activate(h, act));
+              out[row * out_stride + feature] = __float2bfloat16_rn(activate<kSwish>(h, act));
             }
           }
       }
@@ -346,7 +457,7 @@ __device__ __forceinline__ void dense_mma_tiles(const __nv_bfloat16* in, int in_
   __syncthreads();
 }
 
-template <int T>
+template <int T, bool kSwish>
 __device__ void dense_mma(const __nv_bfloat16* in, int in_stride, int K, int N,
                           const __nv_bfloat16* __restrict__ w, const float* __restrict__ b,
                           __nv_bfloat16* out, int out_stride, float* head, int out_w, int act) {
@@ -354,10 +465,12 @@ __device__ void dense_mma(const __nv_bfloat16* in, int in_stride, int K, int N,
   const int Kt = round_up16(K) / 16, Mt = round_up16(N) / 16;
   const uint4* wf = reinterpret_cast<const uint4*>(w);
   if (Mt >= 2 * Cfg<T, __nv_bfloat16>::kWarps) {
-    dense_mma_tiles<T, 2, NT>(in, in_stride, Kt, Mt, N, wf, b, out, out_stride, head, out_w, act);
+    dense_mma_tiles<T, 2, NT, kSwish>(in, in_stride, Kt, Mt, N, wf, b, out, out_stride, head,
+                                      out_w, act);
   } else {
     // A narrow layer (the head): one (m tile, n tile) pair per warp keeps more warps busy.
-    dense_mma_tiles<T, 1, 1>(in, in_stride, Kt, Mt, N, wf, b, out, out_stride, head, out_w, act);
+    dense_mma_tiles<T, 1, 1, kSwish>(in, in_stride, Kt, Mt, N, wf, b, out, out_stride, head,
+                                     out_w, act);
   }
 }
 
@@ -431,17 +544,42 @@ __device__ __forceinline__ StepSmem<W> carve(void* smem, const NetShape& net, in
   return s;
 }
 
+// The Gaussian head of a sampled (ts_inf) step. The head holds [mean S | raw log-variance S]
+// per row; `noise_t` [T][S] are the tile's standard normals of this step, copied by
+// copy_async, element i by thread i mod kThreads, and `lv` [2][S] the log-variance bounds
+// (lower, upper).
+struct Sample {
+  const float* noise_t;
+  const float* lv;
+};
+
+// A 4-byte copy from global to shared memory that does not wait for the load (cp.async), and
+// the wait for all of this thread's copies.
+__device__ __forceinline__ void copy_async(float* smem, const float* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem));
+}
+
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_all;\n" ::: "memory");
+}
+
+// torch's softplus: x above its threshold of 20, else log1p(exp(x)).
+__device__ __forceinline__ float softplus(float x) { return x > 20.f ? x : log1pf(expf(x)); }
+
 // One step for the tile: reads the state in sm.st and the actions action(r, j) (r < T, j < U),
 // runs this CTA's members, waits for the cluster, sums the tile's heads, writes the next state
 // into sm.st and, where out_t is not null, into out_t [T][S]. `parity` is the step's (t & 1).
-// Ends with a barrier of the CTA.
-template <int T, typename W, class ActionFn>
+// kSample (ts_inf: one member per row) replaces the head's mean by its Gaussian sample from
+// `sample`, with the eager step's operations and roundings. kSwish: see activate(). Ends with
+// a barrier of the CTA.
+template <int T, typename W, bool kSample = false, bool kSwish = false, class ActionFn>
 __device__ __forceinline__ void mlp_step(const StepSmem<W>& sm, ActionFn action,
                                          const float* __restrict__ stats,
                                          const W* __restrict__ weights,
                                          const float* __restrict__ biases, const Members& mb,
                                          int parity, float* __restrict__ out_t, const Problem& p,
-                                         const NetShape& net) {
+                                         const NetShape& net, Sample sample = {}) {
   constexpr int kThreads = Cfg<T, W>::kThreads;
   const int S = p.dim_s, U = p.dim_u, sw = p.stats_width;
   const int in_w = net.width[0], out_w = net.width[net.n_layers];
@@ -481,12 +619,22 @@ __device__ __forceinline__ void mlp_step(const StepSmem<W>& sm, ActionFn action,
       const W* w = weights + net.w_off[l] + (long long)e * net.w_size[l];
       const float* b = biases + net.b_off[l] + (long long)e * N;
       if constexpr (kIsBf16<W>) {
-        dense_mma<T>(in, in_stride, K, N, w, b, out, sm.h_stride, last ? head : nullptr, out_w,
-                     p.activation);
+        dense_mma<T, kSwish>(in, in_stride, K, N, w, b, out, sm.h_stride,
+                             last ? head : nullptr, out_w, p.activation);
       } else {
         // The head's partial sums go where its output would have gone: that buffer is free.
         float* red = (last && net.ks[l] * N > net.red_width) ? out : sm.red;
-        dense<T>(in, K, N, net.ks[l], w, b, red, last ? head : out, last, p.activation);
+        if constexpr (kSample) {
+          if (!last && net.ks[l] == 2) {
+            dense_pairs<T, kSwish>(in, K, N, w, b, out, p.activation);
+          } else {
+            dense<T, kSwish>(in, K, N, net.ks[l], w, b, red, last ? head : out, last,
+                             p.activation);
+          }
+        } else {
+          dense<T, kSwish>(in, K, N, net.ks[l], w, b, red, last ? head : out, last,
+                           p.activation);
+        }
       }
       in = out;
       in_stride = sm.h_stride;
@@ -499,6 +647,7 @@ __device__ __forceinline__ void mlp_step(const StepSmem<W>& sm, ActionFn action,
   cg::cluster_group cluster = cg::this_cluster();
   if (mb.stride > 1) cluster.sync();
   const long long slot_floats = (long long)out_w * T;
+  if constexpr (kSample) wait_copies();  // each thread reads only the noise it copied
   for (int i = threadIdx.x; i < T * S; i += kThreads) {
     const int r = i / S, j = i % S;
     float sum = 0.f;
@@ -508,6 +657,14 @@ __device__ __forceinline__ void mlp_step(const StepSmem<W>& sm, ActionFn action,
       sum += peer[(parity * sm.slots + e / mb.stride) * slot_floats + j * T + r];
     }
     float raw = sum / static_cast<float>(mb.count);
+    if constexpr (kSample) {
+      const float lo = sample.lv[j], hi = sample.lv[S + j];
+      const float* own = sm.head + (long long)parity * sm.slots * slot_floats;
+      float lv = hi - softplus(hi - own[(S + j) * T + r]);
+      lv = lo + softplus(lv - lo);
+      // Not contracted into an FMA: torch rounds the product, then the sum.
+      raw = __fadd_rn(raw, __fmul_rn(expf(0.5f * lv), sample.noise_t[i]));
+    }
     if (p.normalized) raw = raw * (stats[5 * sw + j] + kEps) + stats[4 * sw + j];
     const float ns = p.predict_delta ? sm.st[i] + raw : raw;
     sm.st[i] = ns;

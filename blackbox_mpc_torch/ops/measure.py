@@ -4,7 +4,9 @@
 Run from the repository root on a machine with a CUDA card and ``nvcc``::
 
     python3 blackbox_mpc_torch/ops/measure.py cases [--tree DIR] [--tile-mean N] [--tile-ts1 N]
+        [--tile-ts-inf N] [--only ts_inf]
     python3 blackbox_mpc_torch/ops/measure.py sweep --mean 24 32 40 48 --ts1 4 8 16
+    python3 blackbox_mpc_torch/ops/measure.py sweep --ts-inf 24 32 40 48 --only ts_inf
     python3 blackbox_mpc_torch/ops/measure.py compare --parent DIR [--rounds 2]
 
 ``cases`` times one tree (``DIR`` holds ``blackbox_mpc_torch/`` and ``chip_smoke.py``; default
@@ -14,9 +16,12 @@ inputs are ``chip_smoke.py``'s flagship inputs of that tree, rows padded to the 
 The cases: K2, K4 (white and with the iCEM options) and K5; K6 with a 50-elite mask, softmax
 weights, the mask with the iCEM options and softmax with the clip, each as the host's time
 of a call and the device's (:func:`graph_ms`); and the draw of five carried colored elites
-(``draw_rows``, or in a tree without it the plain ``_mirror_z``), host and device.
-``--tile-mean``/``--tile-ts1`` build the kernels with other tiles (``-DBBMPC_TILE_MEAN=N``).
-``sweep`` runs ``cases`` once per tile; ``compare`` runs parent, change, change, parent (times
+(``draw_rows``, or in a tree without it the plain ``_mirror_z``), host and device. In a tree
+whose K2 runs ts_inf, the PETS cases (:func:`ts_inf_cases`): K2 ts_inf at PETS' shape, and
+the kernel evaluator against the graphed eager evaluator over populations of 50 to 1000.
+``--tile-mean``/``--tile-ts1``/``--tile-ts-inf`` build the kernels with other tiles
+(``-DBBMPC_TILE_MEAN=N``); ``--only ts_inf`` runs the PETS cases alone. ``sweep`` runs
+``cases`` once per tile; ``compare`` runs parent, change, change, parent (times
 ``--rounds``), each in a process of its own, and prints every time and the medians.
 """
 from __future__ import annotations
@@ -56,7 +61,124 @@ def _pad_rows(x, rows: int, dim: int):
     return torch.nn.functional.pad(x, [0, 0] * (x.dim() - 1 - dim) + [0, rows - x.shape[dim]])
 
 
-def run_cases(tree: str, tile_mean: int | None, tile_ts1: int | None, reps: int) -> dict:
+# PETS' shape (port_bench/configs/pets_halfcheetah.json): S=18, U=6, 4 x 200 swish, 5 members
+# with Gaussian heads and learned log-variance bounds, TS-infinity with 20 particles; CEM's 500
+# candidates over H=30.
+PETS = dict(dim_s=18, dim_u=6, hidden=(200, 200, 200, 200), activation="swish",
+            ensemble_size=5, probabilistic=True, learn_logvar_bounds=True, propagation="ts_inf",
+            num_particles=20)
+PETS_POPULATION, PETS_HORIZON = 500, 30
+
+
+def pets_params(config, device, seed: int = 3):
+    """PETS' net from ``seed``: weights normal at gain 1.4 / sqrt(fan_in) and small biases,
+    normalizer statistics at the laws of ``port_bench/configs/pets_halfcheetah.json``, and
+    log-variance bounds drawn near PETS' start (-10, 0.5)."""
+    import torch
+
+    from blackbox_mpc_torch.models.dynamics import DynamicsParams, make_learned_dynamics
+    from blackbox_mpc_torch.models.normalizer import NormalizerStats
+
+    g = torch.Generator().manual_seed(seed)
+    layers = make_learned_dynamics(config)[0](g).params["net"]
+    layers = [{"w": torch.randn(layer["w"].shape, generator=g) * 1.4 / layer["w"].shape[1] ** 0.5,
+               "b": 0.1 * torch.randn(layer["b"].shape, generator=g)} for layer in layers]
+    s, u = config.dim_s, config.dim_u
+
+    def uniform(n, lo, hi):
+        return lo + (hi - lo) * torch.rand(n, generator=g)
+
+    stats = NormalizerStats(torch.randn(s, generator=g), uniform(s, 0.5, 2.0),
+                            0.3 * torch.randn(u, generator=g), uniform(u, 0.5, 1.5),
+                            0.05 * torch.randn(s, generator=g), uniform(s, 0.05, 0.2))
+    params = {"net": layers, "lv_min": uniform(s, -10.0, -9.0), "lv_max": uniform(s, -0.5, 0.5)}
+    return DynamicsParams(params=params, stats=stats).to(device)
+
+
+def pets_launch(rk, device, seed: int = 11):
+    """One K2 ts_inf launch at PETS' shape, laid out as the kernel evaluator lays it out:
+    ``(config, dp, args)`` with ``args = (config, operands, actions [H, rows, U], s0 [rows, S],
+    tile_member, noise [H, rows, S])`` for ``rk.rollout_states`` and its plain version. The
+    10 000 particle rows are member-major, each member's 2000 padded to whole tiles; H=30.
+    Normal actions clipped to [-1, 1], states and noise from ``seed``. ``rk``: the tree's
+    ``ops/rollout_kernel.py``."""
+    import torch
+
+    from blackbox_mpc_torch.models.dynamics import LearnedDynamicsConfig
+
+    config = LearnedDynamicsConfig(**PETS)
+    dp = pets_params(config, device)
+    ensemble, tile = config.ensemble_size, rk.TILE_TS_INF
+    per = PETS_POPULATION * config.num_particles // ensemble
+    block = -(-per // tile) * tile
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rows(width, steps=PETS_HORIZON):
+        x = torch.randn((steps, ensemble, per, width), generator=g, device=device)
+        return _pad_rows(x, block, 2).reshape(steps, ensemble * block, width).contiguous()
+
+    acts, noise = rows(config.dim_u).clamp(-1, 1), rows(config.dim_s)
+    s0 = rows(config.dim_s, 1)[0]
+    member = torch.arange(ensemble, dtype=torch.int32, device=device)
+    member = member.repeat_interleave(block // tile)
+    return config, dp, (config, rk.make_operands(dp, config), acts, s0, member, noise)
+
+
+def ts_inf_cases(cs, rk, device, reps: int) -> dict:
+    """K2 ts_inf at PETS' shape (:func:`pets_launch`): ms per launch, occupancy and the error
+    against the plain version, and the plain version's ms; then per population the kernel
+    evaluator's ms per evaluation against the graphed eager evaluator's (the path it
+    replaces), and their widest gap."""
+    import torch
+
+    from blackbox_mpc_torch.deploy.serving import tree_leaves
+    from blackbox_mpc_torch.models.dynamics import make_learned_dynamics
+    from blackbox_mpc_torch.rollout.evaluator import GraphedEvaluator, make_trajectory_evaluator
+
+    config, dp, args = pets_launch(rk, device)
+    s, u, horizon, rows = config.dim_s, config.dim_u, PETS_HORIZON, args[2].shape[1]
+    g = torch.Generator(device=device).manual_seed(12)
+
+    def launch():
+        return rk.rollout_states(*args)
+
+    def plain():
+        return rk.rollout_states_plain(*args)
+
+    states, ref = launch(), plain()
+    err = float((states - ref).abs().max() / max(1.0, float(ref.abs().max())))
+    case = {"ms": cs.cuda_ms(launch, reps), "plain_ms": cs.cuda_ms(plain, 2),
+            "rows": rows, "state_max_rel_err": err}
+    case.update(rk.kernel_occupancy(config, rows))
+    out = {"K2 ts_inf/float32": case}
+
+    def reward(st, a, ns):
+        return ns[:, 0] - 0.1 * (a * a).sum(-1)
+
+    dyn = make_learned_dynamics(config)[1]
+    kernel = rk.make_rollout_kernel_evaluator(config, reward, device=device)
+    eager = GraphedEvaluator(
+        make_trajectory_evaluator(lambda st, a, n=None: dyn(dp, st, a, n), reward,
+                                  num_particles=config.num_particles, device=device),
+        lambda: tree_leaves(dp))
+    obs = torch.randn((1, s), generator=g, device=device)
+    with torch.no_grad():
+        for population in (50, 100, 250, 500, 1000):
+            cand = torch.rand((population, 1, horizon, u), generator=g, device=device) * 2 - 1
+            eps = torch.randn((horizon, population * config.num_particles, s), generator=g,
+                              device=device)
+            got, want = kernel(dp, obs, cand, eps), eager(obs, cand, eps)
+            out[f"ts_inf evaluation P={population}"] = {
+                "kernel_ms": cs.cuda_ms(lambda: kernel(dp, obs, cand, eps), reps),
+                "eager_graphed_ms": cs.cuda_ms(lambda: eager(obs, cand, eps), reps),
+                "particle_rows": population * config.num_particles,
+                "max_abs_gap": float((got - want).abs().max()),
+                "max_abs_return": float(want.abs().max())}
+    return out
+
+
+def run_cases(tree: str, tile_mean: int | None, tile_ts1: int | None, reps: int,
+              tile_ts_inf: int | None = None, only: str | None = None) -> dict:
     sys.path.insert(0, str(Path(tree).resolve()))
     import numpy as np
     import torch
@@ -73,16 +195,27 @@ def run_cases(tree: str, tile_mean: int | None, tile_ts1: int | None, reps: int)
     if tile_ts1 is not None:
         rk.TILE_TS1 = tile_ts1
         _build.NVCC_FLAGS += (f"-DBBMPC_TILE_TS1={tile_ts1}",)
+    if tile_ts_inf is not None:
+        rk.TILE_TS_INF = tile_ts_inf
+        _build.NVCC_FLAGS += (f"-DBBMPC_TILE_TS_INF={tile_ts_inf}",)
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda")
-    _build.build("rollout", "fused_cem")
+    ts_inf = hasattr(rk, "TILE_TS_INF")
 
     def tile_of(ts1: bool) -> int:
         return rk.tile_rows(ts1) if hasattr(rk, "tile_rows") else rk.TILE
 
+    tiles = {"mean": tile_of(False), "ts1": tile_of(True)}
+    if ts_inf:
+        tiles["ts_inf"] = rk.TILE_TS_INF
+    out = {"tree": tree, "device": cs.nvidia_smi(), "tiles": tiles, "cases": {}}
+    if only == "ts_inf":
+        _build.build("rollout")
+        if ts_inf:
+            out["cases"].update(ts_inf_cases(cs, rk, device, reps))
+        return out
+    _build.build("rollout", "fused_cem")
     rows, horizon = cs.ROWS, cs.HORIZON
-    out = {"tree": tree, "device": cs.nvidia_smi(),
-           "tiles": {"mean": tile_of(False), "ts1": tile_of(True)}, "cases": {}}
     g = np.random.default_rng(2)
     acts0 = torch.as_tensor(g.uniform(-1, 1, (horizon, rows, 6)), dtype=torch.float32,
                             device=device)
@@ -145,6 +278,8 @@ def run_cases(tree: str, tile_mean: int | None, tile_ts1: int | None, reps: int)
                 case.update(fc.fused_occupancy(config, padded, horizon, streamed=name == "K5"))
             out["cases"][f"{name} {propagation}/{dtype}"] = case
     out["cases"].update(k3_k6_cases(cs, fc, device, reps))
+    if ts_inf:
+        out["cases"].update(ts_inf_cases(cs, rk, device, reps))
     torch.cuda.synchronize()
     return out
 
@@ -203,27 +338,32 @@ def main() -> int:
     cases.add_argument("--tree", default=".")
     cases.add_argument("--tile-mean", type=int)
     cases.add_argument("--tile-ts1", type=int)
+    cases.add_argument("--tile-ts-inf", type=int)
+    cases.add_argument("--only", choices=["ts_inf"])
     cases.add_argument("--reps", type=int, default=5)
     sweep = sub.add_parser("sweep")
     sweep.add_argument("--mean", type=int, nargs="*", default=[])
     sweep.add_argument("--ts1", type=int, nargs="*", default=[])
+    sweep.add_argument("--ts-inf", type=int, nargs="*", default=[])
+    sweep.add_argument("--only", choices=["ts_inf"])
     compare = sub.add_parser("compare")
     compare.add_argument("--parent", required=True)
     compare.add_argument("--rounds", type=int, default=1)
     args = parser.parse_args()
 
     if args.command == "cases":
-        print(json.dumps(run_cases(args.tree, args.tile_mean, args.tile_ts1, args.reps)))
+        print(json.dumps(run_cases(args.tree, args.tile_mean, args.tile_ts1, args.reps,
+                                   args.tile_ts_inf, args.only)))
         return 0
     if args.command == "sweep":
-        # Each run builds one mean tile and one ts1 tile; the shorter list repeats its last.
-        n = max(len(args.mean), len(args.ts1))
+        # Each run builds one tile of each kind; the shorter lists repeat their last.
+        n = max(len(args.mean), len(args.ts1), len(args.ts_inf))
         for i in range(n):
-            more = []
-            if args.mean:
-                more += ["--tile-mean", str(args.mean[min(i, len(args.mean) - 1)])]
-            if args.ts1:
-                more += ["--tile-ts1", str(args.ts1[min(i, len(args.ts1) - 1)])]
+            more = ["--only", args.only] if args.only else []
+            for flag, tiles in (("--tile-mean", args.mean), ("--tile-ts1", args.ts1),
+                                ("--tile-ts-inf", args.ts_inf)):
+                if tiles:
+                    more += [flag, str(tiles[min(i, len(tiles) - 1)])]
             try:
                 print(json.dumps(_cases_subprocess(".", more)), flush=True)
             except RuntimeError as exc:  # a tile that does not build or launch: say so, go on
@@ -235,10 +375,12 @@ def main() -> int:
         res = _cases_subprocess(args.parent if turn == "parent" else ".", [])
         print(json.dumps({"turn": turn, **res}), flush=True)
         for case, values in res["cases"].items():
+            if "ms" not in values:  # an evaluation case: its times are in its own line
+                continue
             times.setdefault(case, {"parent": [], "change": []})[turn].append(values["ms"])
     print(json.dumps({"compare_ms": {
         case: {turn: {"runs": runs, "median": statistics.median(runs)}
-               for turn, runs in by_turn.items()}
+               for turn, runs in by_turn.items() if runs}  # a case one tree lacks
         for case, by_turn in times.items()}}))
     return 0
 

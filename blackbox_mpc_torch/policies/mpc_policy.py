@@ -9,10 +9,12 @@ Rollout backends:
 * ``"eager"`` (default; JAX's ``"xla"``, accepted as its alias): the eager PyTorch
   evaluator (:mod:`blackbox_mpc_torch.rollout.evaluator`), any dynamics, among them the PETS
   propagations ``ts_inf``/``mm`` with ``num_particles`` and pessimistic planning
-  (``plan_uncertainty_penalty``), which the kernel backends refuse as JAX's do;
+  (``plan_uncertainty_penalty``), which the kernel backends refuse as JAX's do, but for
+  ``ts_inf`` on ``"kernel"``;
 * ``"kernel"`` (JAX's ``"pallas"``, accepted as its alias): the hand-written CUDA rollout
   kernel (:mod:`blackbox_mpc_torch.ops.rollout_kernel`), learned MLP dynamics with mean/ts1
-  propagation;
+  propagation, and PETS' ``ts_inf`` in float32 (beyond JAX's kernels), whose rollout noise is
+  drawn as the eager path draws it;
 * ``"fused"`` (alias ``"fused_cem"``): the generate-in-kernel solver family
   (:mod:`blackbox_mpc_torch.ops.fused_cem`), whose CUDA kernels draw the candidates, roll them
   out and reduce the weighted moments without storing the candidate tensor. Learned MLP
@@ -21,8 +23,9 @@ Rollout backends:
   and no smoothness penalty.
 
 * ``"auto"``: the measured rule of :mod:`blackbox_mpc_torch.ops.backend_select`, resolved
-  for each solver (again at ``switch_solver``): ``"kernel"`` for learned mean/ts1 MLPs within
-  the regime measured on the H100, ``"fused"`` for a fused-family population whose candidate
+  for each solver (again at ``switch_solver``): ``"kernel"`` for learned mean/ts1/ts_inf MLPs
+  within the regime measured on the H100, ``"fused"`` for a fused-family population whose
+  candidate
   tensor is beyond the capacity threshold, ``"eager"`` otherwise and on any device but
   ``cuda``.
 
@@ -202,11 +205,12 @@ class MPCPolicy(ModelBasedPolicy):
                 "plan_uncertainty_penalty (the kernels roll out penalty-free dynamics); "
                 "use the 'eager' backend"
             )
-        if kernel_backend and self._stochastic:
+        if self._stochastic and (rollout_backend == "fused" or (
+                rollout_backend == "kernel" and dyn_cfg.propagation != "ts_inf")):
             raise ValueError(
                 f"rollout_backend={rollout_backend!r} does not support propagation="
-                f"{dyn_cfg.propagation!r} (the fused kernels are deterministic); use the "
-                "'eager' backend"
+                f"{dyn_cfg.propagation!r} (the fused kernels are deterministic, and the "
+                "rollout kernel samples ts_inf only); use the 'eager' backend"
             )
         if rollout_backend == "kernel" and mesh is not None:
             raise ValueError(
@@ -260,8 +264,8 @@ class MPCPolicy(ModelBasedPolicy):
         from blackbox_mpc_torch.ops.backend_select import choose_backend
 
         handler = self._handler
-        if self._stochastic or self._penalized:
-            resolved = "eager"  # sampled propagation and the penalty run on eager only
+        if self._penalized:
+            resolved = "eager"  # the penalty runs on eager only
         else:
             resolved = choose_backend(
                 None if handler.is_true_model else handler.config,
@@ -397,16 +401,25 @@ class MPCPolicy(ModelBasedPolicy):
 
         return evaluate
 
+    def _draw_rollout_noise(self, horizon: int, rows: int) -> torch.Tensor:
+        """One evaluation's rollout noise of stochastic dynamics, ``[H, rows, S]``, from the
+        solve's noise generator set back to the solve's start (common random numbers)."""
+        generator, start = self._noise_start
+        generator.set_state(start)
+        return rollout_noise(generator, (horizon, rows, self._handler.config.dim_s),
+                             self._device)
+
     def _backend_evaluate(self, time_major: bool, backend: str, params):
         """``_make_evaluate``'s evaluation on ``backend``: the rollout kernel's, or the eager
-        evaluator's (sharded over the mesh, drawing the rollout noise of stochastic
-        dynamics). The eager evaluator of the policy's own parameters on one device, without
+        evaluator's (sharded over the mesh); either draws the rollout noise of stochastic
+        dynamics. The eager evaluator of the policy's own parameters on one device, without
         ``remat``, replays CUDA graphs (``self._rollout_graphs``); one of other parameters
         (the program ``deploy/export.py`` traces) stays eager."""
         handler, reward_fn, device = self._handler, self._reward_fn, self._device
         own = params is None
         if own:
             params = lambda: handler.dynamics_params  # noqa: E731
+        num_particles = handler.config.num_particles if self._stochastic else 1
         if backend == "kernel":
             from blackbox_mpc_torch.ops.rollout_kernel import make_rollout_kernel_evaluator
             from blackbox_mpc_torch.rollout.evaluator import action_smoothness_penalty
@@ -417,7 +430,11 @@ class MPCPolicy(ModelBasedPolicy):
             weight, discount = self._smoothness, self._discount
 
             def evaluate(obs, actions):
-                rewards = kernel_evaluate(params(), obs, actions)
+                noise = None
+                if self._stochastic:
+                    noise = self._draw_rollout_noise(
+                        actions.shape[2], actions.shape[0] * num_particles * obs.shape[0])
+                rewards = kernel_evaluate(params(), obs, actions, noise)
                 if weight > 0:
                     rewards = rewards - action_smoothness_penalty(actions, weight, discount)
                 return rewards
@@ -426,7 +443,6 @@ class MPCPolicy(ModelBasedPolicy):
 
         dynamics_fn = (handler.penalized_dynamics_fn if self._penalized
                        else handler.dynamics_fn)
-        num_particles = handler.config.num_particles if self._stochastic else 1
         options = dict(discount=self._discount, num_particles=num_particles,
                        action_smoothness_weight=self._smoothness,
                        dynamics_returns_penalty=self._penalized, time_major=time_major,
@@ -456,15 +472,11 @@ class MPCPolicy(ModelBasedPolicy):
             return valued_evaluate
         if not self._stochastic:
             return evaluate
-        dim_s = handler.config.dim_s
         h_axis, p_axis = (0, 1) if time_major else (2, 0)
 
         def stochastic_evaluate(obs, actions):
-            generator, start = self._noise_start
-            generator.set_state(start)  # common random numbers within one solve
             rows = actions.shape[p_axis] * num_particles * obs.shape[0]
-            return evaluate(obs, actions, rollout_noise(
-                generator, (actions.shape[h_axis], rows, dim_s), device))
+            return evaluate(obs, actions, self._draw_rollout_noise(actions.shape[h_axis], rows))
 
         return stochastic_evaluate
 

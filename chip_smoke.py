@@ -9,7 +9,10 @@ It imports nothing of JAX and nothing of the JAX package. Phases, each fatal on 
    S=17, U=6, seeded random weights, non-trivial normalizer stats), each kernel against its
    plain PyTorch version on the same inputs, with the times of both and the analytic bound:
    - the rollout kernel (K2 with K1 inside) for mean/f32, mean/bf16 and ts1/f32: the whole
-     visited-state tensor [H, rows, S] and the rewards summed from it;
+     visited-state tensor [H, rows, S] and the rewards summed from it; and its ts_inf
+     instantiation at the PETS cell's shape instead (``ops/measure.py::pets_launch``: a
+     5-member 4x200 swish Gaussian ensemble, S=18, U=6, learned bounds, 10 000 particle rows
+     in member-major blocks, H=30, the noise an input), within the same 1e-4;
    - the fused sample + rollout kernel (K4, with the counter RNG K3) for mean/f32, mean/bf16
      and ts1/f32 (logical tile 128, so 8 tiles for 5 members), and its streamed form (K5)
      for mean/f32: the drawn actions, the visited states and the rewards;
@@ -63,17 +66,20 @@ It imports nothing of JAX and nothing of the JAX package. Phases, each fatal on 
    at the next refinement. Printed with the card's name and power limit: ``act()`` p50/p95,
    seconds per ``train()``, ms per epoch, seconds per refinement, and the idle share of one
    traced ``act()`` on the trained model.
-7. PETS on ``"eager"`` (no kernel: the JAX package refuses its kernels for Gaussian heads,
-   sampled propagation and the penalty, and so does the port). Part A, the planning step at the
-   configuration of ``benchmarks/ckpt_tsinf_p20_lvb`` (S=18, U=6, 3x256 tanh, E=5, learned
+7. PETS on ``"eager"`` (the JAX package refuses its kernels for Gaussian heads, sampled
+   propagation and the penalty, and so does the port, but for ts_inf on ``"kernel"``). Part
+   A, the planning step at the configuration of ``benchmarks/ckpt_tsinf_p20_lvb`` (S=18, U=6, 3x256 tanh, E=5, learned
    bounds, 20 particles; seeded weights, made-up stats and bounds) with the committed run's
    CEM (population 510, 50 elites, 5 iterations, H=15, two agents: 20 400 rows a step), with
    the cheetah reward: ``act()`` with ``ts_inf``, ``mm``, ``mean`` (the configuration of
    ``ckpt_gradient_bc_300``), ``mean`` with ``plan_uncertainty_penalty=1.0`` and ``ts1``.
-   Gates: ``"kernel"`` and ``"fused"`` raise ``ValueError`` on each; the actions are finite and
-   in bounds; no kernel launches; one traced ``act()`` waits for the card at most twice (ts1
-   and ts_inf are traced again with the member permutation made from numpy at every step, as
-   before it was cached); one ts_inf rollout of the 20 400 rows on the card against the CPU
+   Gates: ``"fused"`` raises ``ValueError`` on each, ``"kernel"`` on each but ``ts_inf``,
+   which it takes; the actions are finite and in bounds; no kernel launches; one traced
+   ``act()`` waits for the card at most twice (ts1 and ts_inf are traced again with the member
+   permutation made from numpy at every step, as before it was cached); the PETS cell's
+   controller (phase 3's ts_inf net, 500 candidates x 20 particles, H=30) on ``"auto"``, which
+   picks ``"kernel"``: 5 K2 launches an ``act()`` and no other kernel, at most two waits in
+   a traced ``act()``; one ts_inf rollout of the 20 400 rows on the card against the CPU
    with the same weights and noise, 1e-4 of max(1, max|cpu|). Part B, the loop of phase 6 on
    the pendulum with that ensemble (ts_inf, 20 particles, learned bounds) and Part A's CEM:
    no kernel launches, the final validation NLL below the random model's, the calibration
@@ -201,7 +207,8 @@ Before the kernels line, ``{"phase_seconds": {...}}`` gives the wall seconds of 
 and part (``"9C"`` and ``"9D"`` overlap, as do ``"11A"`` and ``"11B"``; ``"10B"`` holds Parts
 B-D at two ranks) and of the whole run (``"total"``). The line before the last two is
 ``{"kernels": [...]}`` (each kernel's launches on phase 5's main path, and ``launches_by_path``
-on every path that runs it); then the card's name and power limit; the last line is
+on every path that runs it; ``rollout_states`` also gives its ``ts_inf`` case of phase 3);
+then the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -326,7 +333,7 @@ def mlp_work(config, rows: int, horizon: int, members: int) -> tuple[float, floa
     """(FLOPs of the MLP over all rows and steps, bytes of its weights, biases and stats)."""
     import torch
 
-    sizes = [config.dim_s + config.dim_u, *config.hidden, config.dim_s]
+    sizes = [config.dim_s + config.dim_u, *config.hidden, config.mlp.out_dim]
     macs = sum(a * b for a, b in zip(sizes[:-1], sizes[1:]))
     itemsize = torch.tensor([], dtype=config.compute_dtype).element_size()
     weight_bytes = (config.ensemble_size * (macs * itemsize + 4 * sum(sizes[1:]))
@@ -348,10 +355,11 @@ def dtype_name(config) -> str:
 
 
 def bound(config, rows: int, horizon: int, members: int) -> tuple[float, str]:
-    """K2: actions and s0 in, weights in, states out; the MLP's FLOPs."""
+    """K2: actions, s0 and ts_inf's noise in, weights in, states out; the MLP's FLOPs."""
     flops, weight_bytes = mlp_work(config, rows, horizon, members)
+    sampled = config.propagation == "ts_inf"
     bytes_moved = (4 * horizon * rows * config.dim_u + 4 * rows * config.dim_s + weight_bytes
-                   + 4 * horizon * rows * config.dim_s)
+                   + 4 * horizon * rows * config.dim_s * (2 if sampled else 1))
     return least_ms(flops, bytes_moved, dtype_name(config))
 
 
@@ -439,28 +447,36 @@ def pad_rows(x, rows: int, dim: int):
 def kernel_vs_plain(device, propagation: str, dtype: str, rows: int = ROWS, inputs=None,
                     label: str = "") -> dict:
     """K2 against its plain version on ``inputs`` (``actions [H, rows, U]``, ``s0 [rows, S]``
-    on the card), or on uniform actions and normal states made from a seed."""
+    on the card), or on uniform actions and normal states made from a seed. ``"ts_inf"``:
+    PETS' net and launch (``ops/measure.py::pets_launch``: 10 000 particle rows in member-major
+    blocks, H=30, the noise an input)."""
     import numpy as np
     import torch
 
     from blackbox_mpc_torch.models.dynamics import LearnedDynamicsConfig
     from blackbox_mpc_torch.ops import rollout_kernel as rk
 
-    config = LearnedDynamicsConfig(**FLAGSHIP, propagation=propagation,
-                                   compute_dtype=getattr(torch, dtype))
-    ops = rk.make_operands(flagship_params(config, device), config)
-    if inputs is None:
-        g = np.random.default_rng(2)
-        acts = torch.as_tensor(g.uniform(-1, 1, (HORIZON, rows, config.dim_u)),
-                               dtype=torch.float32, device=device)
-        s0 = torch.as_tensor(g.normal(0, 1, (rows, config.dim_s)), dtype=torch.float32,
-                             device=device)
+    horizon, member, noise = HORIZON, None, None
+    if propagation == "ts_inf":
+        from blackbox_mpc_torch.ops.measure import PETS_HORIZON, pets_launch
+
+        config, _, (_, ops, acts, s0, member, noise) = pets_launch(rk, device)
+        horizon, rows, members = PETS_HORIZON, s0.shape[0], 1
     else:
-        acts, s0 = inputs
-        rows = s0.shape[0]
-    member = None
-    members = config.ensemble_size
-    tile = rk.tile_rows(propagation == "ts1")
+        config = LearnedDynamicsConfig(**FLAGSHIP, propagation=propagation,
+                                       compute_dtype=getattr(torch, dtype))
+        ops = rk.make_operands(flagship_params(config, device), config)
+        members = config.ensemble_size
+        if inputs is None:
+            g = np.random.default_rng(2)
+            acts = torch.as_tensor(g.uniform(-1, 1, (HORIZON, rows, config.dim_u)),
+                                   dtype=torch.float32, device=device)
+            s0 = torch.as_tensor(g.normal(0, 1, (rows, config.dim_s)), dtype=torch.float32,
+                                 device=device)
+        else:
+            acts, s0 = inputs
+            rows = s0.shape[0]
+    tile = rk.tile_rows(propagation in ("ts1", "ts_inf"), propagation == "ts_inf")
     if propagation == "ts1":
         # rows / E rows per member: whole tiles, so the member-major blocks need no padding.
         if rows % (config.ensemble_size * tile):
@@ -472,10 +488,10 @@ def kernel_vs_plain(device, propagation: str, dtype: str, rows: int = ROWS, inpu
     acts_pad, s0_pad = pad_rows(acts, rows_pad, 1), pad_rows(s0, rows_pad, 0)
 
     def kernel():
-        return rk.rollout_states(config, ops, acts_pad, s0_pad, member)
+        return rk.rollout_states(config, ops, acts_pad, s0_pad, member, noise)
 
     def plain():
-        return rk.rollout_states_plain(config, ops, acts, s0, member)
+        return rk.rollout_states_plain(config, ops, acts, s0, member, noise)
 
     states, ref_states = kernel()[:, :rows], plain()
     torch.cuda.synchronize()
@@ -486,7 +502,7 @@ def kernel_vs_plain(device, propagation: str, dtype: str, rows: int = ROWS, inpu
     scale = max(1.0, float(ref.abs().max()))
     state_err = float((states - ref_states).abs().max())
     state_scale = max(1.0, float(ref_states.abs().max()))
-    bound_ms, bound_by = bound(config, rows, HORIZON, members)
+    bound_ms, bound_by = bound(config, rows, horizon, members)
     res = {
         "case": f"{propagation}/{dtype}" + ("" if rows == ROWS else f" rows={rows}") + label,
         "rows": rows, "rows_launched": rows_pad, **rk.kernel_occupancy(config, rows_pad),
@@ -1625,9 +1641,9 @@ def uncached_member_permutation():
 
 def pets_act(device, label: str, steps: int = STEPS) -> dict:
     """``steps`` closed-loop ``act()`` calls on ``"eager"`` after a warm-up; the kernel
-    backends must refuse the configuration, no kernel may launch, every evaluation after the
-    warm-up's first must replay its CUDA graph, and one traced ``act()`` may wait for the card
-    at most MAX_SYNCS times."""
+    backends must refuse the configuration (``"kernel"`` takes ts_inf), no kernel may launch,
+    every evaluation after the warm-up's first must replay its CUDA graph, and one traced
+    ``act()`` may wait for the card at most MAX_SYNCS times."""
     import numpy as np
 
     from blackbox_mpc_torch import DynamicsHandler, LearnedDynamicsConfig, MPCPolicy
@@ -1644,6 +1660,12 @@ def pets_act(device, label: str, steps: int = STEPS) -> dict:
 
     refusals = {}
     for backend in ("kernel", "fused"):
+        if backend == "kernel" and config.propagation == "ts_inf":
+            # the rollout kernel samples ts_inf: pets_kernel_act drives it at the PETS cell's
+            # shape, where "auto" picks it (here it takes 20 400 rows, beyond KERNEL_MAX_ROWS)
+            if policy(backend).rollout_backend != "kernel":
+                raise AssertionError(f"PETS {label}: rollout_backend='kernel' not taken")
+            continue
         try:
             policy(backend)
         except ValueError as err:
@@ -1676,6 +1698,47 @@ def pets_act(device, label: str, steps: int = STEPS) -> dict:
     gate_waits(trace, f"PETS {label}")
     res.update(stream_syncs=trace["stream_syncs"], device_idle_share=trace["device_idle_share"],
                traced_act_window_us=trace["act_window_us"], device_ops=trace["device_ops"])
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def pets_kernel_act(device, steps: int = STEPS) -> dict:
+    """The PETS cell's controller (``ops/measure.py``'s ``PETS`` net and ``pets_params``: 500
+    candidates x 20 particles, H=30, CEM with 50 elites and ITERS iterations) on ``"auto"``,
+    which must pick ``"kernel"``: ``steps`` closed-loop ``act()`` calls after a warm-up launch
+    K2's ts_inf instantiation once per iteration and no other kernel (the counts set to 0 just
+    before), and one traced ``act()`` waits for the card at most MAX_SYNCS times."""
+    import numpy as np
+
+    from blackbox_mpc_torch import DynamicsHandler, LearnedDynamicsConfig, MPCPolicy
+    from blackbox_mpc_torch.core.spaces import BoxSpace
+    from blackbox_mpc_torch.ops.measure import PETS, PETS_HORIZON, PETS_POPULATION, pets_params
+
+    label = "PETS ts_inf, auto"
+    config = LearnedDynamicsConfig(**PETS)
+    handler = DynamicsHandler(config, seed=0, device=device)
+    handler.set_params(pets_params(config, device))
+    policy = MPCPolicy(BoxSpace.of(-1.0, 1.0, dim=config.dim_u), cheetah_reward, handler,
+                       planning_horizon=PETS_HORIZON, population=PETS_POPULATION, num_elite=50,
+                       max_iterations=ITERS, alpha=0.1, rollout_backend="auto", seed=0,
+                       device=device)
+    if policy.rollout_backend != "kernel":
+        raise AssertionError(f"{label}: resolved to {policy.rollout_backend!r}, not 'kernel'")
+    obs = np.zeros(config.dim_s, np.float32)
+    policy.act(obs)  # warm-up
+    times, launches, plain_calls, (_, obs, _) = timed_acts(policy, obs, steps, label)
+    expected = {name: steps * BACKEND_KERNELS["kernel"].get(name, 0) for name in launches}
+    if launches != expected or any(plain_calls.values()):
+        raise AssertionError(f"{label}: kernel launches {launches}, expected {expected}; "
+                             f"plain RNG on CUDA {plain_calls}")
+    trace = trace_act(policy, obs, label)
+    gate_waits(trace, label)
+    res = {"pets": label, "card": nvidia_smi(),
+           "rows_per_step": PETS_POPULATION * config.num_particles, "act_ms": times,
+           "act_ms_median": float(np.median(times)), "launches": launches,
+           "launches_per_act": launches["rollout_states"] / steps,
+           "stream_syncs": trace["stream_syncs"], "device_idle_share": trace["device_idle_share"],
+           "device_ops": trace["device_ops"]}
     print(json.dumps(res), flush=True)
     return res
 
@@ -3977,7 +4040,8 @@ def main() -> int:
 
     with phase_timer("3"):
         cases = [kernel_vs_plain(device, p, d)
-                 for p, d in (("mean", "float32"), ("mean", "bfloat16"), ("ts1", "float32"))]
+                 for p, d in (("mean", "float32"), ("mean", "bfloat16"), ("ts1", "float32"),
+                              ("ts_inf", "float32"))]
         fused = [fused_vs_plain(device, p, d)
                  for p, d in (("mean", "float32"), ("mean", "bfloat16"), ("ts1", "float32"))]
         streamed = fused_vs_plain(device, "mean", "float32", streamed=True)
@@ -4006,6 +4070,7 @@ def main() -> int:
         mbrl = {backend: mbrl_loop(device, backend) for backend in ("kernel", "fused")}
     with phase_timer("7A"):
         pets = {label: pets_act(device, label) for label in PETS_DRIVES}
+        pets_kernel = pets_kernel_act(device)
         pets_rollout_card_vs_cpu(device)
     with phase_timer("7B"):
         pets_trained = pets_loop(device)["handler"]
@@ -4054,6 +4119,7 @@ def main() -> int:
              "fused iCEM act()": family["fused iCEM"]["launches"],
              "auto -> kernel act()": ninth["auto"]["auto_kernel_launches"],
              "auto -> fused act()": ninth["auto"]["auto_fused_launches"],
+             "auto -> kernel PETS ts_inf act()": pets_kernel["launches"],
              "device episode, fused CEM": ninth["episodes"]["fused CEM, flagship model"][
                  "launches"],
              "sharded fused CEM act() (1-rank NCCL)": tenth["part_a"]["CEM"]["launches"],
@@ -4075,6 +4141,9 @@ def main() -> int:
         ("elite_moments", "fused_cem.cu", "pallas_cem.py:485", fused_run, moments[0]),
         ("draw_rows", "fused_cem.cu", "pallas_cem.py:168", family["fused iCEM"], draws),
     ]
+    # K2's ts_inf instantiation at PETS' shape, beside its mean/f32 case.
+    ts_inf = {key: cases[3][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                             "bound_by", "rows")}
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -4088,6 +4157,7 @@ def main() -> int:
         "bound_by": case["bound_by"],
         "library_ms": None,
         **({"host_ms": case["host_ms"]} if "host_ms" in case else {}),
+        **({"ts_inf": ts_inf} if name == "rollout_states" else {}),
         "launches_by_path": {path: counts[name] for path, counts in paths.items()
                              if counts.get(name)},
     } for name, source, replaces, run, case in entries]}))

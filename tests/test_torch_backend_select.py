@@ -76,30 +76,65 @@ def open_regimes(monkeypatch):
     monkeypatch.setattr(tsel, "FUSED_MIN_BYTES", 0)
 
 
+def answers(kind, act, dtype, name, tm, pop):
+    """(JAX's answer, the port's) at one grid point."""
+    jcfg, tcfg = configs(kind, act, dtype)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        want = jsel.choose_backend(jcfg, pop, 1,
+                                   platform="tpu", horizon=H, dim_u=U, solver_name=name,
+                                   solver_config=solver_config(J_REGISTRY, name, 16, tm))
+        got = tsel.choose_backend(tcfg, pop, 1,
+                                  platform="cuda", horizon=H, dim_u=U, solver_name=name,
+                                  solver_config=solver_config(SOLVER_REGISTRY, name, 16, tm))
+    return want, got
+
+
+def port_kernels_only(kind):
+    """The port's departure from JAX's gates: its rollout kernel (K2) samples PETS' ts_inf on a
+    probabilistic head, with swish layers too, which JAX's Pallas kernels refuse."""
+    return kind == (True, "ts_inf")
+
+
 @pytest.mark.parametrize("kernel_regime", [True, False])
 def test_jax_gates_route_port_to_eager(open_regimes, monkeypatch, kernel_regime):
     """On every grid point where JAX's ``choose_backend(platform="tpu")`` answers "xla", the
     port's ``choose_backend(platform="cuda")`` answers "eager": the true model, probabilistic
-    heads, propagation, activation, time_major and the counter range (2**30 rows x H*U)."""
+    heads, propagation, activation, time_major and the counter range (2**30 rows x H*U).
+    Excluded are exactly the points that the port's own gates send to a kernel
+    (:func:`port_kernels_only`; what they answer is checked in
+    ``test_port_sends_ts_inf_to_the_kernel``)."""
     if not kernel_regime:  # the counter-range gate shows when only the fused regime is open
         monkeypatch.setattr(jsel, "PALLAS_MAX_WIDTH", 0)
         monkeypatch.setattr(tsel, "KERNEL_MAX_WIDTH", 0)
     gated = 0
     for kind, act, dtype, name, tm, pop in GRID:
-        jcfg, tcfg = configs(kind, act, dtype)
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", RuntimeWarning)
-            want = jsel.choose_backend(jcfg, pop, 1,
-                                       platform="tpu", horizon=H, dim_u=U, solver_name=name,
-                                       solver_config=solver_config(J_REGISTRY, name, 16, tm))
-            got = tsel.choose_backend(tcfg, pop, 1,
-                                      platform="cuda", horizon=H, dim_u=U, solver_name=name,
-                                      solver_config=solver_config(SOLVER_REGISTRY, name, 16, tm))
+        want, got = answers(kind, act, dtype, name, tm, pop)
         assert got in ("eager", "kernel", "fused")
-        if want == "xla":
+        if want == "xla" and not (port_kernels_only(kind) and got != "eager"):
             gated += 1
             assert got == "eager", (kind, act, dtype, name, tm, pop, got)
     assert gated > len(GRID) // 2  # the grid reaches every gate
+
+
+@pytest.mark.parametrize("kernel_regime", [True, False])
+def test_port_sends_ts_inf_to_the_kernel(open_regimes, monkeypatch, kernel_regime):
+    """The grid points that the JAX test above excludes: a probabilistic ts_inf net goes to
+    "kernel" in float32 on one device, with the candidate layout [P, A, H, U], a zeroth-order
+    solver and particle rows within ``KERNEL_MAX_ROWS``, and never to "fused" (its kernels
+    are deterministic)."""
+    if not kernel_regime:
+        monkeypatch.setattr(tsel, "KERNEL_MAX_WIDTH", 0)
+    kernels = 0
+    for kind, act, dtype, name, tm, pop in GRID:
+        if not port_kernels_only(kind):
+            continue
+        got = answers(kind, act, dtype, name, tm, pop)[1]
+        want = "kernel" if (kernel_regime and dtype == "float32" and not tm
+                            and name not in ("Gradient", "CEM-GD")) else "eager"
+        assert got == want, (kind, act, dtype, name, tm, pop, got)
+        kernels += got != "eager"
+    assert (kernels > 0) == kernel_regime
 
 
 def test_port_only_gates():

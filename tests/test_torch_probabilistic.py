@@ -644,8 +644,15 @@ def test_rollout_noise_leaves_the_solver_draws():
     (dict(plan_uncertainty_penalty=1.0), "plan_uncertainty_penalty"),
     (dict(propagation="mean"), "deterministic heads only")])
 def test_kernel_backends_refuse_pets_configs(changes, match):
+    """Both kernel backends refuse mm, the penalty and a probabilistic head with mean
+    propagation; ts_inf is refused by "fused" and taken by "kernel" (K2 samples it)."""
     th = DynamicsHandler(configs(**changes)[1], device="cpu")
     for backend in ("kernel", "fused"):
+        if backend == "kernel" and changes == dict(propagation="ts_inf"):
+            policy = MPCPolicy(BoxSpace.of(-1.0, 1.0, dim=U), t_reward, th,
+                               rollout_backend=backend, device="cpu", **SOLVER)
+            assert policy.rollout_backend == "kernel"
+            continue
         with pytest.raises(ValueError, match=match):
             MPCPolicy(BoxSpace.of(-1.0, 1.0, dim=U), t_reward, th, rollout_backend=backend,
                       device="cpu", **SOLVER)
