@@ -1,52 +1,73 @@
-"""The measured rule behind ``MPCPolicy(rollout_backend="auto")``.
+"""Which rollout backend may run a solve, and the measured rule behind
+``MPCPolicy(rollout_backend="auto")``: the one account of both.
 
-Counterpart of ``blackbox_mpc_tpu/ops/backend_select.py``, with its structure: the gates of
-:func:`~blackbox_mpc_torch.ops._kernel_common.check_kernel_support` and of the policy, then
-two measured regimes, each set by constants that a re-measurement on other hardware changes
-without touching the code.
+The backends (``MPCPolicy``'s ``rollout_backend``; the JAX package's names are aliases):
 
-* ``"kernel"`` (K2 on the eager sampler: the same sampling law as ``"eager"``) for learned
-  MLPs up to ``KERNEL_MAX_WIDTH`` wide and ``KERNEL_MAX_ROWS`` candidate rows. These are the
-  JAX package's ``PALLAS_MAX_WIDTH``/``PALLAS_MAX_ROWS``, which are 0 there: on its TPU the
-  XLA path won every shape that fits in memory. On the H100 the CUDA kernel wins: ``act()``
-  at H=50 over populations 100-10 000 and hidden widths (64, 64) and (500, 500, 500),
-  ``chip_smoke.py`` phase 9 Part A (PERF.md section 5 has the table and the card). PETS'
-  TS-infinity (a probabilistic head with ``propagation="ts_inf"``, which JAX sends to XLA)
-  takes the kernel too, its rows counted as particle rows (population x particles x agents)
-  against the same limit: at PETS' shape the kernel beat the graphed eager path through
-  10 000 particle rows (the measurement is beside ``KERNEL_MAX_ROWS``). Its layers may be no
-  wider than ``KERNEL_TS_INF_MAX_WIDTH``, the widest measured.
-* ``"fused"`` (the generate-in-kernel family: CEM, PI2, MPPI, RandomSearch, CMA-ES with
-  ``diagonal=True``) only for capacity, as in JAX: when the candidate tensor ``[P, A, H, U]``
-  reaches ``FUSED_MIN_BYTES``, which the other two paths materialize. The fused family clips
+* ``"eager"`` (JAX's ``"xla"``): the eager PyTorch evaluator (``rollout/evaluator.py``),
+  replayed as CUDA graphs on the card, sharded over a ``mesh`` (``shard_axis`` ``"population"``
+  or ``"agents"``). It runs everything: true models, PETS' probabilistic heads with ``ts_inf``
+  and ``mm`` propagation, pessimistic planning (``plan_uncertainty_penalty``), the first-order
+  solvers (Gradient, CEM-GD: they differentiate through the rollout) and the time-major
+  layout. A latent world model (``models/latent.py``, TD-MPC2's) plans here on one device
+  only: the sharded evaluator has no terminal value.
+* ``"kernel"`` (JAX's ``"pallas"``): the hand-written CUDA rollout kernel K2
+  (``ops/rollout_kernel.py``) under the eager sampler, so its sampling law is eager's.
+  Learned MLP ensembles with mean/ts1 propagation, and PETS' ``ts_inf`` (a Gaussian head
+  sampled at every step, with swish layers too, in float32; the policy draws the noise as
+  eager does). Not: true or latent models, ``mm``, the penalty, a mesh (K2 is single-device),
+  the first-order solvers (K2 has no backward), the time-major layout.
+* ``"fused"`` (alias ``"fused_cem"``): the generate-in-kernel solver family
+  (``ops/fused_cem.py``, over a mesh ``ops/fused_sharded.py``): CEM (with the iCEM options),
+  PI2, MPPI, RandomSearch and CMA-ES with ``diagonal=True``. Its kernels draw, roll out and
+  reduce the candidates without storing them, deterministically, and sum undiscounted
+  rewards: learned MLP ensembles with mean/ts1 propagation, ``discount=1.0``, no smoothness
+  cost, a mesh only over the population axis, the layout ``[P, A, H, U]``.
+
+Each refusal is written once, as a rule of :data:`_RULES` (a predicate on the solve and its
+message, in the order they are checked); :func:`resolve_backend` raises the first rule of the
+requested backend that fires, and :func:`choose_backend` reads the same rules. The kernels'
+own input guard (:func:`~blackbox_mpc_torch.ops._kernel_common.check_kernel_support`:
+activation, dtype, head, propagation) is checked where they are built, and by "auto".
+
+``"auto"`` (resolved per solver, again at ``switch_solver``) is the counterpart of
+``blackbox_mpc_tpu/ops/backend_select.py``, with its structure: the gates, then two measured
+regimes, each set by constants that a re-measurement on other hardware changes without
+touching the code. Off ``cuda`` it is ``"eager"`` (the kernels are CUDA).
+
+* ``"kernel"`` for learned MLPs up to ``KERNEL_MAX_WIDTH`` wide and ``KERNEL_MAX_ROWS``
+  candidate rows. These are the JAX package's ``PALLAS_MAX_WIDTH``/``PALLAS_MAX_ROWS``, which
+  are 0 there: on its TPU the XLA path won every shape that fits in memory. On the H100 the
+  CUDA kernel wins: ``act()`` at H=50 over populations 100-10 000 and hidden widths (64, 64)
+  and (500, 500, 500), ``chip_smoke.py`` phase 9 Part A (PERF.md section 5 has the table and
+  the card). ``ts_inf`` (which JAX sends to XLA) counts its rows as particle rows (population
+  x particles x agents) against the same limit: at PETS' shape the kernel beat the graphed
+  eager path through 10 000 particle rows (the measurement is beside ``KERNEL_MAX_ROWS``). Its
+  layers may be no wider than ``KERNEL_TS_INF_MAX_WIDTH``, the widest measured. The kernel
+  evaluator's member-major blocks (ts1, ts_inf) need rows that the ensemble divides.
+* ``"fused"`` only for capacity, as in JAX: when the candidate tensor ``[P, A, H, U]`` reaches
+  ``FUSED_MIN_BYTES``, which the other two paths materialize, within the in-kernel RNG's
+  counter range and, for ts1, with a logical tile for every member. The fused family clips
   its normals at +/-2 sigma where the other two paths draw the truncated normal
   (``core/types.py::truncated_normal``), so it is not picked for speed. The capacity test
-  comes first here: the ``"kernel"`` path materializes the candidates as eager does, so a
+  comes first: the ``"kernel"`` path materializes the candidates as eager does, so a
   population beyond memory cannot run there either (JAX tests its kernel regime first, which
-  it never enables).
+  it never enables). ``ts_inf`` never goes to ``"fused"``: past the threshold it stays on
+  ``"kernel"`` or ``"eager"`` by the kernel regime.
 
-Everything else is ``"eager"``: a device other than ``cuda`` (the kernels are CUDA, so a CPU
-policy asked for ``auto`` is an eager policy), true models, latent world models
-(``models/latent.py``: K2 and K4 compute only the MLP ensemble, and TD-MPC2's layers are past
-``KERNEL_MAX_WIDTH``), probabilistic heads but ts_inf's, ``mm`` and propagation other than
-mean/ts1/ts_inf with an ensemble, pessimistic planning (``plan_uncertainty_penalty``), an
-activation or dtype the kernels refuse (swish runs in ts_inf's kernel only), the first-order
-solvers (the kernels have no backward) and the time-major layout. ts_inf never goes to
-``"fused"``, whose kernels are deterministic: past its capacity threshold it stays on
-"kernel" or "eager" by the kernel regime.
-
-With a ``mesh`` of D devices: never ``"kernel"`` (K2 is single-device, as JAX's ``pallas``).
-The capacity threshold applies to the whole candidate tensor, where JAX divides it by D: JAX
-shards the candidates, but every rank of this port's sharded eager solve draws and holds all
-of them (``parallel/sharding.py``) and rolls out only its block, so its peak is no smaller
-than the single-device eager peak at the same population less the other blocks' rollout.
-Past the threshold, a population that D does not divide and the injected-candidate features,
-which the sharded fused solvers refuse, stay eager with a warning, as ``time_major`` does.
+Everything else is ``"eager"``. With a ``mesh`` of D devices the capacity threshold applies to
+the whole candidate tensor, where JAX divides it by D: JAX shards the candidates, but every
+rank of this port's sharded eager solve draws and holds all of them
+(``parallel/sharding.py``) and rolls out only its block, so its peak is no smaller than the
+single-device eager peak at the same population less the other blocks' rollout. Past the
+threshold, the time-major layout, a population that D does not divide and the
+injected-candidate features, which the sharded fused solvers refuse, stay eager with a
+warning. A ``"fused"`` that "auto" picks for capacity and that the policy's smoothness cost,
+discount or ``shard_axis="agents"`` refuses raises, as JAX's policy does.
 """
 from __future__ import annotations
 
 import warnings
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -80,16 +101,149 @@ KERNEL_TS_INF_MAX_WIDTH = 200
 # act() at the largest population below this constant checks it on the card.
 FUSED_MIN_BYTES = 2_350_000_000
 
-# The fused solver family by registry name (CMA-ES with diagonal=True only).
-FUSED_FAMILY = ("CEM", "PI2", "MPPI", "RandomSearch", "CMA-ES")
+# The fused solver family: registry name -> the factory of ops/fused_cem.py behind it, and of
+# ops/fused_sharded.py with a mesh ("make_sharded_" in place of "make_").
+_FUSED_FACTORIES = {
+    "CEM": "make_fused_cem",
+    "PI2": "make_fused_pi2",
+    "MPPI": "make_fused_pi2",
+    "RandomSearch": "make_fused_random_search",
+    "CMA-ES": "make_fused_sep_cma",  # requires diagonal=True (the factory checks)
+}
+FUSED_FAMILY = tuple(_FUSED_FACTORIES)
 # The solvers that differentiate through the rollout: eager only.
 _FIRST_ORDER = ("Gradient", "CEM-GD")
 # The fused CEM's logical ts1 tile (ops/fused_cem.py::make_fused_cem_kernels' default).
 _FUSED_TILE = 256
 
 
+class _Solve(NamedTuple):
+    """What the rules read of a solve. ``config``: a ``LearnedDynamicsConfig``, a
+    ``LatentModelConfig`` or None (a true model). ``requested``: the backend asked for."""
+    config: object
+    penalized: bool
+    solver_name: str
+    solver_config: object
+    mesh: object = None
+    shard_axis: str = "population"
+    discount: float = 1.0
+    smoothness: float = 0.0
+    requested: str = "auto"
+
+
+class _Rule(NamedTuple):
+    """A refusal of a backend: whether it ``refuses`` a solve, and its ``message`` (of the
+    solve and the backend)."""
+    refuses: Callable[[_Solve], bool]
+    message: Callable[[_Solve, str], str]
+
+
+def _fused_only(what: str, cure: str) -> Callable[[_Solve, str], str]:
+    """The message of a refusal that "auto" meets too, after picking "fused" for capacity."""
+    def message(s: _Solve, backend: str) -> str:
+        if s.requested != "auto":
+            return f"{what}; {cure}"
+        return ("rollout_backend='auto' selected the fused solver (a candidate tensor beyond the "
+                f"capacity threshold), but {what}; pick a smaller population or {cure}")
+    return message
+
+
+def _sampled(propagations: tuple) -> _Rule:
+    return _Rule(
+        lambda s: getattr(s.config, "propagation", None) in propagations,
+        lambda s, b: (f"rollout_backend={b!r} does not support propagation="
+                      f"{s.config.propagation!r} (the fused kernels are deterministic, and the "
+                      "rollout kernel samples ts_inf only); use the 'eager' backend"))
+
+
+_TRUE_MODEL = _Rule(lambda s: s.config is None,
+                    lambda s, b: f"rollout_backend={b!r} requires learned MLP dynamics")
+_LATENT = _Rule(
+    lambda s: isinstance(s.config, LatentModelConfig),
+    lambda s, b: ("a latent world model plans on the single-device 'eager' backend (the kernels "
+                  "roll out MLP ensembles, and the sharded evaluator has no terminal value); "
+                  f"got rollout_backend={s.requested!r}" + ("" if s.mesh is None else " with a mesh")))
+_PENALTY = _Rule(
+    lambda s: s.penalized,
+    lambda s, b: (f"rollout_backend={b!r} does not support plan_uncertainty_penalty (the "
+                  "kernels roll out penalty-free dynamics); use the 'eager' backend"))
+_TIME_MAJOR = _Rule(
+    lambda s: bool(getattr(s.solver_config, "time_major", False)),
+    lambda s, b: (f"time_major=True requires the eager evaluator; the {b!r} backend's "
+                  "candidate contract is [P, A, H, U]"))
+
+# Each backend's refusals, in the order they are checked.
+_RULES: dict[str, tuple[_Rule, ...]] = {
+    "eager": (_Rule(lambda s: s.mesh is not None and _LATENT.refuses(s), _LATENT.message),),
+    "kernel": (
+        _TRUE_MODEL, _LATENT, _PENALTY, _sampled(("mm",)),
+        _Rule(lambda s: s.mesh is not None,
+              lambda s, b: ("rollout_backend='kernel' and mesh= are mutually exclusive (the "
+                            "rollout kernel is single-device); shard on 'eager' or 'fused'")),
+        _Rule(lambda s: s.solver_name in _FIRST_ORDER,
+              lambda s, b: (f"rollout_backend='kernel' cannot back the first-order "
+                            f"{s.solver_name} solver (the rollout kernel has no VJP)")),
+        _TIME_MAJOR,
+    ),
+    "fused": (
+        _TRUE_MODEL, _LATENT, _PENALTY, _sampled(("ts_inf", "mm")),
+        _Rule(lambda s: s.mesh is not None and s.shard_axis != "population",
+              _fused_only("the sharded fused solvers shard the population axis, and "
+                          "shard_axis='agents' shards the agents",
+                          "use shard_axis='population' or the 'eager' backend")),
+        _Rule(lambda s: s.smoothness > 0,
+              _fused_only("action_smoothness_weight needs the candidate tensor, which the fused "
+                          "solvers never hold", "use the 'eager' or 'kernel' backend")),
+        _Rule(lambda s: s.discount != 1.0,
+              _fused_only("the fused solver kernels sum undiscounted rewards (discount=1.0)",
+                          "use the 'eager' or 'kernel' backend")),
+        _Rule(lambda s: s.solver_name not in _FUSED_FACTORIES,
+              lambda s, b: ("rollout_backend='fused' backs the generate-in-kernel solver "
+                            f"family {FUSED_FAMILY} (CMA-ES with diagonal=True), not "
+                            f"{s.solver_name}")),
+        _TIME_MAJOR,  # last: "auto" warns where it is all that keeps a population off "fused"
+    ),
+}
+
+
+def _refusal(backend: str, solve: _Solve) -> Optional[_Rule]:
+    """The first rule of ``backend`` that refuses ``solve``, or None."""
+    return next((rule for rule in _RULES[backend] if rule.refuses(solve)), None)
+
+
+def _kernels_run(config, rollout: bool) -> bool:
+    try:
+        check_kernel_support(config, "auto", rollout=rollout)
+    except ValueError:
+        return False
+    return True
+
+
 def _platform() -> str:
     return "cuda" if torch.cuda.is_available() else "cpu"
+
+
+def resolve_backend(requested: str, config, penalized: bool, solver_name: str, solver_config,
+                    num_agents: int, horizon: int, dim_u: int, mesh=None,
+                    shard_axis: str = "population", discount: float = 1.0,
+                    smoothness: float = 0.0, platform: Optional[str] = None) -> str:
+    """The backend that runs a solve: ``requested`` (``"eager"``, ``"kernel"``, ``"fused"``),
+    or ``"auto"``'s choice (:func:`choose_backend`). Raises ``ValueError`` with the first rule
+    of that backend that refuses the solve. ``config``: the handler's (None for a true model);
+    ``penalized``: whether it plans with ``plan_uncertainty_penalty``; ``platform``: the
+    policy's device type."""
+    backend = requested
+    if requested == "auto":
+        backend = choose_backend(
+            config, getattr(solver_config, "population", 0), num_agents, mesh=mesh,
+            platform=platform, horizon=horizon, dim_u=dim_u, solver_name=solver_name,
+            solver_config=solver_config)
+    solve = _Solve(config, penalized, solver_name, solver_config, mesh, shard_axis, discount,
+                   smoothness, requested)
+    rule = _refusal(backend, solve)
+    if rule is not None:
+        raise ValueError(rule.message(solve, backend))
+    return backend
 
 
 def choose_backend(
@@ -112,15 +266,18 @@ def choose_backend(
     """
     if platform is None:
         platform = _platform()
-    if platform != "cuda" or config is None or isinstance(config, LatentModelConfig):
+    if platform != "cuda":
         return "eager"
-    try:
-        check_kernel_support(config, "auto", rollout=True)
-    except ValueError:
+    solve = _Solve(config, getattr(config, "plan_uncertainty_penalty", 0) > 0, solver_name,
+                   solver_config, mesh)
+    fused_refusal = _refusal("fused", solve)
+    # time_major keeps a population past the capacity threshold eager with a warning (below).
+    fused_ok = (fused_refusal in (None, _TIME_MAJOR)
+                and _kernels_run(config, rollout=False)
+                and (solver_name != "CMA-ES" or getattr(solver_config, "diagonal", False)))
+    kernel_ok = _refusal("kernel", solve) is None and _kernels_run(config, rollout=True)
+    if not (fused_ok or kernel_ok):
         return "eager"
-    if solver_name in _FIRST_ORDER or config.plan_uncertainty_penalty > 0:
-        return "eager"
-    time_major = bool(getattr(solver_config, "time_major", False))
     devices = 1 if mesh is None else int(mesh.shape[POP_AXIS])
     rows = population * num_agents
     local_rows = -(-rows // devices)  # each rank's block of a sharded fused solve
@@ -133,11 +290,8 @@ def choose_backend(
     rng_cols = (((horizon // 2 + 1) * 2) * dim_u
                 if getattr(solver_config, "colored_noise_beta", 0.0) > 0.0
                 else horizon * dim_u)
-    fused_family = solver_name in FUSED_FAMILY and (
-        solver_name != "CMA-ES" or getattr(solver_config, "diagonal", False))
     if (
-        not ts_inf  # the fused kernels are deterministic
-        and fused_family
+        fused_ok
         and candidate_bytes >= FUSED_MIN_BYTES
         and local_rows * rng_cols < 2**32  # the in-kernel RNG counter range
         # ts1 gives every member at least one logical tile
@@ -145,7 +299,7 @@ def choose_backend(
     ):
         # What keeps such a population on the eager path, which will likely run out of
         # memory: honour it, but warn, as JAX does for the time-major layout.
-        if time_major:
+        if fused_refusal is _TIME_MAJOR:
             why, cure = ("time_major=True forces the eager evaluator",
                          "Drop time_major (the fused backend never materializes candidates)")
         elif population % devices:
@@ -166,8 +320,7 @@ def choose_backend(
         )
         return "eager"
     if (
-        mesh is None  # K2 is single-device
-        and not time_major  # the kernel's candidate contract is [P, A, H, U]
+        kernel_ok
         and KERNEL_MAX_WIDTH
         and max(config.hidden, default=0) <= (KERNEL_TS_INF_MAX_WIDTH if ts_inf
                                               else KERNEL_MAX_WIDTH)

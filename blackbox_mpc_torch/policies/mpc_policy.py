@@ -4,45 +4,23 @@ Counterpart of ``blackbox_mpc_tpu/policies/mpc_policy.py``. One ``act()`` runs t
 optional exploration noise and the one-step lookahead on the policy's device, and copies the
 action, predicted next observation and predicted reward to the host once.
 
-Rollout backends:
+Rollout backends (``rollout_backend``): ``"eager"`` (default; JAX's ``"xla"``), ``"kernel"``
+(JAX's ``"pallas"``), ``"fused"`` (alias ``"fused_cem"``) and ``"auto"``, which resolves for
+each solver (again at ``switch_solver``). Which backend may run which solve, and what
+``"auto"`` picks, is decided in :mod:`blackbox_mpc_torch.ops.backend_select`, whose docstring
+has the rules; the policy applies them each time it builds a solver.
 
-* ``"eager"`` (default; JAX's ``"xla"``, accepted as its alias): the eager PyTorch
-  evaluator (:mod:`blackbox_mpc_torch.rollout.evaluator`), any dynamics, among them the PETS
-  propagations ``ts_inf``/``mm`` with ``num_particles`` and pessimistic planning
-  (``plan_uncertainty_penalty``), which the kernel backends refuse as JAX's do, but for
-  ``ts_inf`` on ``"kernel"``;
-* ``"kernel"`` (JAX's ``"pallas"``, accepted as its alias): the hand-written CUDA rollout
-  kernel (:mod:`blackbox_mpc_torch.ops.rollout_kernel`), learned MLP dynamics with mean/ts1
-  propagation, and PETS' ``ts_inf`` in float32 (beyond JAX's kernels), whose rollout noise is
-  drawn as the eager path draws it;
-* ``"fused"`` (alias ``"fused_cem"``): the generate-in-kernel solver family
-  (:mod:`blackbox_mpc_torch.ops.fused_cem`), whose CUDA kernels draw the candidates, roll them
-  out and reduce the weighted moments without storing the candidate tensor. Learned MLP
-  dynamics with mean/ts1 propagation; solvers ``"CEM"`` (with the iCEM options), ``"PI2"``,
-  ``"MPPI"``, ``"RandomSearch"`` and ``"CMA-ES"`` with ``diagonal=True``; undiscounted rewards
-  and no smoothness penalty.
-
-* ``"auto"``: the measured rule of :mod:`blackbox_mpc_torch.ops.backend_select`, resolved
-  for each solver (again at ``switch_solver``): ``"kernel"`` for learned mean/ts1/ts_inf MLPs
-  within the regime measured on the H100, ``"fused"`` for a fused-family population whose
-  candidate
-  tensor is beyond the capacity threshold, ``"eager"`` otherwise and on any device but
-  ``cuda``.
-
-The first-order solvers (Gradient, CEM-GD) run on ``"eager"`` only, as in JAX: the CUDA
-rollout kernel has no backward. ``rng_impl`` has one value, None: a ``torch.Generator`` has
-one algorithm per device (Philox4x32-10 on CUDA, MT19937 on the CPU), which the policy records
-for the serving artifact.
+``rng_impl`` has one value, None: a ``torch.Generator`` has one algorithm per device
+(Philox4x32-10 on CUDA, MT19937 on the CPU), which the policy records for the serving artifact.
 ``metrics_writer`` gets ``rewards/predicted_reward`` once per ``act()``, from the host values
 ``act()`` returns.
 
 ``mesh`` (a :class:`~blackbox_mpc_torch.parallel.mesh.PopMesh`) shards the solve over its
 ranks: ``"eager"`` through the sharded evaluator (``shard_axis="population"`` splits the
 candidates, ``"agents"`` gives each rank whole agents), ``"fused"`` through the sharded fused
-solvers (population only), never ``"kernel"``. The policy runs on the mesh's device. Every rank
-builds the same policy with the same seed and acts on the same observations: the draws, the
-actions and the solver state are then the same on every rank, and every rank runs the same
-collectives in the same order.
+solvers. The policy runs on the mesh's device. Every rank builds the same policy with the same
+seed and acts on the same observations: the draws, the actions and the solver state are then
+the same on every rank, and every rank runs the same collectives in the same order.
 
 ``proposer`` (a :class:`~blackbox_mpc_torch.learning.proposer.PolicyProposer`): before every
 solve its policy net is unrolled through the posterior-mean dynamics and the plan replaces the
@@ -53,7 +31,8 @@ step's inputs instead of its activations for the backward pass; the gradients ar
 Stochastic dynamics draw their rollout noise from a generator of their own, seeded from
 ``seed``, so the solver's draws are those of a deterministic model. Every evaluation of one
 solve scores its candidates under the same noise (common random numbers: the generator is set
-back to the solve's start before each draw), and the next solve draws new noise.
+back to the solve's start before each draw), and the next solve draws new noise. Every
+backend's evaluation takes its draws from one method, ``_evaluation_draws``.
 
 On the card, the eager evaluations of a policy without a mesh or ``remat_rollout`` replay CUDA
 graphs where grad is off (:class:`~blackbox_mpc_torch.rollout.evaluator.GraphedEvaluator`,
@@ -99,15 +78,6 @@ __all__ = ["MPCPolicy", "ROLLOUT_BACKENDS"]
 ROLLOUT_BACKENDS = ("eager", "kernel", "fused", "auto")
 # The JAX package's backend names, accepted for the port's.
 BACKEND_ALIASES = {"xla": "eager", "pallas": "kernel", "fused_cem": "fused"}
-# The fused solver family, by registry name: the factory of ops/fused_cem.py behind each, and
-# of ops/fused_sharded.py with a mesh ("make_sharded_" in place of "make_").
-_FUSED_FAMILY = {
-    "CEM": "make_fused_cem",
-    "PI2": "make_fused_pi2",
-    "MPPI": "make_fused_pi2",
-    "RandomSearch": "make_fused_random_search",
-    "CMA-ES": "make_fused_sep_cma",  # requires diagonal=True (the factory checks)
-}
 
 
 def rollout_noise(generator: torch.Generator, shape, device) -> torch.Tensor:
@@ -183,60 +153,19 @@ class MPCPolicy(ModelBasedPolicy):
                 f"rollout_backend must be one of {ROLLOUT_BACKENDS} (or the JAX package's "
                 f"names {', '.join(map(repr, BACKEND_ALIASES))}), got {rollout_backend!r}"
             )
-        kernel_backend = rollout_backend in ("kernel", "fused")
-        if kernel_backend and dynamics_handler.is_true_model:
-            raise ValueError(f"rollout_backend={rollout_backend!r} requires learned MLP dynamics")
-        dyn_cfg = dynamics_handler.config
         # A latent world model encodes the observation and ends each rollout in its value.
         self._encode = getattr(dynamics_handler, "encode", None)
         self._terminal_value = getattr(dynamics_handler, "terminal_value", None)
-        if self._terminal_value is not None and (kernel_backend or mesh is not None):
-            raise ValueError(
-                "a latent world model plans on the single-device 'eager' backend (the kernels "
-                "roll out MLP ensembles, and the sharded evaluator has no terminal value); got "
-                f"rollout_backend={rollout_backend!r}"
-                + ("" if mesh is None else " with a mesh"))
+        dyn_cfg = dynamics_handler.config
         self._stochastic = (dyn_cfg is not None
                             and getattr(dyn_cfg, "propagation", None) in ("ts_inf", "mm"))
+        self._num_particles = dyn_cfg.num_particles if self._stochastic else 1
         self._penalized = dynamics_handler.penalized_dynamics_fn is not None
-        if kernel_backend and self._penalized:
-            raise ValueError(
-                f"rollout_backend={rollout_backend!r} does not support "
-                "plan_uncertainty_penalty (the kernels roll out penalty-free dynamics); "
-                "use the 'eager' backend"
-            )
-        if self._stochastic and (rollout_backend == "fused" or (
-                rollout_backend == "kernel" and dyn_cfg.propagation != "ts_inf")):
-            raise ValueError(
-                f"rollout_backend={rollout_backend!r} does not support propagation="
-                f"{dyn_cfg.propagation!r} (the fused kernels are deterministic, and the "
-                "rollout kernel samples ts_inf only); use the 'eager' backend"
-            )
-        if rollout_backend == "kernel" and mesh is not None:
-            raise ValueError(
-                "rollout_backend='kernel' and mesh= are mutually exclusive (the rollout kernel "
-                "is single-device; shard with the 'eager' backend, or use rollout_backend="
-                "'fused', whose solver family shards over the mesh)")
-        if rollout_backend == "fused" and mesh is not None and shard_axis != "population":
-            raise ValueError(
-                "the sharded fused solvers shard the population axis by construction; "
-                "shard_axis='agents' is an 'eager'-backend layout")
         # "auto" resolves per solver config in _build (it needs the population).
         self._requested_backend = rollout_backend
-        self._rollout_backend = rollout_backend
         if action_smoothness_weight < 0:
             raise ValueError(
                 f"action_smoothness_weight must be >= 0, got {action_smoothness_weight}"
-            )
-        if action_smoothness_weight > 0 and rollout_backend == "fused":
-            raise ValueError(
-                "action_smoothness_weight needs the candidate tensor; the fused CEM never "
-                "materializes it — use the 'eager' or 'kernel' backend"
-            )
-        if rollout_backend == "fused" and discount != 1.0:
-            raise ValueError(
-                "the fused solver kernels sum undiscounted rewards; discount != 1.0 would "
-                "be silently ignored — use the 'eager' or 'kernel' backend"
             )
         self._smoothness = float(action_smoothness_weight)
         self._writer = metrics_writer
@@ -257,51 +186,6 @@ class MPCPolicy(ModelBasedPolicy):
 
     # ------------------------------------------------------------------ construction
 
-    def _resolve_backend(self, solver_name: str, config) -> str:
-        """The backend of this solver: the explicit one, or ``"auto"``'s choice."""
-        if self._requested_backend != "auto":
-            return self._requested_backend
-        from blackbox_mpc_torch.ops.backend_select import choose_backend
-
-        handler = self._handler
-        if self._penalized:
-            resolved = "eager"  # the penalty runs on eager only
-        else:
-            resolved = choose_backend(
-                None if handler.is_true_model else handler.config,
-                getattr(config, "population", 0), self._num_agents,
-                mesh=self._mesh, platform=self._device.type, horizon=self._planning_horizon,
-                dim_u=self._bounds.dim, solver_name=solver_name, solver_config=config,
-            )
-        logger.info("rollout_backend auto -> %s", resolved)
-        if resolved == "fused":
-            # The fused family samples clipped (not truncated) normals: a change of sampling
-            # law where a population crosses the capacity threshold.
-            logger.info(
-                "auto-routing %s onto the fused generate-in-kernel backend: candidates are "
-                "clipped normals (+/-2 sigma), not the eager path's truncated normals",
-                solver_name)
-            if self._smoothness > 0:
-                raise ValueError(
-                    "rollout_backend='auto' selected the fused solver (a candidate tensor "
-                    "beyond the capacity threshold) but action_smoothness_weight needs the "
-                    "candidate tensor; pick a smaller population or drop the smoothness cost")
-            if self._discount != 1.0:
-                raise ValueError(
-                    "rollout_backend='auto' selected the fused solver (a candidate tensor "
-                    "beyond the capacity threshold) but the fused kernels sum undiscounted "
-                    "rewards; pick a smaller population or set discount=1.0")
-            if self._mesh is not None and self._shard_axis != "population":
-                # The fused path was picked because the candidate tensor is beyond the
-                # capacity threshold; every rank of the sharded evaluator would hold it.
-                raise ValueError(
-                    "rollout_backend='auto' selected the fused solver (a candidate tensor "
-                    f"beyond the capacity threshold) but shard_axis="
-                    f"{self._shard_axis!r} shards the agents, which the fused solvers do not; "
-                    "use shard_axis='population', a smaller population, or "
-                    "rollout_backend='eager' to accept the materialized candidates")
-        return resolved
-
     def _build(self, solver_name: str, strict_kwargs: bool = False) -> None:
         config_cls, factory = lookup(solver_name)
         valid = set(config_cls.__dataclass_fields__)
@@ -321,13 +205,20 @@ class MPCPolicy(ModelBasedPolicy):
             raise ValueError(
                 f"num_elite ({config.num_elite}) must be <= population ({config.population})"
             )
-        backend = self._resolve_backend(solver_name, config)
-        if backend == "fused" and solver_name not in _FUSED_FAMILY:
-            raise ValueError(
-                "rollout_backend='fused' backs the generate-in-kernel solver family "
-                f"(CEM, PI2, MPPI, RandomSearch, CMA-ES with diagonal=True), not "
-                f"{solver_name}"
-            )
+        from blackbox_mpc_torch.ops.backend_select import _FUSED_FACTORIES, resolve_backend
+
+        handler = self._handler
+        backend = resolve_backend(
+            self._requested_backend, None if handler.is_true_model else handler.config,
+            self._penalized, solver_name, config, self._num_agents, self._planning_horizon,
+            self._bounds.dim, mesh=self._mesh, shard_axis=self._shard_axis,
+            discount=self._discount, smoothness=self._smoothness, platform=self._device.type)
+        if self._requested_backend == "auto":
+            logger.info("rollout_backend auto -> %s", backend)
+            if backend == "fused":  # a change of sampling law at the capacity threshold
+                logger.info("auto-routing %s onto the fused generate-in-kernel backend: "
+                            "candidates are clipped normals (+/-2 sigma), not the eager path's "
+                            "truncated normals", solver_name)
         field = None
         if self._proposer is not None:
             # Validated before any state of the policy changes: a refused switch_solver leaves
@@ -347,25 +238,14 @@ class MPCPolicy(ModelBasedPolicy):
                     f"{solver_name} plan field '{field}' has size {size}, expected "
                     f"A*H*U={plan_size}"
                 )
-        if backend == "kernel" and solver_name in ("Gradient", "CEM-GD"):
-            raise ValueError(
-                f"rollout_backend='kernel' cannot back the first-order {solver_name} solver "
-                "(the CUDA rollout kernel has no VJP); use the eager backend"
-            )
         time_major = bool(getattr(config, "time_major", False))
-        if time_major and backend != "eager":
-            raise ValueError(
-                f"time_major=True requires the eager evaluator; the "
-                f"{backend!r} backend's candidate contract is [P, A, H, U]"
-            )
         self._rollout_graphs = None  # _backend_evaluate sets it where the evaluations replay
         if backend == "fused":
             from blackbox_mpc_torch.ops import fused_cem, fused_sharded
 
             # Each factory stores its state in config.dtype (base.with_state_dtype) and reads
             # the handler's current parameters at every solve.
-            handler = self._handler
-            name = _FUSED_FAMILY[solver_name]
+            name = _FUSED_FACTORIES[solver_name]
             args = (config, self._bounds, handler.config, lambda: handler.dynamics_params,
                     self._reward_fn)
             if self._mesh is None:
@@ -392,34 +272,46 @@ class MPCPolicy(ModelBasedPolicy):
     def _make_evaluate(self, time_major: bool, backend: str, params=None):
         """The solver's ``evaluate(obs, candidates)``, reading the dynamics parameters at every
         call: ``params()`` (default: the handler's current ones). Every backend's evaluation
-        is one ``evaluator.evaluate`` span."""
-        backend_evaluate = self._backend_evaluate(time_major, backend, params)
+        is one ``evaluator.evaluate`` span, which draws the evaluation's inputs
+        (:meth:`_evaluation_draws`) and hands them to the backend's evaluator."""
+        inner = self._backend_evaluate(time_major, backend, params)
+        h_axis, p_axis = (0, 1) if time_major else (2, 0)
 
         def evaluate(obs, actions):
             with span("evaluator.evaluate"):
-                return backend_evaluate(obs, actions)
+                return inner(obs, actions, *self._evaluation_draws(
+                    actions.shape[h_axis], actions.shape[p_axis] * obs.shape[0]))
 
         return evaluate
 
-    def _draw_rollout_noise(self, horizon: int, rows: int) -> torch.Tensor:
-        """One evaluation's rollout noise of stochastic dynamics, ``[H, rows, S]``, from the
-        solve's noise generator set back to the solve's start (common random numbers)."""
-        generator, start = self._noise_start
-        generator.set_state(start)
-        return rollout_noise(generator, (horizon, rows, self._handler.config.dim_s),
-                             self._device)
+    def _evaluation_draws(self, horizon: int, rows: int) -> tuple:
+        """One evaluation's inputs after ``(obs, actions)``, for ``rows`` = candidates x
+        agents: none for deterministic dynamics; stochastic dynamics' rollout noise ``[H,
+        rows*K, S]``, from the solve's noise generator set back to the solve's start (common
+        random numbers); a latent model's ``(None, *value_draws)``, fresh for every
+        evaluation."""
+        if self._stochastic:
+            generator, start = self._noise_start
+            generator.set_state(start)
+            return (rollout_noise(generator, (horizon, rows * self._num_particles,
+                                              self._handler.config.dim_s), self._device),)
+        if self._terminal_value is not None:
+            from blackbox_mpc_torch.models.latent import value_draws
+
+            return (None, *value_draws(self._noise_start[0], rows, self._handler.config,
+                                       self._device))
+        return ()
 
     def _backend_evaluate(self, time_major: bool, backend: str, params):
-        """``_make_evaluate``'s evaluation on ``backend``: the rollout kernel's, or the eager
-        evaluator's (sharded over the mesh); either draws the rollout noise of stochastic
-        dynamics. The eager evaluator of the policy's own parameters on one device, without
+        """``_make_evaluate``'s evaluator on ``backend``, ``inner(obs, actions, noise=None,
+        *value_inputs)``: the rollout kernel's, or the eager evaluator's (sharded over the
+        mesh). The eager evaluator of the policy's own parameters on one device, without
         ``remat``, replays CUDA graphs (``self._rollout_graphs``); one of other parameters
         (the program ``deploy/export.py`` traces) stays eager."""
         handler, reward_fn, device = self._handler, self._reward_fn, self._device
         own = params is None
         if own:
             params = lambda: handler.dynamics_params  # noqa: E731
-        num_particles = handler.config.num_particles if self._stochastic else 1
         if backend == "kernel":
             from blackbox_mpc_torch.ops.rollout_kernel import make_rollout_kernel_evaluator
             from blackbox_mpc_torch.rollout.evaluator import action_smoothness_penalty
@@ -429,11 +321,7 @@ class MPCPolicy(ModelBasedPolicy):
             )
             weight, discount = self._smoothness, self._discount
 
-            def evaluate(obs, actions):
-                noise = None
-                if self._stochastic:
-                    noise = self._draw_rollout_noise(
-                        actions.shape[2], actions.shape[0] * num_particles * obs.shape[0])
+            def evaluate(obs, actions, noise=None):
                 rewards = kernel_evaluate(params(), obs, actions, noise)
                 if weight > 0:
                     rewards = rewards - action_smoothness_penalty(actions, weight, discount)
@@ -443,7 +331,7 @@ class MPCPolicy(ModelBasedPolicy):
 
         dynamics_fn = (handler.penalized_dynamics_fn if self._penalized
                        else handler.dynamics_fn)
-        options = dict(discount=self._discount, num_particles=num_particles,
+        options = dict(discount=self._discount, num_particles=self._num_particles,
                        action_smoothness_weight=self._smoothness,
                        dynamics_returns_penalty=self._penalized, time_major=time_major,
                        remat=self._remat)
@@ -451,34 +339,14 @@ class MPCPolicy(ModelBasedPolicy):
         if self._terminal_value is not None:
             value = self._terminal_value
             options["terminal_value"] = lambda z, *draws: value(params(), z, *draws)
-        if self._mesh is None:
-            evaluate = make_trajectory_evaluator(step, reward_fn, device=device, **options)
-            if own and not self._remat:
-                evaluate = self._rollout_graphs = GraphedEvaluator(
-                    evaluate, lambda: tree_leaves(handler.dynamics_params))
-        else:
-            evaluate = make_sharded_evaluator(step, reward_fn, self._mesh,
-                                              shard_axis=self._shard_axis, **options)
-        if self._terminal_value is not None:
-            from blackbox_mpc_torch.models.latent import value_draws
-
-            p_axis = 1 if time_major else 0
-
-            def valued_evaluate(obs, actions):
-                rows = actions.shape[p_axis] * obs.shape[0]
-                return evaluate(obs, actions, None, *value_draws(
-                    self._noise_start[0], rows, handler.config, device))
-
-            return valued_evaluate
-        if not self._stochastic:
-            return evaluate
-        h_axis, p_axis = (0, 1) if time_major else (2, 0)
-
-        def stochastic_evaluate(obs, actions):
-            rows = actions.shape[p_axis] * num_particles * obs.shape[0]
-            return evaluate(obs, actions, self._draw_rollout_noise(actions.shape[h_axis], rows))
-
-        return stochastic_evaluate
+        if self._mesh is not None:
+            return make_sharded_evaluator(step, reward_fn, self._mesh,
+                                          shard_axis=self._shard_axis, **options)
+        evaluate = make_trajectory_evaluator(step, reward_fn, device=device, **options)
+        if own and not self._remat:
+            evaluate = self._rollout_graphs = GraphedEvaluator(
+                evaluate, lambda: tree_leaves(handler.dynamics_params))
+        return evaluate
 
     def _solve(self, solver_state, obs: torch.Tensor, t, generator: torch.Generator,
                noise_generator: torch.Generator, solver=None, dynamics_params=None,

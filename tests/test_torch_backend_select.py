@@ -17,6 +17,7 @@ from blackbox_mpc_tpu.models.dynamics import LearnedDynamicsConfig as JConfig
 from blackbox_mpc_tpu.solvers import SOLVER_REGISTRY as J_REGISTRY
 from blackbox_mpc_torch import DynamicsHandler, LearnedDynamicsConfig, MPCPolicy
 from blackbox_mpc_torch.core.spaces import BoxSpace
+from blackbox_mpc_torch.models.latent import LatentModelConfig
 from blackbox_mpc_torch.parallel import PopMesh
 from blackbox_mpc_torch.solvers import SOLVER_REGISTRY
 
@@ -183,6 +184,60 @@ def test_capacity_routes_fused_before_kernel():
     with pytest.warns(RuntimeWarning, match="time_major"):
         assert tsel.choose_backend(cfg, rows, 1, solver_name="CEM",
                                    solver_config=cem(time_major=True), **kw) == "eager"
+
+
+@pytest.mark.parametrize("backend", ["eager", "kernel", "fused"])
+def test_auto_picks_only_what_the_rules_accept(open_regimes, backend):
+    """``choose_backend`` and the explicit backends read one set of rules: wherever "auto"
+    (on a card, the regimes open) answers ``backend``, the resolver accepts ``backend`` asked
+    for by name at that grid point."""
+    picked = 0
+    for kind, act, dtype, name, tm, pop in GRID:
+        _, cfg = configs(kind, act, dtype)
+        sc = solver_config(SOLVER_REGISTRY, name, 16, tm)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            got = tsel.choose_backend(cfg, pop, 1, platform="cuda", horizon=H, dim_u=U,
+                                      solver_name=name, solver_config=sc)
+        if got != backend:
+            continue
+        picked += 1
+        assert tsel.resolve_backend(backend, cfg, False, name, sc, 1, H, U,
+                                    platform="cuda") == backend, (kind, act, dtype, name, tm)
+    assert picked > 0
+
+
+# The benchmark cells' solves (port_bench/configs and port_bench/traffic), written out.
+CHEETAH = LearnedDynamicsConfig(dim_s=17, dim_u=6, hidden=(500, 500, 500), activation="tanh",
+                                ensemble_size=5, propagation="mean")
+PETS = LearnedDynamicsConfig(dim_s=18, dim_u=6, hidden=(200, 200, 200, 200),
+                             activation="swish", ensemble_size=5, propagation="ts_inf",
+                             num_particles=20, probabilistic=True, learn_logvar_bounds=True)
+TDMPC2_317M = LatentModelConfig(obs_dim=17, action_dim=6, latent_dim=1376, enc_dim=4096,
+                                mlp_dim=4096, num_enc_layers=5, num_q=8)
+CELLS = {
+    "cheetah_cem_3x500.cem_closed_loop": (
+        CHEETAH, "CEM", dict(population=1000, num_elite=50, max_iterations=5, alpha=0.25,
+                             warm_start=True), 50, 1.0, "kernel"),
+    "cheetah_cem_3x500.random_search": (
+        CHEETAH, "RandomSearch", dict(population=4048), 15, 1.0, "kernel"),
+    "pets_halfcheetah.ts_inf_closed_loop": (
+        PETS, "CEM", dict(population=500, num_elite=50, max_iterations=5, alpha=0.1,
+                          warm_start=True), 30, 1.0, "kernel"),
+    "tdmpc2_317m.latent_closed_loop": (
+        TDMPC2_317M, "CEM", dict(population=512, num_elite=64, max_iterations=6, alpha=0.0,
+                                 warm_start=True), 3, 0.99, "eager"),
+}
+
+
+@pytest.mark.parametrize("cell", sorted(CELLS))
+def test_auto_on_the_benchmark_cells(cell):
+    """"auto" on a card, at the measured regimes, resolves each benchmark cell's solve (one
+    agent) to the backend its measurements were made on."""
+    config, name, kwargs, horizon, discount, want = CELLS[cell]
+    sc = SOLVER_REGISTRY[name][0](planning_horizon=horizon, **kwargs)
+    assert tsel.resolve_backend("auto", config, False, name, sc, 1, horizon, 6,
+                                discount=discount, platform="cuda") == want
 
 
 def handler_for(kind, act="tanh", dtype="float32"):
