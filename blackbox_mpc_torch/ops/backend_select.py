@@ -83,11 +83,13 @@ __all__ = ["choose_backend", "FUSED_FAMILY", "FUSED_MIN_BYTES", "KERNEL_MAX_ROWS
 # measured shape, up to the 500-wide flagship and 10 000 rows, where the two nearly meet
 # (448.5 against 459.5 ms an act(); PERF.md section 5).
 # ts_inf counts particle rows against KERNEL_MAX_ROWS: at PETS' shape (4 x 200 swish, 5 members,
-# 20 particles, H=30; ops/measure.py cases, the same H100) the kernel's evaluation beat the
-# graphed eager one at every measured size, 2.16 against 2.86 ms at 1000 particle rows, 2.25
-# against 4.71 at 5000, 4.29 against 7.36 at 10 000 and 8.40 against 12.58 at 20 000. That
-# tile (TILE_TS_INF: 40 rows on 512 threads, K split over lane pairs) was timed on PETS'
-# 200-wide layers only, so no wider ts_inf net goes to the kernel (KERNEL_TS_INF_MAX_WIDTH).
+# 20 particles, H=30; ops/measure.py cases, the same H100) the kernel's evaluation, on its
+# 3xTF32 tensor-core layers (TILE_TS_INF: 40 rows on 512 threads), beat the graphed eager one
+# at every measured size: 1.61-1.65 against 2.89-2.90 ms at 1000 particle rows, 1.67-1.82
+# against 4.74-4.75 at 5000 (one wave), 3.28-3.30 against 6.96-7.42 at 10 000 and 6.46-6.52
+# against 12.5-12.7 at 20 000; the float32 SIMT loop before it took 2.04, 2.12-2.20, 4.10 and
+# 7.93. Its layers were timed on PETS' 200-wide net only, so no wider ts_inf net goes to the
+# kernel (KERNEL_TS_INF_MAX_WIDTH).
 KERNEL_MAX_WIDTH = 500
 KERNEL_MAX_ROWS = 10_000
 KERNEL_TS_INF_MAX_WIDTH = 200

@@ -432,7 +432,7 @@ fused_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ mea
   const int row0 = (blockIdx.x / n_ctas) * T;
   const Members mb = tile_members(tile_member ? tile_member[row0 / member_tile] : -1,
                                   p.ensemble, rank, n_ctas);
-  const StepSmem<W> sm = carve<T, W>(smem4, net, S, head_slots(mb.count, mb.stride));
+  const StepSmem<W> sm = carve<T, W, false>(smem4, net, S, head_slots(mb.count, mb.stride));
   const Keys keys = make_keys(seed);
 
   if (!kStreamed) {
@@ -742,13 +742,14 @@ struct RolloutArgs {
 template <int T, typename W, bool kStreamed, bool kFlagged>
 cudaError_t launch(const RolloutArgs& a, Features f, Occupancy* occ) {
   NetShape net;
-  if (!make_shape<T>(a.n_layers, a.widths, a.p.ensemble, kIsBf16<W>, &net) || a.p.rows % T ||
-      a.agents < 1 || (a.tile_member && (a.member_tile <= 0 || a.member_tile % T))) {
+  if (!make_shape<T, false>(a.n_layers, a.widths, a.p.ensemble, kIsBf16<W>, &net) ||
+      a.p.rows % T || a.agents < 1 ||
+      (a.tile_member && (a.member_tile <= 0 || a.member_tile % T))) {
     return cudaErrorInvalidValue;
   }
   const int n_ctas = a.tile_member ? 1 : min(a.p.ensemble, kMaxCluster);
   const int slots = head_slots(a.tile_member ? 1 : a.p.ensemble, n_ctas);
-  size_t smem = step_bytes<T, W>(net, a.p.dim_s, slots).tail;
+  size_t smem = step_bytes<T, W, false>(net, a.p.dim_s, slots).tail;
   if (!kStreamed) {
     // The prologue's scratch lies over the step's buffers.
     size_t scratch = sizeof(float) * draw_sub_tile(T) * a.p.horizon * a.p.dim_u;

@@ -40,6 +40,18 @@
 // (rounded after the activation, as the plain version rounds), the row stride padded by 8
 // elements so that the B-fragment loads hit 32 different banks. The head stays in float32.
 //
+// float32 for ts_inf (dense_tf32): the tensor cores too, as split-operand 3xTF32, which keeps
+// float32's accuracy: each operand is hi + lo, two TF32 values rounded to nearest (cvt.rna),
+// and each product is lo.hi + hi.lo + hi.hi, three mma.sync.m16n8k8 into a fresh accumulator
+// per 8-wide k tile, added to the float32 sum with a rounded add (the tensor core's own
+// accumulation truncates). lo.lo, about 2^-22 of the product, is left out. The layout is
+// dense_mma's: the weights on the m side, packed once in TF32 fragment order
+// (rollout_kernel.py::tf32_fragment_pack) but kept float32 and split in registers after their
+// load, the rows on the n side. Activations lie [row][feature] in float32; each layer first
+// splits its input once for all warps (hi in place, lo in a buffer beside it), so that the k
+// loop's B fragments are plain 8-byte loads. A warp owns one m tile over the tile's rows (over
+// half of them where its 8-row tiles halve), over all of K (the head: over a slice of K).
+//
 // What bounds the loop on the H100 is in rollout.cu's note.
 
 #pragma once
@@ -70,11 +82,19 @@ namespace cg = cooperative_groups;
 constexpr int kTileMean = BBMPC_TILE_MEAN;
 constexpr int kTileTs1 = BBMPC_TILE_TS1;
 constexpr int kTileTsInf = BBMPC_TILE_TS_INF;
+constexpr int kThreadsTsInf = 512;  // the ts_inf instantiation's CTA (dense_tf32)
 constexpr int kMaxCluster = 8;  // the portable cluster size
 constexpr int kMaxLayers = 8;
 constexpr float kEps = 1e-7f;
 
 __host__ __device__ constexpr int round_up16(int n) { return (n + 15) / 16 * 16; }
+__host__ __device__ constexpr int round_up8(int n) { return (n + 7) / 8 * 8; }
+// dense_tf32's activation row stride for n features: 8 mod 16 floats.
+__host__ __device__ constexpr int tf32_stride(int n) {
+  return round_up8(n) % 16 ? round_up8(n) : round_up8(n) + 8;
+}
+// dense_tf32's 8-row n tiles per warp item on a tile of T rows: half of them where they halve.
+__host__ __device__ constexpr int tf32_n_tiles(int T) { return T / 8 % 2 ? T / 8 : T / 16; }
 
 template <typename W>
 constexpr bool kIsBf16 = false;
@@ -85,20 +105,20 @@ constexpr bool kIsBf16<__nv_bfloat16> = true;
 template <int T, typename W>
 struct Cfg {
   // A float32 tile of 32 rows or more gives each thread 8 columns x T/4 rows, so that a layer
-  // of 500 columns fills 256 threads of up to 255 registers; else 4 columns on 512 threads. A
-  // tile of 20 rows or more that five divides (ts_inf's 40) takes 512 threads of T/10 rows: a
-  // 200-wide layer's 25 groups of 8 columns x 10 row blocks x 2 K slices keep 500 busy, four
-  // warps to a scheduler (PERF.md: 7 % faster than 256 threads of 8 x 8 at PETS' shape).
-  static constexpr bool kFives = !kIsBf16<W> && T >= 20 && T % 5 == 0;
+  // of 500 columns fills 256 threads of up to 255 registers; else 4 columns on 512 threads.
   static constexpr bool kWide = !kIsBf16<W> && T >= 32;
-  static constexpr int kThreads = kWide && !kFives ? 256 : 512;
+  static constexpr int kThreads = kWide ? 256 : 512;
   static constexpr int kWarps = kThreads / 32;
   static constexpr int kColVecs = kWide ? 2 : 1;      // float4 weight vectors per thread and k
-  static constexpr int kRows = T >= 16 ? (kFives ? T / 10 : T / 4) : T;  // a thread's rows
+  static constexpr int kRows = T >= 16 ? T / 4 : T;  // a thread's rows
   // CTAs per SM that the design counts on, declared in each kernel's __launch_bounds__: a
   // tile of 32 rows or more fills an SM's shared memory alone.
   static constexpr int kMinBlocks = T >= 32 ? 1 : 2;
 };
+
+// Threads of a CTA that runs mlp_step; ts_inf (kSample) has dense_tf32's.
+template <int T, typename W, bool kSample>
+constexpr int kStepThreads = kSample ? kThreadsTsInf : Cfg<T, W>::kThreads;
 
 struct NetShape {
   int n_layers;
@@ -147,7 +167,11 @@ __device__ __forceinline__ float activate(float x, int act) {
   if (act == 0) return tanhf(x);
   if (act == 1) return x < 0.f ? 0.f : x;
   if constexpr (kSwish) {
-    if (act == kSwishId) return x / (1.f + expf(-x));  // torch's silu
+    // torch's silu, x / (1 + exp(-x)), with the division as x * rcp.approx (within 2 ulp, a
+    // loss against torch's rounded division): the rounded division cost ts_inf's 3xTF32
+    // launch 14 % at PETS' shape, and moved its states' gap to the plain version only from
+    // 1.04e-6 to 1.30e-6 (PERF.md).
+    if (act == kSwishId) return __fdividef(x, 1.f + expf(-x));
   }
   // jax.nn.gelu's default tanh approximation.
   const float c = 0.7978845608028654f;  // sqrt(2 / pi)
@@ -287,98 +311,6 @@ __device__ void dense(const float* in, int K, int N, int ks_count, const float* 
   __syncthreads();
 }
 
-// float32, K split in two over the lanes of a pair (ts_inf's layers of two K slices): lane
-// 2i + h sums slice h's products for item i's columns and rows as dense does, the pair swaps
-// half of those sums (__shfl_xor), and each lane finishes two of every four columns: the two
-// slices' sum, the bias, the activation, the store. dense instead writes both slices' partial
-// sums to shared memory and adds them in a second pass behind a barrier. Measured on the H100
-// at PETS' shape (T = 40, 8 x 8 blocks on 256 threads, clock64 of one CTA, PERF.md): a
-// 200-wide layer took 39 700 cycles a step in dense, 15 500 of them in the second pass, and
-// 34 000 here.
-template <int T, bool kSwish>
-__device__ void dense_pairs(const float* in, int K, int N, const float* __restrict__ w,
-                            const float* __restrict__ b, float* out, int act) {
-  using C = Cfg<T, float>;
-  constexpr int RB = C::kRows, CV = C::kColVecs, kThreads = C::kThreads;
-  constexpr int RBN = T / RB;
-  constexpr int V = RB % 4 == 0 ? 4 : (RB % 2 == 0 ? 2 : 1);
-  constexpr int kUnroll = C::kWide ? 8 : (RB >= 8 ? 4 : 8);
-  const int vecs = N / 4;
-  const int groups = (vecs + CV - 1) / CV;
-  // Slice 1 starts kc rows on, 16 banks away from slice 0's rows where the row stride allows,
-  // so that the two lanes' activation loads meet in fewer banks. Measured on the H100 at PETS'
-  // shape (8 x 8 blocks on 256 threads): a 200-wide layer took 34 000 cycles a step with
-  // kc = 102, 41 000 with kc = 100 (and 104).
-  int kc = (K + 1) / 2;
-  for (int d = 0; d < 4 && kc + d < K; ++d) {
-    if ((kc + d) * T % 32 == 16) {
-      kc += d;
-      break;
-    }
-  }
-  const int items = groups * RBN * 2;
-  for (int first = 0; first < items; first += kThreads) {
-    const int item = first + threadIdx.x;
-    const unsigned live = __ballot_sync(0xffffffffu, item < items);
-    if (item >= items) continue;
-    const int half = item & 1, rest = item >> 1;
-    const int rb = rest % RBN, cgp = rest / RBN;
-    const int k0 = half * kc;
-    const int k1 = min(K, k0 + kc);
-    int col[CV];
-    bool own[CV];
-#pragma unroll
-    for (int v = 0; v < CV; ++v) {
-      own[v] = cgp + v * groups < vecs;
-      col[v] = 4 * min(cgp + v * groups, vecs - 1);
-    }
-    float acc[CV][4][RB];
-#pragma unroll
-    for (int v = 0; v < CV; ++v)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-#pragma unroll
-        for (int r = 0; r < RB; ++r) acc[v][c][r] = 0.f;
-    const float* xp = in + rb * RB;
-#pragma unroll kUnroll
-    for (int k = k0; k < k1; ++k) {
-      float wv[CV][4], x[RB];
-#pragma unroll
-      for (int v = 0; v < CV; ++v) load4(w + (long long)k * N + col[v], wv[v]);
-      load_rows<RB, V>(xp + k * T, x);
-#pragma unroll
-      for (int v = 0; v < CV; ++v)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-#pragma unroll
-          for (int r = 0; r < RB; ++r) acc[v][c][r] = fmaf(x[r], wv[v][c], acc[v][c][r]);
-    }
-    // Lane h keeps columns 2h and 2h + 1 of each vector: it sends the partner the other two.
-#pragma unroll
-    for (int v = 0; v < CV; ++v) {
-#pragma unroll
-      for (int cc = 0; cc < 2; ++cc) {
-        float sum[RB];
-#pragma unroll
-        for (int r = 0; r < RB; ++r) {
-          const float mine = half ? acc[v][2 + cc][r] : acc[v][cc][r];
-          const float theirs =
-              __shfl_xor_sync(live, half ? acc[v][cc][r] : acc[v][2 + cc][r], 1);
-          // slice 0's sum plus slice 1's
-          sum[r] = half ? theirs + mine : mine + theirs;
-        }
-        if (!own[v]) continue;
-        const int n = col[v] + 2 * half + cc;
-        const float bias = b[n];
-#pragma unroll
-        for (int r = 0; r < RB; ++r) sum[r] = activate<kSwish>(sum[r] + bias, act);
-        store_rows<RB, V>(out + n * T + rb * RB, sum);
-      }
-    }
-  }
-  __syncthreads();
-}
-
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint4& a, uint32_t b0,
                                          uint32_t b1) {
   asm volatile(
@@ -474,9 +406,164 @@ __device__ void dense_mma(const __nv_bfloat16* in, int in_stride, int K, int N,
   }
 }
 
+// float32 on the tensor cores (ts_inf): x = hi + lo, each a TF32 value rounded to nearest,
+// ties away (cvt.rna); lo carries the 13 bits that hi drops.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One item per warp at a time: one m tile x NW n tiles over one K slice (dense_tf32).
+template <int T, int NW, bool kSwish>
+__device__ __forceinline__ void dense_tf32_tiles(const float* in, const float* lo, int in_stride,
+                                                 int Kt, int Mt, int N, int ks_count,
+                                                 const float4* __restrict__ wf,
+                                                 const float* __restrict__ b, float* out,
+                                                 int out_stride, float* head, int out_w,
+                                                 int act) {
+  constexpr int n_groups = T / 8 / NW;
+  constexpr int kWarps = kThreadsTsInf / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int kc = (Kt + ks_count - 1) / ks_count;
+  const int items = Mt * ks_count * n_groups;
+  const int n_store = round_up8(N);
+  float* part = out;
+  for (int item = warp; item < items; item += kWarps) {
+    // The n groups of one m tile are neighbours, so their weight loads meet in L1.
+    const int nt0 = (item % n_groups) * NW, rest = item / n_groups;
+    const int mt = rest % Mt, slice = rest / Mt;
+    const int kt0 = slice * kc, kt1 = min(Kt, kt0 + kc);
+    float acc[NW][4];
+#pragma unroll
+    for (int j = 0; j < NW; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+    const float4* wa = wf + (long long)mt * Kt * 32 + lane;
+    const int x0 = (nt0 * 8 + g) * in_stride + 2 * t;
+    float4 next = kt0 < kt1 ? wa[kt0 * 32] : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 2
+    for (int kt = kt0; kt < kt1; ++kt) {
+      const float4 wv = next;
+      if (kt + 1 < kt1) next = wa[(kt + 1) * 32];
+      uint32_t ah[4], al[4];
+      split_tf32(wv.x, ah[0], al[0]);
+      split_tf32(wv.y, ah[1], al[1]);
+      split_tf32(wv.z, ah[2], al[2]);
+      split_tf32(wv.w, ah[3], al[3]);
+#pragma unroll
+      for (int j = 0; j < NW; ++j) {
+        const int offset = x0 + j * 8 * in_stride + kt * 8;
+        const uint2 bh = *reinterpret_cast<const uint2*>(in + offset);
+        const uint2 bl = *reinterpret_cast<const uint2*>(lo + offset);
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_tf32(d, al, bh.x, bh.y);
+        mma_tf32(d, ah, bl.x, bl.y);
+        mma_tf32(d, ah, bh.x, bh.y);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[j][q] += d[q];
+      }
+    }
+    // Lane (g, t) holds features 16 mt + g (+ 8) of rows 8 (nt0 + j) + 2t (+ 1).
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int feature = mt * 16 + g + 8 * half;
+      if (head != nullptr) {
+        if (feature >= out_w) continue;
+        const bool sliced = ks_count > 1;
+        float* dst = sliced ? part + ((long long)slice * out_w + feature) * T : head + feature * T;
+        const float bias = sliced ? 0.f : b[feature];
+#pragma unroll
+        for (int j = 0; j < NW; ++j) {
+          *reinterpret_cast<float2*>(dst + (nt0 + j) * 8 + 2 * t) =
+              make_float2(acc[j][2 * half] + bias, acc[j][2 * half + 1] + bias);
+        }
+      } else {
+        if (feature >= n_store) continue;
+        const float bias = feature < N ? b[feature] : 0.f;
+#pragma unroll
+        for (int j = 0; j < NW; ++j)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            out[((nt0 + j) * 8 + 2 * t + q) * out_stride + feature] =
+                activate<kSwish>(acc[j][2 * half + q] + bias, act);
+          }
+      }
+    }
+  }
+  if (head != nullptr && ks_count > 1) {
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < out_w * T; idx += kThreadsTsInf) {
+      float sum = 0.f;
+      for (int s = 0; s < ks_count; ++s) sum += part[(long long)s * out_w * T + idx];
+      head[idx] = sum + b[idx / T];
+    }
+  }
+  __syncthreads();
+}
+
+// float32 layers of ts_inf on the tensor cores, split-operand 3xTF32: every product w.x is
+// lo(w).hi(x) + hi(w).lo(x) + hi(w).hi(x), three mma.sync.m16n8k8 (only lo.lo, 2^-22 of the
+// product, is left out). The three run into a fresh accumulator for each 8-wide k tile, small
+// terms first, and a rounded float32 add takes that into the running sum: the tensor core
+// truncates its accumulator, and 75 mma chained on one accumulator through a 200-wide layer
+// left the rollout's states 40 times further from the plain version than the float32 SIMT loop
+// (PERF.md). As in dense_mma the weights take the 16-row m side and the tile's rows the n side.
+// `w` is the member's block in fragment order (rollout_kernel.py::tf32_fragment_pack): [m tile]
+// [k tile][lane] of 16 bytes, lane g*4 + t holding W[8 kt + 2t + j][16 mt + g + 8 mh] at
+// register 2j + mh, split into hi and lo in registers after its load. Within an 8-wide k tile
+// the hardware's k index t stands for k = 2t and t + 4 for 2t + 1, in A and B alike, so a
+// lane's B fragment is X[row][2t], X[row][2t + 1]: one 8-byte load. `in` [T][in_stride] float32
+// is first split in place, once for every warp: hi stays in `in`, lo goes to `lo` (same
+// offsets); the stride (8 mod 16 floats) puts a half warp's 8-byte loads on 32 different
+// banks. A warp item is one m tile x tf32_n_tiles(T) n tiles over one K slice, the n groups of
+// an m tile on neighbouring warps: hidden layers take one K slice (the next layer reads
+// round_up8(N) features of `out` [T][out_stride], zero past N); the head (head != nullptr)
+// splits K into ks_count slices, writes their sums to the free buffer `part` [slice][out_w][T]
+// and adds them in slice order, then writes acc + b to head [out_w][T].
+template <int T, bool kSwish>
+__device__ void dense_tf32(float* in, float* lo, int in_stride, int K, int N, int ks_count,
+                           const float* __restrict__ w, const float* __restrict__ b, float* out,
+                           int out_stride, float* head, int out_w, int act) {
+  static_assert(T % 8 == 0, "dense_tf32 takes whole 8-row n tiles");
+  const int Kt = (K + 7) / 8, Mt = round_up16(N) / 16;
+  const int q4 = Kt * 2;  // float4s of a row that the layer reads
+  for (int i = threadIdx.x; i < T * q4; i += kThreadsTsInf) {
+    const int offset = (i / q4) * in_stride + (i % q4) * 4;
+    float4 v = *reinterpret_cast<float4*>(in + offset);
+    uint32_t h[4], l[4];
+    split_tf32(v.x, h[0], l[0]);
+    split_tf32(v.y, h[1], l[1]);
+    split_tf32(v.z, h[2], l[2]);
+    split_tf32(v.w, h[3], l[3]);
+    *reinterpret_cast<uint4*>(in + offset) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + offset) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+  __syncthreads();
+  dense_tf32_tiles<T, tf32_n_tiles(T), kSwish>(in, lo, in_stride, Kt, Mt, N, ks_count,
+                                               reinterpret_cast<const float4*>(w), b, out,
+                                               out_stride, head, out_w, act);
+}
+
 // The CTA's shared memory. float32: x [in_w][T], buf0/buf1 [max_hidden][T], red
 // [red_width][T]. bfloat16: x [TP][x_stride], buf0/buf1 [TP][h_stride] with TP = T rounded up
-// to 8 (the padding rows are computed and never read), no red. Both: st [T][S] float32, head
+// to 8 (the padding rows are computed and never read), no red. float32 on the tensor cores
+// (kTf32, ts_inf): x [T][x_stride], buf0/buf1 [T][h_stride] (tf32_stride), red the lo halves
+// of a layer's input (dense_tf32), the head of one parity. All: st [T][S] float32, head
 // [2][slots][out_w][T] float32 (parity of the step, then the CTA's members). Every region
 // starts 16-byte aligned. `tail` is where a kernel keeps its own buffers.
 template <typename W>
@@ -498,14 +585,22 @@ struct StepBytes {
 
 __host__ __device__ __forceinline__ size_t align16(size_t n) { return (n + 15) / 16 * 16; }
 
-template <int T, typename W>
+template <int T, typename W, bool kTf32>
 __host__ __device__ __forceinline__ StepBytes step_bytes(const NetShape& net, int dim_s,
                                                          int slots) {
   StepBytes o;
   const int in_w = net.width[0], out_w = net.width[net.n_layers];
   o.x = align16(sizeof(float) * T * dim_s);
   size_t x_bytes, buf_bytes, red_bytes = 0;
-  if constexpr (kIsBf16<W>) {
+  int parities = 2;
+  if constexpr (kTf32) {
+    o.x_stride = tf32_stride(in_w);
+    o.h_stride = tf32_stride(net.max_hidden);
+    x_bytes = sizeof(float) * T * o.x_stride;
+    buf_bytes = sizeof(float) * T * o.h_stride;
+    red_bytes = sizeof(float) * T * (o.x_stride > o.h_stride ? o.x_stride : o.h_stride);
+    parities = 1;  // a CTA alone: its head is read before the next step writes it
+  } else if constexpr (kIsBf16<W>) {
     constexpr int TP = (T + 7) / 8 * 8;
     o.x_stride = round_up16(in_w) + 8;
     o.h_stride = round_up16(net.max_hidden) + 8;
@@ -518,17 +613,17 @@ __host__ __device__ __forceinline__ StepBytes step_bytes(const NetShape& net, in
     red_bytes = sizeof(float) * net.red_width * T;
   }
   o.head = o.x + align16(x_bytes);
-  o.buf0 = o.head + align16(sizeof(float) * 2 * slots * out_w * T);
+  o.buf0 = o.head + align16(sizeof(float) * parities * slots * out_w * T);
   o.buf1 = o.buf0 + align16(buf_bytes);
   o.red = o.buf1 + align16(buf_bytes);
   o.tail = o.red + align16(red_bytes);
   return o;
 }
 
-template <int T, typename W>
+template <int T, typename W, bool kTf32>
 __device__ __forceinline__ StepSmem<W> carve(void* smem, const NetShape& net, int dim_s,
                                              int slots) {
-  const StepBytes o = step_bytes<T, W>(net, dim_s, slots);
+  const StepBytes o = step_bytes<T, W, kTf32>(net, dim_s, slots);
   char* base = static_cast<char*>(smem);
   StepSmem<W> s;
   s.st = reinterpret_cast<float*>(base);
@@ -580,7 +675,7 @@ __device__ __forceinline__ void mlp_step(const StepSmem<W>& sm, ActionFn action,
                                          const float* __restrict__ biases, const Members& mb,
                                          int parity, float* __restrict__ out_t, const Problem& p,
                                          const NetShape& net, Sample sample = {}) {
-  constexpr int kThreads = Cfg<T, W>::kThreads;
+  constexpr int kThreads = kStepThreads<T, W, kSample>;
   const int S = p.dim_s, U = p.dim_u, sw = p.stats_width;
   const int in_w = net.width[0], out_w = net.width[net.n_layers];
   auto input = [&](int k, int r) {
@@ -595,7 +690,13 @@ __device__ __forceinline__ void mlp_step(const StepSmem<W>& sm, ActionFn action,
     }
     return v;
   };
-  if constexpr (kIsBf16<W>) {
+  if constexpr (kSample) {
+    const int in_p = round_up8(in_w);
+    for (int i = threadIdx.x; i < T * in_p; i += kThreads) {
+      const int r = i / in_p, k = i % in_p;
+      sm.x[r * sm.x_stride + k] = input(k, r);
+    }
+  } else if constexpr (kIsBf16<W>) {
     constexpr int TP = (T + 7) / 8 * 8;
     const int in_p = round_up16(in_w);
     for (int i = threadIdx.x; i < TP * in_p; i += kThreads) {
@@ -610,7 +711,7 @@ __device__ __forceinline__ void mlp_step(const StepSmem<W>& sm, ActionFn action,
   for (int i = mb.rank; i < mb.count; i += mb.stride) {
     const int e = mb.base + i;
     float* head = sm.head + ((long long)(parity * sm.slots + i / mb.stride) * out_w) * T;
-    const W* in = sm.x;
+    W* in = sm.x;
     int in_stride = sm.x_stride;
     for (int l = 0; l < net.n_layers; ++l) {
       const int K = net.width[l], N = net.width[l + 1];
@@ -618,23 +719,17 @@ __device__ __forceinline__ void mlp_step(const StepSmem<W>& sm, ActionFn action,
       W* out = (l & 1) ? sm.buf1 : sm.buf0;
       const W* w = weights + net.w_off[l] + (long long)e * net.w_size[l];
       const float* b = biases + net.b_off[l] + (long long)e * N;
-      if constexpr (kIsBf16<W>) {
+      if constexpr (kSample) {
+        dense_tf32<T, kSwish>(in, sm.red, in_stride, K, N, net.ks[l], w, b, out, sm.h_stride,
+                              last ? head : nullptr, out_w, p.activation);
+      } else if constexpr (kIsBf16<W>) {
         dense_mma<T, kSwish>(in, in_stride, K, N, w, b, out, sm.h_stride,
                              last ? head : nullptr, out_w, p.activation);
       } else {
         // The head's partial sums go where its output would have gone: that buffer is free.
         float* red = (last && net.ks[l] * N > net.red_width) ? out : sm.red;
-        if constexpr (kSample) {
-          if (!last && net.ks[l] == 2) {
-            dense_pairs<T, kSwish>(in, K, N, w, b, out, p.activation);
-          } else {
-            dense<T, kSwish>(in, K, N, net.ks[l], w, b, red, last ? head : out, last,
-                             p.activation);
-          }
-        } else {
-          dense<T, kSwish>(in, K, N, net.ks[l], w, b, red, last ? head : out, last,
-                           p.activation);
-        }
+        dense<T, kSwish>(in, K, N, net.ks[l], w, b, red, last ? head : out, last,
+                         p.activation);
       }
       in = out;
       in_stride = sm.h_stride;
@@ -673,8 +768,10 @@ __device__ __forceinline__ void mlp_step(const StepSmem<W>& sm, ActionFn action,
   __syncthreads();
 }
 
-// Fills `net` for a tile of T rows; false for a shape the kernels do not take.
-template <int T>
+// Fills `net` for a tile of T rows; false for a shape the kernels do not take. kTf32: the
+// layout of dense_tf32 (ts_inf), float32 weights in its fragment order; step_bytes and carve
+// take the same flag, which a kernel passes to all three.
+template <int T, bool kTf32>
 bool make_shape(int n_layers, const int* widths, int ensemble, bool bf16, NetShape* net) {
   if (n_layers < 1 || n_layers > kMaxLayers || ensemble < 1) return false;
   net->n_layers = n_layers;
@@ -684,6 +781,27 @@ bool make_shape(int n_layers, const int* widths, int ensemble, bool bf16, NetSha
     if (widths[l] <= 0 || widths[l] % 4) return false;
     net->width[l] = widths[l];
     if (l > 0 && l < n_layers && widths[l] > max_hidden) max_hidden = widths[l];
+  }
+  net->max_hidden = max_hidden;
+  if constexpr (kTf32) {
+    for (int l = 0; l < n_layers; ++l) {
+      const int K = widths[l], N = widths[l + 1];
+      net->w_off[l] = w_off;
+      net->b_off[l] = b_off;
+      net->w_size[l] = (long long)round_up8(K) * round_up16(N);
+      w_off += ensemble * net->w_size[l];
+      b_off += (long long)ensemble * N;
+      net->ks[l] = 1;
+    }
+    // The head's K slices: one warp each per m tile and n group, their sums [slice][out_w][T]
+    // in the free activation buffer.
+    const int last = n_layers - 1, head_w = widths[n_layers];
+    int ks = kThreadsTsInf / 32 / (round_up16(head_w) / 16 * (T / 8 / tf32_n_tiles(T)));
+    if (ks > round_up8(widths[last]) / 8) ks = round_up8(widths[last]) / 8;
+    if (ks > tf32_stride(max_hidden) / head_w) ks = tf32_stride(max_hidden) / head_w;
+    net->ks[last] = ks < 1 ? 1 : ks;
+    net->red_width = 0;
+    return true;
   }
   for (int l = 0; l < n_layers; ++l) {
     const int K = widths[l], N = widths[l + 1];
@@ -701,7 +819,6 @@ bool make_shape(int n_layers, const int* widths, int ensemble, bool bf16, NetSha
   const int last = n_layers - 1, head_w = widths[n_layers];
   const int room = n_layers >= 2 && max_hidden > red_width ? max_hidden : red_width;
   if (net->ks[last] * head_w > room) net->ks[last] = room / head_w < 1 ? 1 : room / head_w;
-  net->max_hidden = max_hidden;
   net->red_width = red_width;
   return true;
 }

@@ -35,12 +35,18 @@
 // need T >= 46 to run in one wave. In bfloat16 the tensor cores take the FMAs, and the launch
 // is bound by the weight fragments' way from L2 into registers. ts1 has one fifth of the work
 // on the same rows, so its tile is small (8) to keep every SM busy, and it streams more weight
-// bytes per FMA. ts_inf has its own tile (kTileTsInf, measured in ops/rollout_kernel.py): PETS'
-// net gives a member 2000 rows, each tile of 40 re-streams the member's 528 KB of weights from
-// L2 at every step, and its 200-wide layers split K over the lanes of a pair (dense_pairs in
-// mlp_step.cuh). What bounds that loop is open (PERF.md): it keeps the FMA pipes about 40 %
-// busy, shared-memory bank conflicts moved it, deeper weight prefetch did not.
-// wgmma/TMA and a reward fused into the kernel are later work.
+// bytes per FMA. ts_inf runs its float32 layers on the tensor cores as split-operand 3xTF32
+// (dense_tf32 in mlp_step.cuh), on its own tile (kTileTsInf, measured in
+// ops/rollout_kernel.py): PETS' net gives a member 2000 rows, and a tile of 40 makes 250 CTAs
+// of 111 KB, two waves, each re-streaming its member's 557 KB of weight fragments from L2 at
+// every step (4.2 GB a launch). A tile of 80 ran 10 000 rows in one wave 10 % faster, but its
+// CTAs are as long as a whole launch at any population and its buffers leave a wider state
+// no room. What bounds a step (PERF.md, clock64 of one CTA at 80 rows): not L2, nor the
+// mma.sync pipe of the busiest sub-partition (three mma a product at 6.7 cycles, the card's
+// measured 320 TFLOP/s, keep it about a third busy), but its serial parts around the mma:
+// each layer's split pass and epilogue (bias, swish, stores) behind barriers, and the rounded
+// float32 add of every k tile's sum. Deeper weight prefetch, two m tiles a warp and 384-thread
+// CTAs were slower. wgmma/TMA and a reward fused into the kernel are later work.
 
 #include "mlp_step.cuh"
 
@@ -50,7 +56,8 @@ namespace {
 // and the log-variance bounds `lv_bounds` [2, S]; both unread otherwise. Its instantiation
 // alone compiles swish layers (mlp_step.cuh's activate()).
 template <int T, typename W, bool kSample>
-__global__ void __launch_bounds__(Cfg<T, W>::kThreads, Cfg<T, W>::kMinBlocks)
+__global__ void __launch_bounds__(kStepThreads<T, W, kSample>,
+                                  kSample ? 1 : Cfg<T, W>::kMinBlocks)
 rollout_kernel(const float* __restrict__ actions, const float* __restrict__ s0,
                const float* __restrict__ stats, const W* __restrict__ weights,
                const float* __restrict__ biases, const int* __restrict__ tile_member,
@@ -63,7 +70,7 @@ rollout_kernel(const float* __restrict__ actions, const float* __restrict__ s0,
   const int S = p.dim_s, U = p.dim_u;
   const int row0 = tile * T;
   const Members mb = tile_members(tile_member ? tile_member[tile] : -1, p.ensemble, rank, n_ctas);
-  const StepSmem<W> sm = carve<T, W>(smem4, net, S, head_slots(mb.count, mb.stride));
+  const StepSmem<W> sm = carve<T, W, kSample>(smem4, net, S, head_slots(mb.count, mb.stride));
 
   for (int i = threadIdx.x; i < T * S; i += blockDim.x) sm.st[i] = s0[(long long)row0 * S + i];
   __syncthreads();
@@ -79,8 +86,8 @@ rollout_kernel(const float* __restrict__ actions, const float* __restrict__ s0,
       sample = Sample{sm.tail, lv_bounds};
     }
     mlp_step<T, W, kSample, kSample>(
-        sm, [=](int r, int j) { return a_t[r * U + j]; }, stats, weights, biases, mb, t & 1,
-        out_t, p, net, sample);
+        sm, [=](int r, int j) { return a_t[r * U + j]; }, stats, weights, biases, mb,
+        kSample ? 0 : t & 1, out_t, p, net, sample);  // ts_inf: one head parity (step_bytes)
   }
   // No CTA leaves while a peer may still read its heads.
   if (n_ctas > 1) cluster.sync();
@@ -93,15 +100,15 @@ cudaError_t launch(const float* actions, const float* s0, const float* stats,
                    const Problem& p, int n_layers, const int* widths, cudaStream_t stream,
                    Occupancy* occ) {
   NetShape net;
-  if (!make_shape<T>(n_layers, widths, p.ensemble, kIsBf16<W>, &net) || p.rows % T) {
+  if (!make_shape<T, kSample>(n_layers, widths, p.ensemble, kIsBf16<W>, &net) || p.rows % T) {
     return cudaErrorInvalidValue;
   }
   const int n_ctas = tile_member ? 1 : min(p.ensemble, kMaxCluster);
   const int slots = head_slots(tile_member ? 1 : p.ensemble, n_ctas);
-  const size_t smem = step_bytes<T, W>(net, p.dim_s, slots).tail +
+  const size_t smem = step_bytes<T, W, kSample>(net, p.dim_s, slots).tail +
                       (kSample ? sizeof(float) * T * p.dim_s : 0);  // the step's noise
   return launch_clusters(rollout_kernel<T, W, kSample>, p.rows / T, n_ctas,
-                         Cfg<T, W>::kThreads, smem, stream, occ, actions, s0, stats,
+                         kStepThreads<T, W, kSample>, smem, stream, occ, actions, s0, stats,
                          static_cast<const W*>(weights), biases, tile_member, noise, lv_bounds,
                          states_out, p, net);
 }
@@ -146,9 +153,11 @@ extern "C" {
 // Rolls out `rows` rows (a multiple of `tile`) for `horizon` steps and writes the visited
 // states. actions [H, rows, U], s0 [rows, S], stats [6, stats_width] and states_out
 // [H, rows, S] are float32. `weights` holds every layer's E zero-padded blocks in the compute
-// type, layer after layer: float32 (bf16 == 0) as [E, K, N] with K and N the padded `widths`;
-// bfloat16 as [E, N16/16, K16/16, 32, 8], the mma.m16n8k16 A fragments of W^T with K and N
-// padded to 16 (ops/rollout_kernel.py::fragment_pack). `biases` are the [E, N] float32 blocks.
+// type, layer after layer: float32 (bf16 == 0) as [E, K, N] with K and N the padded `widths`,
+// but for ts_inf as [E, N16/16, K8/8, 32, 4], the TF32 mma.m16n8k8 A fragments of W^T with K
+// padded to 8 and N to 16 (ops/rollout_kernel.py::tf32_fragment_pack); bfloat16 as [E, N16/16,
+// K16/16, 32, 8], the mma.m16n8k16 A fragments of W^T with K and N padded to 16
+// (ops/rollout_kernel.py::fragment_pack). `biases` are the [E, N] float32 blocks.
 // `tile_member` [rows / tile] gives each tile's member (ts1, ts_inf) or is NULL (mean: a cluster
 // of min(E, 8) CTAs per tile). `noise` [H, rows, S] float32 makes the step ts_inf's (it needs
 // `tile_member`, float32 and the head [mean S | raw log-variance S] of width `widths[n_layers]`

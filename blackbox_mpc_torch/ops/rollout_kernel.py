@@ -14,11 +14,14 @@ noise, from the same generator), in float32.
 
 What bounds it on the H100: a CTA streams one member's weights from L2 at every step and
 feeds each element to the tile's rows; float32 is then bound by the SM's FMA issue, bfloat16
-(tensor cores) by that stream. The design and its trade-offs are in the CUDA sources' notes.
+(tensor cores) by that stream. ts_inf's float32 layers run on the tensor cores as
+split-operand 3xTF32 (float32-accurate; weights packed by :func:`tf32_fragment_pack`). The
+design and its trade-offs are in the CUDA sources' notes.
 
 :func:`rollout_states` is the wrapper: on a CPU tensor it runs :func:`rollout_states_plain`;
 on a CUDA tensor it launches the kernel or raises, and adds one to ``rollout_states.launches``
-where it launches.
+where it launches, and one to ``rollout_states.tensor_core_launches`` where that launch ran
+ts_inf's 3xTF32 layers.
 """
 from __future__ import annotations
 
@@ -44,7 +47,7 @@ __all__ = [
     "OCCUPANCY_FIELDS", "TILE_MEAN", "TILE_TS1", "TILE_TS_INF", "KernelOperands",
     "check_operands", "check_tensor", "fragment_pack", "int_array", "kernel_occupancy",
     "make_operands", "make_rollout_kernel_evaluator", "occupancy_report", "operand_cache",
-    "padded_widths", "rollout_states", "rollout_states_plain", "tile_rows",
+    "padded_widths", "rollout_states", "rollout_states_plain", "tf32_fragment_pack", "tile_rows",
 ]
 
 # Rows per tile, one per propagation (kTileMean, kTileTs1, kTileTsInf in ops/csrc/mlp_step.cuh; the
@@ -55,9 +58,15 @@ __all__ = [
 # largest tile whose two f32 activation buffers fit 227 KB). ts1 4: 3.36, 8: 3.04, 16: 4.90
 # (65 CTAs for 132 SMs), 32: 6.46. The fused CEM's logical ts1 tile must be a multiple of
 # TILE_TS1. TILE_TS_INF at PETS' shape (10 000 particle rows, H=30, 5 x 4 x 200 swish with
-# Gaussian heads, f32; the same card, `ops/measure.py sweep --ts-inf ... --only ts_inf`): 16:
-# 4.19 (2 CTAs per SM, 3 waves, 8 bytes spilled), 20: 4.92, 24: 4.22 (16 bytes spilled), 32:
-# 5.62 (3 waves), 40: 3.90 (250 CTAs of 512 threads, 2 waves, no spill), 48: 4.84.
+# Gaussian heads, f32; the same card, `ops/measure.py sweep --ts-inf ... --only ts_inf`), for
+# the 3xTF32 tensor-core layers: 40: 3.17 (250 CTAs of 512 threads, 2 waves), 48: 3.72 (2
+# waves), 64: 4.79 (160 CTAs, 2 waves), 80: 2.85 (125 CTAs, one wave); the tile must be a
+# multiple of 8. 40 it is: a CTA of 80 rows takes about a whole launch's time however few
+# tiles a launch has (K2's evaluation at 1000 particle rows: 2.87-3.31 ms at 80, 1.61-1.65 at
+# 40, the SIMT loop's 2.04 at 40), and its 222 720 bytes of shared
+# memory at PETS' shape leave no room for a wider state (S=27, U=8 needs 240 000 of the
+# card's 232 448); at 40 every net the SIMT loop before it took fits. The float32 SIMT loop
+# took 3.90 at 40 (its best; 16: 4.19, 24: 4.22, 32: 5.62, 48: 4.84).
 TILE_MEAN = 48
 TILE_TS1 = 8
 TILE_TS_INF = 40
@@ -78,7 +87,8 @@ class KernelOperands:
     ``weights`` is the per-layer ``[w, b, ...]`` list of :func:`kc.weight_operands` (used by
     the plain version); ``packed_w``/``packed_b`` are the same, zero-padded and laid back to
     back, as the CUDA kernel reads them: float32 weights as ``[E, K, N]`` blocks at widths that
-    are multiples of 4, bfloat16 weights through :func:`fragment_pack`, biases ``[E, N]``.
+    are multiples of 4 (ts_inf's through :func:`tf32_fragment_pack`), bfloat16 weights through
+    :func:`fragment_pack`, biases ``[E, N]``.
     A probabilistic head's ``lv_bounds`` ``[2, S]`` float32 are its log-variance bounds (lower,
     upper: the learned ones, else the fixed ones).
     """
@@ -111,10 +121,32 @@ def fragment_pack(w: torch.Tensor) -> torch.Tensor:
     return w.permute(0, 5, 1, 7, 3, 2, 6, 4).reshape(-1)  # [E, mt, kt, g, t, kh, mh, j]
 
 
-def _packed_elements(widths: tuple, bf16: bool) -> int:
-    """Elements of one member's packed weights."""
-    pad = (lambda v: kc.round_up(v, 16)) if bf16 else (lambda v: v)
-    return sum(pad(k) * pad(n) for k, n in zip(widths[:-1], widths[1:]))
+def tf32_fragment_pack(w: torch.Tensor) -> torch.Tensor:
+    """``w [E, K, N]`` float32 -> flat ``[E, N16/16, K8/8, 32, 4]``, K zero-padded to 8 and N
+    to 16: the A fragments of ``mma.sync.m16n8k8`` (TF32) for ``W^T`` (m = n, the output
+    feature), tile by tile, in float32 (the kernel splits each into two TF32 values).
+
+    Lane ``g*4 + t`` of tile ``(mt, kt)`` holds, in register order, ``W[k, n]`` at
+    ``k = 8*kt + 2*t + j`` and ``n = 16*mt + g + 8*mh`` for ``(j, mh)`` running over ``{0, 1}``
+    each, ``mh`` fastest: the hardware's k index ``t`` stands for ``2t`` and ``t + 4`` for
+    ``2t + 1`` (as in the kernel's B fragments), and one 16-byte load per lane is a whole
+    fragment."""
+    e, k, n = w.shape
+    kp, np_ = kc.round_up(k, 8), kc.round_up(n, 16)
+    w = torch.nn.functional.pad(w, (0, np_ - n, 0, kp - k))
+    w = w.reshape(e, kp // 8, 4, 2, np_ // 16, 2, 8)  # [E, kt, t, j, mt, mh, g]
+    return w.permute(0, 4, 1, 6, 2, 3, 5).reshape(-1)  # [E, mt, kt, g, t, j, mh]
+
+
+def _packed_elements(config: LearnedDynamicsConfig, widths: tuple) -> int:
+    """Elements of one member's packed weights: K and N padded to 16 for bfloat16, to 8 and 16
+    for ts_inf's float32 (its TF32 fragments)."""
+    if config.compute_dtype == torch.bfloat16:
+        pad_k = pad_n = 16
+    else:
+        pad_k, pad_n = (8, 16) if config.propagation == "ts_inf" else (1, 1)
+    return sum(kc.round_up(k, pad_k) * kc.round_up(n, pad_n)
+               for k, n in zip(widths[:-1], widths[1:]))
 
 
 def make_operands(dp: DynamicsParams, config: LearnedDynamicsConfig) -> KernelOperands:
@@ -124,11 +156,13 @@ def make_operands(dp: DynamicsParams, config: LearnedDynamicsConfig) -> KernelOp
     weights = kc.weight_operands(dp, config.compute_dtype)
     widths = padded_widths(config)
     bf16 = config.compute_dtype == torch.bfloat16
+    pack = fragment_pack if bf16 else (tf32_fragment_pack if config.propagation == "ts_inf"
+                                       else lambda padded: padded.reshape(-1))
     packed_w, packed_b = [], []
     for layer, (w, b) in enumerate(zip(weights[0::2], weights[1::2])):
         k, n = widths[layer], widths[layer + 1]
         padded = torch.nn.functional.pad(w, (0, n - w.shape[2], 0, k - w.shape[1]))
-        packed_w.append(fragment_pack(padded) if bf16 else padded.reshape(-1))
+        packed_w.append(pack(padded))
         packed_b.append(torch.nn.functional.pad(b, (0, n - b.shape[1])).reshape(-1))
     lv_bounds = None
     if config.probabilistic:
@@ -217,9 +251,8 @@ def check_operands(config: LearnedDynamicsConfig, ops: KernelOperands, device) -
     if tuple(ops.widths) != widths:
         raise ValueError(f"operands have widths {ops.widths}, config needs {widths}")
     ensemble = config.ensemble_size
-    bf16 = config.compute_dtype == torch.bfloat16
     check_tensor(ops.packed_w, "packed_w", config.compute_dtype,
-                 (ensemble * _packed_elements(widths, bf16),), device)
+                 (ensemble * _packed_elements(config, widths),), device)
     check_tensor(ops.packed_b, "packed_b", torch.float32, (ensemble * sum(widths[1:]),), device)
     if config.probabilistic:
         check_tensor(ops.lv_bounds, "lv_bounds", torch.float32, (2, config.dim_s), device)
@@ -280,10 +313,13 @@ def rollout_states(
         if err != 0:
             raise RuntimeError(f"rollout kernel launch failed: CUDA error {err}")
         rollout_states.launches += 1
+        if sampled:  # ts_inf runs float32 alone, on the tensor cores
+            rollout_states.tensor_core_launches += 1
         return out
 
 
 rollout_states.launches = 0
+rollout_states.tensor_core_launches = 0
 
 
 OCCUPANCY_FIELDS = ("smem_bytes", "blocks_per_sm", "cluster", "max_active_clusters",

@@ -16,6 +16,7 @@ from blackbox_mpc_torch import DynamicsHandler, LearnedDynamicsConfig, MPCPolicy
 from blackbox_mpc_torch.core.spaces import BoxSpace
 from blackbox_mpc_torch.models.dynamics import make_learned_dynamics
 from blackbox_mpc_torch.ops import rollout_kernel as rk
+from blackbox_mpc_torch.ops.backend_select import choose_backend
 from blackbox_mpc_torch.ops.measure import (
     PETS, PETS_HORIZON, PETS_POPULATION, pets_launch, pets_params,
 )
@@ -107,6 +108,26 @@ def test_ts_inf_tanh_kernel_matches_eager(device):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
+def test_ts_inf_kernel_runs_an_ant_sized_net(device):
+    """PETS' net at Ant's sizes (S=27, U=8: a 35-wide input and a 54-wide head on 4 x 200
+    swish), which ``"auto"`` sends to K2: the launch fits the card's shared memory and its
+    returns match the eager evaluator's, 1e-5 of the largest return's magnitude."""
+    config = LearnedDynamicsConfig(**{**PETS, "dim_s": 27, "dim_u": 8})
+    assert choose_backend(config, 100, 1, platform="cuda", horizon=PETS_HORIZON,
+                          dim_u=config.dim_u, solver_name="CEM") == "kernel"
+    dp = pets_params(config, device)
+    dyn = make_learned_dynamics(config)[1]
+    k = config.num_particles
+    g = torch.Generator(device=device).manual_seed(8)
+    s0 = torch.randn((1, config.dim_s), generator=g, device=device)
+    acts = torch.rand((100, 1, PETS_HORIZON, config.dim_u), generator=g, device=device) * 2 - 1
+    noise = torch.randn((PETS_HORIZON, 100 * k, config.dim_s), generator=g, device=device)
+    got = rk.make_rollout_kernel_evaluator(config, reward, device=device)(dp, s0, acts, noise)
+    want = make_trajectory_evaluator(lambda s, a, n=None: dyn(dp, s, a, n), reward,
+                                     num_particles=k, device=device)(s0, acts, noise)
+    assert float((got - want).abs().max()) <= 1e-5 * max(1.0, float(want.abs().max()))
+
+
 def policy_on(device, backend):
     config, dp = pets(device)
     handler = DynamicsHandler(config, seed=0, device=device)
@@ -143,3 +164,27 @@ def test_kernel_pets_act_matches_eager_waits_twice_and_launches_five_times(devic
                 if e.name == "cudaStreamSynchronize" and e.device_type == DeviceType.CPU)
     assert syncs <= MAX_SYNCS
     assert np.all(np.isfinite(action)) and np.all(np.abs(action) <= 1.0)
+
+
+def test_tensor_core_launches_count_the_ts_inf_path_alone(device):
+    """``rollout_states.tensor_core_launches`` counts the launches that ran ts_inf's 3xTF32
+    layers: 5 over a PETS ``act()`` (one per CEM iteration), none over a mean-propagation
+    launch at the flagship's shape (1000 rows, H=50, 5 x 3 x 500 tanh, float32)."""
+    g = np.random.default_rng(9)
+    policy = policy_on(device, "kernel")
+    policy.act(g.normal(0, 1, PETS["dim_s"]).astype(np.float32))  # warm-up
+    launches, tensor = rk.rollout_states.launches, rk.rollout_states.tensor_core_launches
+    policy.act(g.normal(0, 1, PETS["dim_s"]).astype(np.float32))
+    assert rk.rollout_states.launches == launches + 5
+    assert rk.rollout_states.tensor_core_launches == tensor + 5
+
+    flagship = LearnedDynamicsConfig(dim_s=17, dim_u=6, hidden=(500, 500, 500), ensemble_size=5)
+    dp = make_learned_dynamics(flagship)[0](torch.Generator().manual_seed(1)).to(device)
+    evaluate = rk.make_rollout_kernel_evaluator(flagship, reward, device=device)
+    gen = torch.Generator(device=device).manual_seed(10)
+    s0 = torch.randn((1, 17), generator=gen, device=device)
+    acts = torch.rand((1000, 1, 50, 6), generator=gen, device=device) * 2 - 1
+    launches, tensor = rk.rollout_states.launches, rk.rollout_states.tensor_core_launches
+    assert bool(torch.isfinite(evaluate(dp, s0, acts)).all())
+    assert rk.rollout_states.launches == launches + 1
+    assert rk.rollout_states.tensor_core_launches == tensor

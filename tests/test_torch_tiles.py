@@ -67,9 +67,12 @@ def bridged(propagation, ensemble, hidden=(8,), compute_dtype="float32"):
 def test_tile_constants_agree_with_the_cuda_header():
     header = (Path(rk.__file__).parent / "csrc" / "mlp_step.cuh").read_text()
     compiled = {name: int(value) for name, value in
-                re.findall(r"#define BBMPC_TILE_(MEAN|TS1) (\d+)", header)}
-    assert compiled == {"MEAN": rk.TILE_MEAN, "TS1": rk.TILE_TS1}
+                re.findall(r"#define BBMPC_TILE_(MEAN|TS1|TS_INF) (\d+)", header)}
+    assert compiled == {"MEAN": rk.TILE_MEAN, "TS1": rk.TILE_TS1, "TS_INF": rk.TILE_TS_INF}
     assert rk.tile_rows(False) == rk.TILE_MEAN and rk.tile_rows(True) == rk.TILE_TS1
+    assert rk.tile_rows(True, True) == rk.TILE_TS_INF
+    # ts_inf's tensor-core layers take the tile's rows as whole 8-row n tiles of mma.m16n8k8
+    assert rk.TILE_TS_INF % 8 == 0
     # float32 reads activations 16 bytes at a time; K4 draws a tile in sub-tiles of 8 or 4 rows
     assert rk.TILE_MEAN % 4 == 0 and rk.TILE_TS1 in (4, 8, 16, 32)
     # the JAX package's logical ts1 tiles (the default and the smoke run's) are whole tiles
