@@ -23,11 +23,12 @@ from blackbox_mpc_torch.models.mlp import (
     mlp_init,
 )
 from blackbox_mpc_torch.models.normalizer import NormalizerStats, fit_normalizer, identity_stats
+from blackbox_mpc_torch.models.rssm import RSSMConfig, RSSMWorldModel
 
 __all__ = [
     "ANALYTIC_MODELS", "DynamicsParams", "LatentModelConfig", "LatentWorldModel",
     "LearnedDynamicsConfig", "MLPConfig",
-    "NormalizerStats", "angle_normalize", "cartpole_dynamics", "cartpole_reward",
+    "NormalizerStats", "RSSMConfig", "RSSMWorldModel", "angle_normalize", "cartpole_dynamics", "cartpole_reward",
     "dynamics_params_from_numpy", "ensemble_apply", "ensemble_init", "fit_normalizer",
     "identity_stats", "make_learned_dynamics", "mlp_apply", "mlp_init", "pendulum_dynamics",
     "pendulum_reward", "true_model_dynamics", "ts_member_ids",

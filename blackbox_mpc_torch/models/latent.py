@@ -137,10 +137,11 @@ def simnorm(x: torch.Tensor, group: int) -> torch.Tensor:
     return torch.softmax(x.reshape(*shape[:-1], -1, group), dim=-1).reshape(shape)
 
 
-def two_hot_inv(logits: torch.Tensor, config: LatentModelConfig) -> torch.Tensor:
+def two_hot_inv(logits: torch.Tensor, config) -> torch.Tensor:
     """``[..., num_bins]`` logits -> ``[...]``: ``symexp`` of the softmax's expectation over
-    ``linspace(vmin, vmax, num_bins)``."""
-    bins = torch.linspace(config.vmin, config.vmax, config.num_bins, device=logits.device,
+    ``linspace(vmin, vmax, num_bins)``. ``config``: the bin range, any object with ``vmin``
+    and ``vmax`` (a ``LatentModelConfig``, an ``RSSMConfig``)."""
+    bins = torch.linspace(config.vmin, config.vmax, logits.shape[-1], device=logits.device,
                           dtype=logits.dtype)
     x = torch.sum(torch.softmax(logits, dim=-1) * bins, dim=-1)
     return torch.sign(x) * (torch.exp(torch.abs(x)) - 1.0)

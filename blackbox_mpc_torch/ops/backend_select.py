@@ -8,8 +8,9 @@ The backends (``MPCPolicy``'s ``rollout_backend``; the JAX package's names are a
   or ``"agents"``). It runs everything: true models, PETS' probabilistic heads with ``ts_inf``
   and ``mm`` propagation, pessimistic planning (``plan_uncertainty_penalty``), the first-order
   solvers (Gradient, CEM-GD: they differentiate through the rollout) and the time-major
-  layout. A latent world model (``models/latent.py``, TD-MPC2's) plans here on one device
-  only: the sharded evaluator has no terminal value.
+  layout. A latent world model (``models/latent.py``, TD-MPC2's) and a recurrent one
+  (``models/rssm.py``, DreamerV3's RSSM) plan here on one device only: the sharded evaluator
+  takes neither a terminal value nor a filtered belief.
 * ``"kernel"`` (JAX's ``"pallas"``): the hand-written CUDA rollout kernel K2
   (``ops/rollout_kernel.py``) under the eager sampler, so its sampling law is eager's.
   Learned MLP ensembles with mean/ts1 propagation, and PETS' ``ts_inf`` (a Gaussian head
@@ -72,6 +73,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from blackbox_mpc_torch.models.latent import LatentModelConfig
+from blackbox_mpc_torch.models.rssm import RSSMConfig
 from blackbox_mpc_torch.ops._kernel_common import check_kernel_support
 from blackbox_mpc_torch.parallel.mesh import POP_AXIS
 
@@ -121,7 +123,8 @@ _FUSED_TILE = 256
 
 class _Solve(NamedTuple):
     """What the rules read of a solve. ``config``: a ``LearnedDynamicsConfig``, a
-    ``LatentModelConfig`` or None (a true model). ``requested``: the backend asked for."""
+    ``LatentModelConfig``, an ``RSSMConfig`` or None (a true model). ``requested``: the
+    backend asked for."""
     config: object
     penalized: bool
     solver_name: str
@@ -161,10 +164,11 @@ def _sampled(propagations: tuple) -> _Rule:
 _TRUE_MODEL = _Rule(lambda s: s.config is None,
                     lambda s, b: f"rollout_backend={b!r} requires learned MLP dynamics")
 _LATENT = _Rule(
-    lambda s: isinstance(s.config, LatentModelConfig),
-    lambda s, b: ("a latent world model plans on the single-device 'eager' backend (the kernels "
-                  "roll out MLP ensembles, and the sharded evaluator has no terminal value); "
-                  f"got rollout_backend={s.requested!r}" + ("" if s.mesh is None else " with a mesh")))
+    lambda s: isinstance(s.config, (LatentModelConfig, RSSMConfig)),
+    lambda s, b: (f"a latent world model ({type(s.config).__name__}) plans on the single-device "
+                  "'eager' backend (the kernels roll out MLP ensembles, and the sharded evaluator "
+                  "takes neither a terminal value nor a filtered belief); got rollout_backend="
+                  f"{s.requested!r}" + ("" if s.mesh is None else " with a mesh")))
 _PENALTY = _Rule(
     lambda s: s.penalized,
     lambda s, b: (f"rollout_backend={b!r} does not support plan_uncertainty_penalty (the "
@@ -249,7 +253,7 @@ def resolve_backend(requested: str, config, penalized: bool, solver_name: str, s
 
 
 def choose_backend(
-    config,  # LearnedDynamicsConfig | LatentModelConfig | None (None: a true model)
+    config,  # LearnedDynamicsConfig | LatentModelConfig | RSSMConfig | None (a true model)
     population: int,
     num_agents: int,
     mesh: Optional[object] = None,

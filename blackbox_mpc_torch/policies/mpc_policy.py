@@ -47,6 +47,18 @@ ends in, and ``act()`` returns the action, the predicted next latent and the pre
 Each evaluation draws the value's inputs (``pi``'s normals and a pair of Q heads) from the
 noise generator, fresh for every evaluation as TD-MPC2 draws them; the solver's draws are
 those of any other model. It plans on ``"eager"`` (``"auto"`` picks it) on one device.
+
+A recurrent world model (:class:`~blackbox_mpc_torch.models.rssm.RSSMWorldModel`, DreamerV3's
+RSSM) stands there too, and the policy then carries a belief across ``act()`` calls
+(:attr:`MPCPolicy.belief`: the feature ``[h, z]`` and the executed action, per agent, DreamerV3's
+zeros after ``reset()``). Each ``act()`` first filters the observation from it (the model's
+``observe``: the core steps ``h`` with the last code and action, the posterior's codes are
+drawn from the noise generator), plans from the new feature and keeps it with the action it
+returns; ``plan()`` filters from the same belief without keeping anything. Every imagined step
+draws its codes from the prior by inverse CDF, from uniforms that each evaluation takes as an
+input: one ``[H, rows, stoch]`` draw from the solve's noise generator, set back to the solve's
+start before each evaluation (common random numbers, as for stochastic dynamics). It plans on
+``"eager"`` (``"auto"`` picks it) on one device.
 """
 from __future__ import annotations
 
@@ -156,6 +168,10 @@ class MPCPolicy(ModelBasedPolicy):
         # A latent world model encodes the observation and ends each rollout in its value.
         self._encode = getattr(dynamics_handler, "encode", None)
         self._terminal_value = getattr(dynamics_handler, "terminal_value", None)
+        # A recurrent world model filters each observation into the belief it carries.
+        self._observe = getattr(dynamics_handler, "observe", None)
+        self._belief = (None if self._observe is None
+                        else dynamics_handler.initial_belief(num_agents))
         dyn_cfg = dynamics_handler.config
         self._stochastic = (dyn_cfg is not None
                             and getattr(dyn_cfg, "propagation", None) in ("ts_inf", "mm"))
@@ -288,11 +304,13 @@ class MPCPolicy(ModelBasedPolicy):
         """One evaluation's inputs after ``(obs, actions)``, for ``rows`` = candidates x
         agents: none for deterministic dynamics; stochastic dynamics' rollout noise ``[H,
         rows*K, S]``, from the solve's noise generator set back to the solve's start (common
-        random numbers); a latent model's ``(None, *value_draws)``, fresh for every
-        evaluation."""
-        if self._stochastic:
+        random numbers); a recurrent model's code uniforms ``[H, rows, stoch]``, drawn the same
+        way; a latent model's ``(None, *value_draws)``, fresh for every evaluation."""
+        if self._stochastic or self._observe is not None:
             generator, start = self._noise_start
             generator.set_state(start)
+            if self._observe is not None:
+                return (self._handler.code_draws(generator, horizon, rows),)
             return (rollout_noise(generator, (horizon, rows * self._num_particles,
                                               self._handler.config.dim_s), self._device),)
         if self._terminal_value is not None:
@@ -357,7 +375,7 @@ class MPCPolicy(ModelBasedPolicy):
         solver = self._solver if solver is None else solver
         if dynamics_params is None:
             dynamics_params = self._handler.dynamics_params
-        if self._stochastic or self._terminal_value is not None:
+        if self._stochastic or self._terminal_value is not None or self._observe is not None:
             # The evaluations draw from this solve's noise generator (set back to the start
             # for stochastic dynamics). Its state lives on the host: reading and setting it
             # waits for nothing.
@@ -392,7 +410,11 @@ class MPCPolicy(ModelBasedPolicy):
         next_obs, pred_reward = self._lookahead(self._handler.dynamics_params, obs, action)
         return action, new_state, aux, next_obs, pred_reward
 
-    def _obs(self, observations) -> tuple[torch.Tensor, bool]:
+    def _obs(self, observations, noise_generator: torch.Generator | None = None
+             ) -> tuple[torch.Tensor, bool]:
+        """The observations on the device, ``[A, S]``, and whether they came batched. A latent
+        model's encoding stands in their place; a recurrent model's filtered feature from the
+        carried belief, its codes drawn from ``noise_generator`` (the belief is not changed)."""
         with span("policy.obs_in"):
             obs = np.asarray(observations, dtype=np.float32)
             batched = obs.ndim > 1
@@ -405,6 +427,8 @@ class MPCPolicy(ModelBasedPolicy):
             obs = torch.as_tensor(obs, device=self._device)
         if self._encode is not None:
             obs = self._encode(obs)
+        if self._observe is not None:
+            obs = self._observe(self._belief, obs, noise_generator)
         return obs, batched
 
     # ------------------------------------------------------------------ public API
@@ -439,6 +463,14 @@ class MPCPolicy(ModelBasedPolicy):
         return self._rollout_backend
 
     @property
+    def belief(self):
+        """The belief a recurrent world model's policy carries across ``act()`` calls, a
+        :class:`~blackbox_mpc_torch.models.rssm.Belief`: the feature ``[h, z]`` [A, F] the last
+        call filtered and planned from, and the action [A, U] it returned; None for a model
+        that carries none. Each call replaces it whole."""
+        return self._belief
+
+    @property
     def rollout_graphs(self) -> GraphedEvaluator | None:
         """The current solver's graphed eager evaluator (its ``captures``, ``replays`` and
         ``graphs``; off the card it never engages), or None where no evaluation may replay a
@@ -453,14 +485,18 @@ class MPCPolicy(ModelBasedPolicy):
         ``[num_agents, S]`` array. Returns numpy ``(action, predicted_next_obs,
         predicted_reward)``, un-batched iff the input was un-batched. With a latent world model
         the observation is encoded first and the prediction is the next latent
-        ``[..., latent_dim]``.
+        ``[..., latent_dim]``; with a recurrent world model the observation is filtered into the
+        carried belief first and the prediction is the next feature ``[..., feat_dim]``, its
+        codes the prior's probabilities.
         """
         with span("policy.act"):
-            obs, batched = self._obs(observations)
+            obs, batched = self._obs(observations, self._noise_generator)
             action, self._solver_state, _, next_obs, pred_reward = self._step(
                 self._solver_state, obs, t, self._generator, self._noise_generator,
                 bool(exploration_noise)
             )
+            if self._belief is not None:
+                self._belief = self._belief._replace(feat=obs, action=action)
             flat = torch.cat([action.reshape(-1), next_obs.reshape(-1),
                               pred_reward.reshape(-1)])
             with span("policy.wait"):
@@ -482,20 +518,23 @@ class MPCPolicy(ModelBasedPolicy):
     def plan(self, observations, t: int = 0):
         """Runs a solve and returns the full refined plan [A, H, U] + expected reward [A].
 
-        A read-only query: the solver state is kept and the policy's generators are not
-        advanced (the solve draws from copies of them).
+        A read-only query: the solver state and the belief are kept and the policy's
+        generators are not advanced (the filter and the solve draw from copies of them).
         """
-        obs, _ = self._obs(observations)
         copies = []
         for source in (self._generator, self._noise_generator):
             copies.append(torch.Generator(device=self._device))
             copies[-1].set_state(source.get_state())
+        obs, _ = self._obs(observations, copies[1])
         _, _, aux, _, _ = self._step(self._solver_state, obs, t, *copies, False)
         return aux.plan.cpu().numpy(), aux.expected_reward.cpu().numpy()
 
     def reset(self) -> None:
-        """Per-episode solver-state reset."""
+        """Per-episode reset: the solver's state and, where the model carries one, the belief
+        (DreamerV3's zeros)."""
         self._solver_state = self._solver.reset(self._solver_state, self._generator)
+        if self._belief is not None:
+            self._belief = self._handler.initial_belief(self._num_agents)
 
     def switch_solver(self, solver_name: str, **solver_kwargs) -> None:
         """Swaps the trajectory solver, keeping dynamics handler and evaluator wiring.

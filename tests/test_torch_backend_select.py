@@ -18,6 +18,7 @@ from blackbox_mpc_tpu.solvers import SOLVER_REGISTRY as J_REGISTRY
 from blackbox_mpc_torch import DynamicsHandler, LearnedDynamicsConfig, MPCPolicy
 from blackbox_mpc_torch.core.spaces import BoxSpace
 from blackbox_mpc_torch.models.latent import LatentModelConfig
+from blackbox_mpc_torch.models.rssm import RSSMConfig
 from blackbox_mpc_torch.parallel import PopMesh
 from blackbox_mpc_torch.solvers import SOLVER_REGISTRY
 
@@ -215,6 +216,7 @@ PETS = LearnedDynamicsConfig(dim_s=18, dim_u=6, hidden=(200, 200, 200, 200),
                              num_particles=20, probabilistic=True, learn_logvar_bounds=True)
 TDMPC2_317M = LatentModelConfig(obs_dim=17, action_dim=6, latent_dim=1376, enc_dim=4096,
                                 mlp_dim=4096, num_enc_layers=5, num_q=8)
+DREAMERV3_200M = RSSMConfig(obs_dim=17, action_dim=6)
 CELLS = {
     "cheetah_cem_3x500.cem_closed_loop": (
         CHEETAH, "CEM", dict(population=1000, num_elite=50, max_iterations=5, alpha=0.25,
@@ -227,6 +229,9 @@ CELLS = {
     "tdmpc2_317m.latent_closed_loop": (
         TDMPC2_317M, "CEM", dict(population=512, num_elite=64, max_iterations=6, alpha=0.0,
                                  warm_start=True), 3, 0.99, "eager"),
+    "dreamerv3_200m.planet_closed_loop": (
+        DREAMERV3_200M, "CEM", dict(population=1000, num_elite=100, max_iterations=10,
+                                    alpha=0.0), 12, 1.0, "eager"),
 }
 
 
