@@ -49,6 +49,7 @@ import torch.nn.functional as F
 from blackbox_mpc_torch.core.device import resolve_device
 from blackbox_mpc_torch.models.latent import two_hot_inv
 from blackbox_mpc_torch.models.mlp import linear
+from blackbox_mpc_torch.ops import block_gemm
 from blackbox_mpc_torch.utils.profiling import span
 
 __all__ = ["Belief", "RSSMConfig", "RSSMWorldModel", "block_linear", "core", "encode",
@@ -189,8 +190,19 @@ def _head(layers, x: torch.Tensor, eps: float) -> torch.Tensor:
 
 def block_linear(x: torch.Tensor, layer) -> torch.Tensor:
     """The block-diagonal linear layer over ``x`` [blocks, B, in] (each group's rows): group
-    ``i`` is ``x[i] @ w[i] + b[i]``, [blocks, B, out]."""
+    ``i`` is ``x[i] @ w[i] + b[i]``, [blocks, B, out].
+
+    On the CPU it is ``torch.baddbmm``. On CUDA it launches the tensor-core kernel
+    (``ops/block_gemm.py::block_gemm``: split-operand 3xTF32, float32-accurate), which raises
+    on what it cannot take, and adds one to ``block_linear.tensor_core_launches``."""
+    if x.is_cuda:
+        out = block_gemm.block_gemm(x, layer["w"], layer["b"])
+        block_linear.tensor_core_launches += 1
+        return out
     return torch.baddbmm(layer["b"][:, None, :], x, layer["w"])
+
+
+block_linear.tensor_core_launches = 0
 
 
 def core(config: RSSMConfig, params, h: torch.Tensor, z: torch.Tensor,

@@ -10,7 +10,10 @@ The backends (``MPCPolicy``'s ``rollout_backend``; the JAX package's names are a
   solvers (Gradient, CEM-GD: they differentiate through the rollout) and the time-major
   layout. A latent world model (``models/latent.py``, TD-MPC2's) and a recurrent one
   (``models/rssm.py``, DreamerV3's RSSM) plan here on one device only: the sharded evaluator
-  takes neither a terminal value nor a filtered belief.
+  takes neither a terminal value nor a filtered belief. On the card the RSSM's block layers run
+  on the tensor-core block kernel (``ops/block_gemm.py``), which has no backward and no
+  fallback: an RSSM whose block widths it does not tile, and the first-order solvers over an
+  RSSM, are refused there.
 * ``"kernel"`` (JAX's ``"pallas"``): the hand-written CUDA rollout kernel K2
   (``ops/rollout_kernel.py``) under the eager sampler, so its sampling law is eager's.
   Learned MLP ensembles with mean/ts1 propagation, and PETS' ``ts_inf`` (a Gaussian head
@@ -73,8 +76,9 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from blackbox_mpc_torch.models.latent import LatentModelConfig
-from blackbox_mpc_torch.models.rssm import RSSMConfig
+from blackbox_mpc_torch.models.rssm import RSSMConfig, param_shapes
 from blackbox_mpc_torch.ops._kernel_common import check_kernel_support
+from blackbox_mpc_torch.ops.block_gemm import TILE_K, TILE_N, takes_kernel
 from blackbox_mpc_torch.parallel.mesh import POP_AXIS
 
 __all__ = ["choose_backend", "FUSED_FAMILY", "FUSED_MIN_BYTES", "KERNEL_MAX_ROWS",
@@ -134,6 +138,7 @@ class _Solve(NamedTuple):
     discount: float = 1.0
     smoothness: float = 0.0
     requested: str = "auto"
+    platform: str = "cuda"
 
 
 class _Rule(NamedTuple):
@@ -178,9 +183,33 @@ _TIME_MAJOR = _Rule(
     lambda s, b: (f"time_major=True requires the eager evaluator; the {b!r} backend's "
                   "candidate contract is [P, A, H, U]"))
 
+
+def _rssm_on_card(s: _Solve) -> bool:
+    return s.platform == "cuda" and isinstance(s.config, RSSMConfig)
+
+
+def _blocks_tile(config: RSSMConfig) -> bool:
+    """Whether the block kernel tiles every block layer of ``config`` (``[blocks, in, out]``)."""
+    return all(takes_kernel(*layer["w"][1:]) for head in ("core_hidden", "core_gru")
+               for layer in param_shapes(config)[head])
+
+
+_RSSM_BLOCKS = _Rule(
+    lambda s: _rssm_on_card(s) and not _blocks_tile(s.config),
+    lambda s, b: (f"on the card the RSSM's block layers run on the block gemm kernel, which "
+                  f"tiles a layer's inputs by {TILE_K} and its outputs by {TILE_N}: deter / "
+                  f"blocks ({s.config.deter // s.config.blocks}) must be a multiple of "
+                  f"{TILE_N}, and deter / blocks + 3 * hidden of {TILE_K}"))
+_RSSM_FIRST_ORDER = _Rule(
+    lambda s: _rssm_on_card(s) and s.solver_name in _FIRST_ORDER,
+    lambda s, b: (f"the first-order {s.solver_name} solver differentiates through the rollout, "
+                  "and on the card the RSSM's block layers run on the block gemm kernel, which "
+                  "has no backward; use a sampling solver"))
+
 # Each backend's refusals, in the order they are checked.
 _RULES: dict[str, tuple[_Rule, ...]] = {
-    "eager": (_Rule(lambda s: s.mesh is not None and _LATENT.refuses(s), _LATENT.message),),
+    "eager": (_Rule(lambda s: s.mesh is not None and _LATENT.refuses(s), _LATENT.message),
+              _RSSM_BLOCKS, _RSSM_FIRST_ORDER),
     "kernel": (
         _TRUE_MODEL, _LATENT, _PENALTY, _sampled(("mm",)),
         _Rule(lambda s: s.mesh is not None,
@@ -238,6 +267,8 @@ def resolve_backend(requested: str, config, penalized: bool, solver_name: str, s
     of that backend that refuses the solve. ``config``: the handler's (None for a true model);
     ``penalized``: whether it plans with ``plan_uncertainty_penalty``; ``platform``: the
     policy's device type."""
+    if platform is None:
+        platform = _platform()
     backend = requested
     if requested == "auto":
         backend = choose_backend(
@@ -245,7 +276,7 @@ def resolve_backend(requested: str, config, penalized: bool, solver_name: str, s
             platform=platform, horizon=horizon, dim_u=dim_u, solver_name=solver_name,
             solver_config=solver_config)
     solve = _Solve(config, penalized, solver_name, solver_config, mesh, shard_axis, discount,
-                   smoothness, requested)
+                   smoothness, requested, platform)
     rule = _refusal(backend, solve)
     if rule is not None:
         raise ValueError(rule.message(solve, backend))
@@ -275,7 +306,7 @@ def choose_backend(
     if platform != "cuda":
         return "eager"
     solve = _Solve(config, getattr(config, "plan_uncertainty_penalty", 0) > 0, solver_name,
-                   solver_config, mesh)
+                   solver_config, mesh, platform=platform)
     fused_refusal = _refusal("fused", solve)
     # time_major keeps a population past the capacity threshold eager with a warning (below).
     fused_ok = (fused_refusal in (None, _TIME_MAJOR)

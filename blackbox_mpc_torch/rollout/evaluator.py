@@ -280,9 +280,11 @@ class GraphedEvaluator:
 
     ``reads()`` gives every tensor the evaluation reads besides its inputs (the dynamics'
     parameters and normalizer statistics). The graphs are keyed on their identity (address,
-    shape, dtype, strides; :meth:`key`) and hold them: where one is replaced
-    (``DynamicsHandler.train``, ``set_params``), the next evaluation drops every graph and
-    captures again. An edit in place is read by the replay as it is.
+    shape, dtype, strides) and version counters (:meth:`key`) and hold them: where one is
+    replaced (``DynamicsHandler.train``, ``set_params``) or edited in place, the next
+    evaluation drops every graph and runs eagerly, so whatever the dynamics derive from their
+    parameters on the way (the RSSM's packed block weights, ``ops/block_gemm.py::packed``) is
+    derived anew before the next capture.
 
     It engages only for contiguous inputs on the card with grad disabled and outside
     ``torch.compile``/``torch.export`` tracing; any other call is the eager evaluation. Where a
@@ -315,9 +317,13 @@ class GraphedEvaluator:
         return self._bytes
 
     def key(self, held=None) -> tuple:
-        """The identity of the tensors ``reads()`` gives (or ``held``)."""
+        """The identity and version of the tensors ``reads()`` gives (or ``held``). A tensor
+        made under ``torch.inference_mode()`` has no version counter and counts as version 0:
+        an edit of it in place is read by the replay as it is, and nothing derived from it
+        is kept (``ops/block_gemm.py::packed`` refuses it)."""
         held = self._reads() if held is None else held
-        return tuple((t.data_ptr(), t.shape, t.dtype, t.stride()) for t in held)
+        return tuple((t.data_ptr(), t.shape, t.dtype, t.stride(),
+                      0 if t.is_inference() else t._version) for t in held)
 
     def __call__(self, initial_states, action_sequences, noise=None,
                  *value_inputs) -> torch.Tensor:

@@ -32,6 +32,15 @@ It imports nothing of JAX and nothing of the JAX package. Phases, each fatal on 
      centered actions K4 rolled out, bit for bit, for a one-hot weight;
    K3 and K6 are timed twice: the host's time of a call (back-to-back calls between two
    events) and the device's (20 calls captured in a CUDA graph, replayed between two events).
+   - the RSSM core's block layer on the tensor cores (``ops/block_gemm.py``, split-operand
+     3xTF32 ``wgmma``) at DreamerV3 size200m's two block shapes, 8 groups of 4096 -> 1024 and
+     of 1024 -> 3072, at 1, 104 and 1000 rows: its largest error against a float64 product of
+     the same inputs at most 4x that of ``torch.baddbmm``'s float32 one, two launches and a
+     captured graph's replay bit for bit; one line gives each shape's device ms a launch (20
+     in a graph) at 1000 rows beside its bound at the 3xTF32 ceiling (165 TFLOP/s) and at
+     the float32 SIMT peak (67), and ``torch.baddbmm``'s ms as ``library_ms`` (a yardstick;
+     the port's path never calls it there). ``python3 chip_smoke.py --block-gemm`` runs it
+     alone, with phase 5's RSSM drive.
 4. reference on a small input: the kernel evaluator against the eager evaluator, and the
    fused kernels, plain and with each solver's option set, against the same closures on CPU
    tensors (the plain versions).
@@ -50,7 +59,14 @@ It imports nothing of JAX and nothing of the JAX package. Phases, each fatal on 
    the host's ``cudaStreamSynchronize`` calls, which must be 2 (the observation in, the action
    out) for fused CEM and at most 2 for the others. Fused CEM is also traced, and timed in
    turns, with the elite mask written from a Python scalar (the former scatter, which made
-   the host wait for K4 in every iteration), beside the scatter from a device source. The eager backend runs 3 steps, timed.
+   the host wait for K4 in every iteration), beside the scatter from a device source. The
+   eager backend runs 3 steps, timed. DreamerV3's RSSM at size200m, under the RSSM cell's CEM
+   (1000 x 10 iterations, H=12) on ``"auto"`` (eager, graphed), acts 3 times: the first (eager
+   evaluation, capture), one with the launch counters zeroed just before it, whose host
+   launches of the block kernel must be 4 (the filter's and the lookahead's core steps; the
+   first ``act()``'s 52), and one traced, whose device launches of it must be 244 (2 a core
+   step); its line gives the ``act()``'s ms, the weights' and their pack's bytes and the
+   card's peak over the ``act()``s alone.
 6. MBRL loop: ``learn_dynamics_iteratively_w_mpc`` on the native pendulum (2 envs, episodes of
    50 steps; S=3, U=1) with the flagship ensemble (3x500 tanh, 5 members, mean, f32) and CEM
    (H=50, population 1000, 50 elites, 5 iterations): one random bootstrap rollout, then 2
@@ -207,7 +223,10 @@ Before the kernels line, ``{"phase_seconds": {...}}`` gives the wall seconds of 
 and part (``"9C"`` and ``"9D"`` overlap, as do ``"11A"`` and ``"11B"``; ``"10B"`` holds Parts
 B-D at two ranks) and of the whole run (``"total"``). The line before the last two is
 ``{"kernels": [...]}`` (each kernel's launches on phase 5's main path, and ``launches_by_path``
-on every path that runs it; ``rollout_states`` also gives its ``ts_inf`` case of phase 3);
+on every path that runs it; ``rollout_states`` also gives its ``ts_inf`` case of phase 3;
+``block_gemm``, B1, its host launches in phase 5's graphed RSSM ``act()``, its device launches
+there, and its phase 3 timings at both block shapes, with ``torch.baddbmm`` as
+``library_ms``);
 then the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -242,6 +261,14 @@ ROW_SUM_TOLERANCE = 1e-4
 # statistics in its own order; torch multiplies by the dense [312, 300] basis. The actions (at
 # most 1.3 in magnitude here) may differ by a few ulp of z <= 2, well inside 1e-4.
 H100_PEAK = {"float32": 67e12, "bfloat16": 989e12}  # dense FLOP/s, SXM, 700 W
+# The float32 ceiling of split-operand 3xTF32: a third of the TF32 tensor cores' 495 TFLOP/s.
+TF32X3_PEAK = 165e12
+# The RSSM core's block layers at size200m: (groups, in, out), and the rows they run at.
+BLOCK_SHAPES = ((8, 4096, 1024), (8, 1024, 3072))
+BLOCK_ROWS = (1, 104, 1000)
+# The RSSM cell's solve (port_bench/traffic/planet_closed_loop.json): PlaNet's CEM at H=12.
+RSSM_SOLVE = dict(planning_horizon=12, population=1000, num_elite=100, max_iterations=10,
+                  alpha=0.0, warm_start=False)
 H100_BYTES_PER_S = 3.35e12
 # Operations of one clipped normal draw of the counter RNG (K3), counted as float32 operations
 # at the SIMT rate, a transcendental as one: the counter (2), two keyed uniforms (14 each:
@@ -310,6 +337,120 @@ def graph_ms(fn, calls: int = 20) -> float:
     from blackbox_mpc_torch.ops.measure import graph_ms as measured
 
     return measured(fn, calls)
+
+
+def block_gemm_cases(device) -> dict:
+    """The block layer's kernel against float64 and ``torch.baddbmm`` at the RSSM's shapes
+    (phase 3); returns and prints its timing line."""
+    import torch
+
+    from blackbox_mpc_torch.models import rssm
+    from blackbox_mpc_torch.ops import block_gemm as bg
+
+    gen = torch.Generator(device=device).manual_seed(25)
+    timings = []
+    for groups, fan_in, fan_out in BLOCK_SHAPES:
+        w = torch.randn((groups, fan_in, fan_out), generator=gen, device=device) / fan_in ** 0.5
+        b = 0.1 * torch.randn((groups, fan_out), generator=gen, device=device)
+        layer = {"w": w, "b": b}
+        for rows in BLOCK_ROWS:
+            x = torch.nn.functional.silu(
+                torch.randn((groups, rows, fan_in), generator=gen, device=device))
+            before = rssm.block_linear.tensor_core_launches
+            got = rssm.block_linear(x, layer)
+            assert rssm.block_linear.tensor_core_launches == before + 1
+            exact = torch.baddbmm(b.double()[:, None, :], x.double(), w.double())
+            library = torch.baddbmm(b[:, None, :], x, w)
+            err = float((got.double() - exact).abs().max())
+            lib_err = float((library.double() - exact).abs().max())
+            again = bg.block_gemm(x, w, b)
+            static = torch.empty_like(got)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                static.copy_(bg.block_gemm(x, w, b))
+            graph.replay()
+            torch.cuda.synchronize()
+            case = {"shape": [groups, rows, fan_in, fan_out], "max_abs_err": err,
+                    "baddbmm_max_abs_err": lib_err, "err_ratio": err / lib_err,
+                    "repeat_bits": bool(torch.equal(got, again)),
+                    "graph_bits": bool(torch.equal(got, static))}
+            print(json.dumps({"block_gemm_case": case}), flush=True)
+            if not (case["repeat_bits"] and case["graph_bits"] and err <= 4 * lib_err):
+                raise AssertionError(f"block gemm kernel off: {case}")
+            if rows == BLOCK_ROWS[-1]:
+                flops = 2.0 * groups * rows * fan_in * fan_out
+                timings.append({
+                    "shape": case["shape"], "ms": graph_ms(lambda: bg.block_gemm(x, w, b)),
+                    "bound_ms": flops / TF32X3_PEAK * 1e3,
+                    "bound_ms_f32_simt": flops / H100_PEAK["float32"] * 1e3,
+                    "library_ms": graph_ms(lambda: torch.baddbmm(b[:, None, :], x, w)),
+                    "max_abs_err": err, "baddbmm_max_abs_err": lib_err})
+                timings[-1]["tflops"] = flops / timings[-1]["ms"] / 1e9
+    line = {"block_gemm": timings, "attributes": bg.gemm_attributes(), "packs": bg.packed.calls,
+            "card": nvidia_smi()}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def rssm_act_drive(device) -> dict:
+    """DreamerV3 size200m planned by the RSSM cell's CEM on ``"auto"`` (eager, graphed), three
+    ``act()``s: the first (its first evaluation eager, then the capture), a graphed one with
+    the launch counters zeroed just before it, and a traced one. The block kernel's host
+    launches must be 2 a core step outside the replays (the filter's, the lookahead's; the first
+    evaluation's and the capture's 12 steps) and its device launches 2 a core step in all; the
+    card's memory: the weights, their 3xTF32 pack and the peak over the ``act()``s alone."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+
+    from blackbox_mpc_torch import MPCPolicy
+    from blackbox_mpc_torch.core.spaces import BoxSpace
+    from blackbox_mpc_torch.models import rssm
+    from blackbox_mpc_torch.ops import block_gemm as bg
+    from blackbox_mpc_torch.utils import profiling
+
+    config = rssm.RSSMConfig(obs_dim=17, action_dim=6)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = rssm.RSSMWorldModel(config, seed=25, device=device)
+    weights = torch.cuda.memory_allocated() - base
+    policy = MPCPolicy(BoxSpace.of(-1.0, 1.0, dim=config.action_dim), model.reward_fn, model,
+                       rollout_backend="auto", seed=5, device=device, **RSSM_SOLVE)
+    if policy.rollout_backend != "eager":
+        raise AssertionError(f"RSSM: auto resolved to {policy.rollout_backend!r}, not 'eager'")
+    obs = np.random.default_rng(25).normal(size=(3, config.obs_dim)).astype(np.float32)
+    horizon, iters = RSSM_SOLVE["planning_horizon"], RSSM_SOLVE["max_iterations"]
+    torch.cuda.reset_peak_memory_stats()
+    counters = zero_launches()
+    policy.act(obs[0], 0)
+    first = read_launches(counters)
+    pack = sum(t.nbytes for entry in bg._packs.values() for t in entry[2:])
+    counters = zero_launches()
+    t0 = time.perf_counter()
+    policy.act(obs[1], 1)  # returns host arrays: synchronised
+    act_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches(counters)
+    with tempfile.TemporaryDirectory() as log_dir, profiling.trace(log_dir) as prof:
+        policy.act(obs[2], 2)
+    device_launches = sum(1 for e in profiled_events(prof)
+                          if e.device_type == DeviceType.CUDA and "block_gemm" in e.name)
+    peak = torch.cuda.max_memory_allocated()
+    graphs = policy.rollout_graphs
+    run = {"rssm_act": "size200m, CEM 1000 x 10 iterations, H=12", "act_ms": act_ms,
+           "launches": launches, "first_launches": first,
+           "device_launches_per_act": device_launches, "weights_bytes": weights,
+           "pack_bytes": pack, "acts_peak_bytes": peak,
+           "captures": graphs.captures, "replays": graphs.replays, "card": nvidia_smi()}
+    print(json.dumps(run), flush=True)
+    want_first = {name: 2 + 4 * horizon + 2 if name == "block_gemm" else 0 for name in first}
+    want = {name: 4 if name == "block_gemm" else 0 for name in launches}
+    if (first, launches, device_launches) != (want_first, want, 2 * horizon * iters + 4):
+        raise AssertionError(f"RSSM act(): launches off: {run}")
+    if (graphs.captures, graphs.replays) != (1, 3 * iters - 1):
+        raise AssertionError(f"RSSM act(): {graphs.captures} captures, {graphs.replays} replays")
+    return run
 
 
 def flagship_params(config, device):
@@ -960,12 +1101,14 @@ def small_reference(device) -> None:
 
 def launch_counters() -> dict:
     """Every kernel wrapper with a launch count, by the name the kernels line gives it."""
+    from blackbox_mpc_torch.ops import block_gemm as bg
     from blackbox_mpc_torch.ops import fused_cem as fc
     from blackbox_mpc_torch.ops import rollout_kernel as rk
 
     return {"rollout_states": rk.rollout_states, "fused_rollout": fc.fused_rollout,
             "fused_rollout_streamed": fc.fused_rollout_streamed,
-            "elite_moments": fc.elite_moments, "draw_rows": fc.draw_rows}
+            "elite_moments": fc.elite_moments, "draw_rows": fc.draw_rows,
+            "block_gemm": bg.block_gemm}
 
 
 @contextlib.contextmanager
@@ -4023,6 +4166,15 @@ def main() -> int:
         device = resolve_device(None)
         smi = nvidia_smi()
         print(f"device: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    if "--block-gemm" in sys.argv[1:]:  # phase 3's block layer alone
+        with phase_timer("2"):
+            log = _build.build("block_gemm")["block_gemm"]
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"block_gemm: {line.strip()}")
+        block_gemm_cases(device)
+        rssm_act_drive(device)
+        return 0
     if "--compiled-flagship" in sys.argv[1:]:  # phase 11 Part A alone, at the flagship
         with tempfile.TemporaryDirectory() as workdir:
             compiled_cache_times(*compiled_cache_on_card(device, workdir, COMPILED_FLAGSHIP))
@@ -4030,7 +4182,7 @@ def main() -> int:
         return 0
 
     with phase_timer("2"):
-        logs = _build.build("rollout", "fused_cem")
+        logs = _build.build("rollout", "fused_cem", "block_gemm")
     print(json.dumps({"build_s": PHASE_SECONDS["2"],
                       "compiled": sorted(name for name, log in logs.items() if log)}), flush=True)
     for name, log in logs.items():
@@ -4059,6 +4211,7 @@ def main() -> int:
                                  ("softmax", "clip"), ("logrank", "clip"), ("zeros", "clip")):
             moments_vs_plain(device, weights, options)
         moments_see_fused_rollout(device)
+        block_line = block_gemm_cases(device)
     with phase_timer("4"):
         small_reference(device)
     with phase_timer("5"):
@@ -4066,6 +4219,7 @@ def main() -> int:
         fused_run = drive_policy(device, "fused", STEPS)
         family = {label: drive_policy(device, "fused", STEPS, label) for label in FUSED_FAMILY}
         drive_policy(device, "eager", 3)
+        rssm_run = rssm_act_drive(device)
     with phase_timer("6"):
         mbrl = {backend: mbrl_loop(device, backend) for backend in ("kernel", "fused")}
     with phase_timer("7A"):
@@ -4127,7 +4281,9 @@ def main() -> int:
                  tenth["part_a"]["RandomSearch"]["launches"],
              **{f"tutorial {name}": run["launches"] for name, run in tutorials.items()},
              **{f"resumed JAX loop, {backend}, {RESUME_STEPS} steps": run["launches"]
-                for backend, run in twelfth["part_c"].items()}}
+                for backend, run in twelfth["part_c"].items()},
+             "RSSM first act() (eager evaluation, capture)": rssm_run["first_launches"],
+             "RSSM graphed act() (host; device per act(): 2 a core step)": rssm_run["launches"]}
 
     print(json.dumps({"phase_seconds": {**PHASE_SECONDS,
                                         "total": time.perf_counter() - t_start},
@@ -4140,6 +4296,9 @@ def main() -> int:
         ("fused_rollout_streamed", "fused_cem.cu", "pallas_cem.py:404", fused_run, streamed),
         ("elite_moments", "fused_cem.cu", "pallas_cem.py:485", fused_run, moments[0]),
         ("draw_rows", "fused_cem.cu", "pallas_cem.py:168", family["fused iCEM"], draws),
+        # B1 replaces no Pallas kernel; its case: size200m's core_hidden at 1000 rows.
+        ("block_gemm", "block_gemm.cu", None, rssm_run,
+         {**block_line["block_gemm"][0], "plain_ms": None, "bound_by": "ops"}),
     ]
     # K2's ts_inf instantiation at PETS' shape, beside its mean/f32 case.
     ts_inf = {key: cases[3][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -4148,16 +4307,19 @@ def main() -> int:
         "name": name,
         "route": "cuda",
         "source": f"blackbox_mpc_torch/ops/csrc/{source}",
-        "replaces": f"blackbox_mpc_tpu/ops/{replaces}",
+        "replaces": None if replaces is None else f"blackbox_mpc_tpu/ops/{replaces}",
         "launches": run["launches"][name],
         "max_abs_err": case["max_abs_err"],
         "ms": case["ms"],
         "plain_ms": case["plain_ms"],
         "bound_ms": case["bound_ms"],
         "bound_by": case["bound_by"],
-        "library_ms": None,
+        "library_ms": case.get("library_ms"),
         **({"host_ms": case["host_ms"]} if "host_ms" in case else {}),
         **({"ts_inf": ts_inf} if name == "rollout_states" else {}),
+        **({"shapes": block_line["block_gemm"],
+            "device_launches_per_act": rssm_run["device_launches_per_act"]}
+           if name == "block_gemm" else {}),
         "launches_by_path": {path: counts[name] for path, counts in paths.items()
                              if counts.get(name)},
     } for name, source, replaces, run, case in entries]}))

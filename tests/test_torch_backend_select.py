@@ -2,6 +2,7 @@
 ``choose_backend``: every configuration JAX routes to XLA for a gate goes to ``"eager"``, every
 backend the port resolves constructs, ``auto`` on the CPU is the eager policy bit for bit, and
 ``switch_solver`` resolves again. Small sizes: H <= 8, hidden (16, 16), E = 2."""
+import dataclasses
 import itertools
 import logging
 import warnings
@@ -243,6 +244,36 @@ def test_auto_on_the_benchmark_cells(cell):
     sc = SOLVER_REGISTRY[name][0](planning_horizon=horizon, **kwargs)
     assert tsel.resolve_backend("auto", config, False, name, sc, 1, horizon, 6,
                                 discount=discount, platform="cuda") == want
+
+
+# 64 units a block group, which the block kernel's 128-wide output tiles do not fit; and 128.
+RSSM_SMALL = RSSMConfig(obs_dim=17, action_dim=6, deter=512, hidden=64, stoch=8, classes=16,
+                        units=64)
+RSSM_MID = dataclasses.replace(RSSM_SMALL, deter=1024)
+
+
+@pytest.mark.parametrize("config, name, platform, refusal", [
+    (DREAMERV3_200M, "CEM", "cuda", None), (RSSM_MID, "CEM", "cuda", None),
+    (RSSM_SMALL, "CEM", "cuda", "tiles a layer's inputs by 32 and its outputs by 128"),
+    (RSSM_SMALL, "CEM", "cpu", None),
+    (RSSM_MID, "Gradient", "cuda", "no backward"), (RSSM_MID, "CEM-GD", "cuda", "no backward"),
+    (RSSM_MID, "Gradient", "cpu", None),
+], ids=["200m", "mid", "small", "small-cpu", "gradient", "cem-gd", "gradient-cpu"])
+def test_an_rssm_on_the_card_needs_tiled_blocks_and_no_backward(config, name, platform,
+                                                                 refusal):
+    """On the card the RSSM's block layers run on the block kernel, which has no fallback and
+    no backward: "eager" and "auto" refuse block widths it does not tile and the first-order
+    solvers there; the CPU plans both."""
+    sc = solver_config(SOLVER_REGISTRY, name, 16)
+    for requested in ("auto", "eager"):
+        def resolve():
+            return tsel.resolve_backend(requested, config, False, name, sc, 1, H, 6,
+                                        platform=platform)
+        if refusal is None:
+            assert resolve() == "eager"
+        else:
+            with pytest.raises(ValueError, match=refusal):
+                resolve()
 
 
 def handler_for(kind, act="tanh", dtype="float32"):

@@ -139,7 +139,8 @@ def test_the_gate_never_captures(case, monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("change, recaptures", [
-    ("train", True), ("set_params", True), ("load", True), ("replace", False)])
+    ("train", True), ("set_params", True), ("load", True), ("replace", False),
+    ("edit", True)])
 def test_the_key_changes_where_the_parameters_are_replaced(change, recaptures, fake_graphs,
                                                            tmp_path):
     h = handler()
@@ -155,6 +156,8 @@ def test_the_key_changes_where_the_parameters_are_replaced(change, recaptures, f
         h.set_params(h.dynamics_params)
     elif change == "replace":  # a DynamicsParams of the same tensors
         h._params = h.dynamics_params.replace(params=h.dynamics_params.params)
+    elif change == "edit":  # a weight changed in place: what is derived from it is stale
+        tree_leaves(h.dynamics_params)[0].mul_(1.0)
     if change == "load":
         h.save(str(tmp_path / "h"))
         loaded = DynamicsHandler.load(str(tmp_path / "h"), device="cpu")
@@ -164,6 +167,26 @@ def test_the_key_changes_where_the_parameters_are_replaced(change, recaptures, f
         p.act(OBS)
         assert counts(graphs) == (2 if recaptures else 1, 2 * ITERS - 2 + (not recaptures), 1)
     assert (after != before) == recaptures
+
+
+def test_parameters_made_in_inference_mode_are_graphed(fake_graphs):
+    """Tensors made under ``torch.inference_mode()`` have no version counter: the key counts
+    them as version 0, and a policy over them captures once and replays, with the bits of the
+    same policy over ordinary tensors."""
+    with torch.inference_mode():
+        inferred = handler()
+    leaves = tree_leaves(inferred.dynamics_params)
+    assert leaves and all(t.is_inference() for t in leaves)
+    p = policy(inferred)
+    got = [p.act(OBS, t) for t in range(2)]
+    graphs = p.rollout_graphs
+    assert counts(graphs) == (1, 2 * ITERS - 1, 1)
+    assert all(entry[-1] == 0 for entry in graphs.key())
+    ordinary = policy()
+    want = [ordinary.act(OBS, t) for t in range(2)]
+    for g, w in zip(got, want):
+        for x, y in zip(g, w):
+            np.testing.assert_array_equal(x, y)
 
 
 def test_noise_draws_and_generator_states_unchanged(fake_graphs, monkeypatch):
