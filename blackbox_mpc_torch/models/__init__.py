@@ -24,11 +24,13 @@ from blackbox_mpc_torch.models.mlp import (
 )
 from blackbox_mpc_torch.models.normalizer import NormalizerStats, fit_normalizer, identity_stats
 from blackbox_mpc_torch.models.rssm import RSSMConfig, RSSMWorldModel
+from blackbox_mpc_torch.models.vjepa2_ac import VJEPA2ACConfig, VJEPA2ACWorldModel
 
 __all__ = [
     "ANALYTIC_MODELS", "DynamicsParams", "LatentModelConfig", "LatentWorldModel",
     "LearnedDynamicsConfig", "MLPConfig",
-    "NormalizerStats", "RSSMConfig", "RSSMWorldModel", "angle_normalize", "cartpole_dynamics", "cartpole_reward",
+    "NormalizerStats", "RSSMConfig", "RSSMWorldModel", "VJEPA2ACConfig", "VJEPA2ACWorldModel",
+    "angle_normalize", "cartpole_dynamics", "cartpole_reward",
     "dynamics_params_from_numpy", "ensemble_apply", "ensemble_init", "fit_normalizer",
     "identity_stats", "make_learned_dynamics", "mlp_apply", "mlp_init", "pendulum_dynamics",
     "pendulum_reward", "true_model_dynamics", "ts_member_ids",

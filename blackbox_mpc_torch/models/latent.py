@@ -218,8 +218,9 @@ def value_draws(generator: torch.Generator, rows: int, config: LatentModelConfig
 class LatentWorldModel:
     """A latent world model held for planning, in the place of a ``DynamicsHandler``: it has
     the ``config``, ``dynamics_params``, ``dynamics_fn``, ``mean_dynamics_fn``,
-    ``is_true_model`` and ``device`` that ``MPCPolicy`` reads, and ``encode``, ``reward_fn``
-    and ``terminal_value`` besides. Pass ``reward_fn`` as the policy's reward function.
+    ``is_true_model`` and ``device`` that ``MPCPolicy`` reads, and ``encode``, ``reward_fn``,
+    ``terminal_value`` and its draws ``value_inputs`` besides. Pass ``reward_fn`` as the
+    policy's reward function.
 
     ``params``: the parameters to hold (the layout of the module's notes), on ``device``;
     None draws them with :func:`init_params` from ``seed``. ``encodes`` and ``value_calls``
@@ -272,6 +273,11 @@ class LatentWorldModel:
         with span("models.encode"):
             self.encodes += 1
             return encode(self._config, self._params, obs)
+
+    def value_inputs(self, generator: torch.Generator, rows: int) -> tuple:
+        """An evaluation's draws of the terminal value over ``rows`` rows
+        (:func:`value_draws`)."""
+        return value_draws(generator, rows, self._config, self._device)
 
     def terminal_value(self, params, z, eps, pair) -> torch.Tensor:
         with span("models.value"):

@@ -8,12 +8,15 @@ The backends (``MPCPolicy``'s ``rollout_backend``; the JAX package's names are a
   or ``"agents"``). It runs everything: true models, PETS' probabilistic heads with ``ts_inf``
   and ``mm`` propagation, pessimistic planning (``plan_uncertainty_penalty``), the first-order
   solvers (Gradient, CEM-GD: they differentiate through the rollout) and the time-major
-  layout. A latent world model (``models/latent.py``, TD-MPC2's) and a recurrent one
-  (``models/rssm.py``, DreamerV3's RSSM) plan here on one device only: the sharded evaluator
-  takes neither a terminal value nor a filtered belief. On the card the RSSM's block layers run
-  on the tensor-core block kernel (``ops/block_gemm.py``), which has no backward and no
-  fallback: an RSSM whose block widths it does not tile, and the first-order solvers over an
-  RSSM, are refused there.
+  layout. A latent world model (``models/latent.py``, TD-MPC2's), a recurrent one
+  (``models/rssm.py``, DreamerV3's RSSM) and a goal-conditioned video one
+  (``models/vjepa2_ac.py``, V-JEPA 2-AC's) plan here on one device only: the sharded evaluator
+  takes neither a terminal value nor a filtered belief. V-JEPA 2-AC's rollouts write their
+  cache of earlier frames in place, into buffers reused by every evaluation, so nothing
+  differentiates through them: the first-order solvers are refused over it. On the card the
+  RSSM's block layers run on the tensor-core block kernel (``ops/block_gemm.py``), which has no
+  backward and no fallback: an RSSM whose block widths it does not tile, and the first-order
+  solvers over an RSSM, are refused there.
 * ``"kernel"`` (JAX's ``"pallas"``): the hand-written CUDA rollout kernel K2
   (``ops/rollout_kernel.py``) under the eager sampler, so its sampling law is eager's.
   Learned MLP ensembles with mean/ts1 propagation, and PETS' ``ts_inf`` (a Gaussian head
@@ -77,6 +80,7 @@ import torch
 
 from blackbox_mpc_torch.models.latent import LatentModelConfig
 from blackbox_mpc_torch.models.rssm import RSSMConfig, param_shapes
+from blackbox_mpc_torch.models.vjepa2_ac import VJEPA2ACConfig
 from blackbox_mpc_torch.ops._kernel_common import check_kernel_support
 from blackbox_mpc_torch.ops.block_gemm import TILE_K, TILE_N, takes_kernel
 from blackbox_mpc_torch.parallel.mesh import POP_AXIS
@@ -127,8 +131,8 @@ _FUSED_TILE = 256
 
 class _Solve(NamedTuple):
     """What the rules read of a solve. ``config``: a ``LearnedDynamicsConfig``, a
-    ``LatentModelConfig``, an ``RSSMConfig`` or None (a true model). ``requested``: the
-    backend asked for."""
+    ``LatentModelConfig``, an ``RSSMConfig``, a ``VJEPA2ACConfig`` or None (a true model).
+    ``requested``: the backend asked for."""
     config: object
     penalized: bool
     solver_name: str
@@ -169,7 +173,7 @@ def _sampled(propagations: tuple) -> _Rule:
 _TRUE_MODEL = _Rule(lambda s: s.config is None,
                     lambda s, b: f"rollout_backend={b!r} requires learned MLP dynamics")
 _LATENT = _Rule(
-    lambda s: isinstance(s.config, (LatentModelConfig, RSSMConfig)),
+    lambda s: isinstance(s.config, (LatentModelConfig, RSSMConfig, VJEPA2ACConfig)),
     lambda s, b: (f"a latent world model ({type(s.config).__name__}) plans on the single-device "
                   "'eager' backend (the kernels roll out MLP ensembles, and the sharded evaluator "
                   "takes neither a terminal value nor a filtered belief); got rollout_backend="
@@ -206,10 +210,16 @@ _RSSM_FIRST_ORDER = _Rule(
                   "and on the card the RSSM's block layers run on the block gemm kernel, which "
                   "has no backward; use a sampling solver"))
 
+_VJEPA2_FIRST_ORDER = _Rule(
+    lambda s: isinstance(s.config, VJEPA2ACConfig) and s.solver_name in _FIRST_ORDER,
+    lambda s, b: (f"the first-order {s.solver_name} solver differentiates through the rollout, "
+                  "and V-JEPA 2-AC's rollout writes its cache of earlier frames in place into "
+                  "buffers that every evaluation reuses; use a sampling solver"))
+
 # Each backend's refusals, in the order they are checked.
 _RULES: dict[str, tuple[_Rule, ...]] = {
     "eager": (_Rule(lambda s: s.mesh is not None and _LATENT.refuses(s), _LATENT.message),
-              _RSSM_BLOCKS, _RSSM_FIRST_ORDER),
+              _RSSM_BLOCKS, _RSSM_FIRST_ORDER, _VJEPA2_FIRST_ORDER),
     "kernel": (
         _TRUE_MODEL, _LATENT, _PENALTY, _sampled(("mm",)),
         _Rule(lambda s: s.mesh is not None,
@@ -284,7 +294,7 @@ def resolve_backend(requested: str, config, penalized: bool, solver_name: str, s
 
 
 def choose_backend(
-    config,  # LearnedDynamicsConfig | LatentModelConfig | RSSMConfig | None (a true model)
+    config,  # LearnedDynamicsConfig | LatentModelConfig | RSSMConfig | VJEPA2ACConfig | None
     population: int,
     num_agents: int,
     mesh: Optional[object] = None,

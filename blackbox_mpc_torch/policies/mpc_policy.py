@@ -59,6 +59,15 @@ draws its codes from the prior by inverse CDF, from uniforms that each evaluatio
 input: one ``[H, rows, stoch]`` draw from the solve's noise generator, set back to the solve's
 start before each evaluation (common random numbers, as for stochastic dynamics). It plans on
 ``"eager"`` (``"auto"`` picks it) on one device.
+
+A goal-conditioned video world model (:class:`~blackbox_mpc_torch.models.vjepa2_ac.
+VJEPA2ACWorldModel`, V-JEPA 2-AC's) stands there too. The observation is an image and a state
+in one row, which ``act()`` encodes as for a latent model; the model keeps the goal image's
+latents on the device (its ``set_goal``, once an episode), and each evaluation takes them as
+the terminal value's input. Its rollouts carry the model's own state (the last frame and a
+cache of the earlier frames' keys and values, written in place into a buffer the model keeps
+per rollout shape), and a candidate's value is minus the L1 energy of its last frame to the
+goal. It plans on ``"eager"`` (``"auto"`` picks it) on one device.
 """
 from __future__ import annotations
 
@@ -305,7 +314,8 @@ class MPCPolicy(ModelBasedPolicy):
         agents: none for deterministic dynamics; stochastic dynamics' rollout noise ``[H,
         rows*K, S]``, from the solve's noise generator set back to the solve's start (common
         random numbers); a recurrent model's code uniforms ``[H, rows, stoch]``, drawn the same
-        way; a latent model's ``(None, *value_draws)``, fresh for every evaluation."""
+        way; a model with a terminal value its ``(None, *value_inputs)``: a latent model's
+        draws, fresh for every evaluation, or a goal-conditioned model's goal."""
         if self._stochastic or self._observe is not None:
             generator, start = self._noise_start
             generator.set_state(start)
@@ -314,10 +324,7 @@ class MPCPolicy(ModelBasedPolicy):
             return (rollout_noise(generator, (horizon, rows * self._num_particles,
                                               self._handler.config.dim_s), self._device),)
         if self._terminal_value is not None:
-            from blackbox_mpc_torch.models.latent import value_draws
-
-            return (None, *value_draws(self._noise_start[0], rows, self._handler.config,
-                                       self._device))
+            return (None, *self._handler.value_inputs(self._noise_start[0], rows))
         return ()
 
     def _backend_evaluate(self, time_major: bool, backend: str, params):
@@ -357,13 +364,17 @@ class MPCPolicy(ModelBasedPolicy):
         if self._terminal_value is not None:
             value = self._terminal_value
             options["terminal_value"] = lambda z, *draws: value(params(), z, *draws)
+        begin = getattr(handler, "begin_rollout", None)
+        if begin is not None:
+            options["begin"] = begin
         if self._mesh is not None:
             return make_sharded_evaluator(step, reward_fn, self._mesh,
                                           shard_axis=self._shard_axis, **options)
         evaluate = make_trajectory_evaluator(step, reward_fn, device=device, **options)
         if own and not self._remat:
             evaluate = self._rollout_graphs = GraphedEvaluator(
-                evaluate, lambda: tree_leaves(handler.dynamics_params))
+                evaluate, lambda: tree_leaves(handler.dynamics_params),
+                owned=getattr(handler, "rollout_buffer_bytes", None))
         return evaluate
 
     def _solve(self, solver_state, obs: torch.Tensor, t, generator: torch.Generator,

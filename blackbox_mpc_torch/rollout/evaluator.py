@@ -12,6 +12,12 @@ A terminal value (a latent world model's, ``models/latent.py``) is added to each
 state the rollout ends in, discounted by ``discount^H``; its own draws are inputs of the
 evaluation (``value_inputs``), as the noise is.
 
+A model whose rollout carries more than one tensor a row (``models/vjepa2_ac.py``: a frame's
+latents and the keys and values of the frames before it) turns the tiled rows into a state of
+its own before the first step (``begin``); its steps, reward and terminal value then take that
+state, and the rollout's returns are still one tensor. Every other model's state is the
+``[B, S]`` tensor itself.
+
 ``remat`` (JAX's ``jax.checkpoint`` of the scan body) runs each horizon step through
 ``torch.utils.checkpoint``: differentiating through the rollout (the Gradient and CEM-GD
 solvers) then keeps each step's inputs only and computes the step again in the backward pass.
@@ -60,6 +66,7 @@ def rollout_trajectories(
     time_major: bool = False,
     remat: bool = False,
     terminal_value=None,
+    begin=None,
 ):
     """Rolls a batch of action sequences through the dynamics, accumulating reward.
 
@@ -68,7 +75,9 @@ def rollout_trajectories(
     step ``t`` calls ``dynamics_fn(state, action, noise[t])``; None keeps the two-argument
     call. ``dynamics_returns_penalty``: the dynamics return ``(next_state, penalty [B])`` and
     each step adds ``discount^t * (r - penalty)``. ``terminal_value`` (``state [B, S] -> [B]``)
-    adds ``discount^H * terminal_value(final state)``; None adds nothing.
+    adds ``discount^H * terminal_value(final state)``; None adds nothing. ``begin``
+    (``(initial_states, H) -> state``): the model's own state of the rollout, which the steps
+    carry in place of the rows (no visited states are returned then); None carries the rows.
 
     ``remat``: each step runs under ``torch.utils.checkpoint`` (non-reentrant), which stores
     the step's inputs instead of its activations and recomputes them in the backward pass.
@@ -80,6 +89,11 @@ def rollout_trajectories(
     total = torch.zeros(state.shape[0], dtype=state.dtype, device=state.device)
     disc = torch.ones((), dtype=state.dtype, device=state.device)
     states = []
+    if begin is not None:
+        if return_states:
+            raise ValueError("a rollout that carries the model's own state returns no visited "
+                             "states")
+        state = begin(state, len(actions))
 
     def step(state, actions_t, noise_t):
         with span("models.step"):
@@ -141,6 +155,7 @@ def make_trajectory_evaluator(
     remat: bool = False,
     device=None,
     terminal_value=None,
+    begin=None,
 ) -> TrajectoryEvaluator:
     """Builds ``evaluate(initial_states [A,S], action_sequences [P,A,H,U], noise=None,
     *value_inputs) -> rewards [P,A]``.
@@ -158,7 +173,8 @@ def make_trajectory_evaluator(
 
     ``terminal_value`` (``(final states [P*K*A, S], *value_inputs) -> [P*K*A]``): each
     rollout's return gains ``discount^H`` times the value of the state it ends in, computed
-    from the evaluation's ``value_inputs`` (tensors whose draws the caller made).
+    from the evaluation's ``value_inputs`` (tensors whose draws the caller made). ``begin``:
+    see :func:`rollout_trajectories`.
     """
     if num_particles < 1:
         raise ValueError(f"num_particles must be >= 1, got {num_particles}")
@@ -194,7 +210,7 @@ def make_trajectory_evaluator(
         total = rollout_trajectories(
             dynamics_fn, reward_fn, flat_states, flat_actions, discount=discount, noise=noise,
             dynamics_returns_penalty=dynamics_returns_penalty, time_major=time_major,
-            remat=remat, terminal_value=value,
+            remat=remat, terminal_value=value, begin=begin,
         )
         rewards = total.reshape(pop, k, agents).mean(1) if k > 1 else total.reshape(pop, agents)
         if action_smoothness_weight > 0.0:
@@ -291,13 +307,17 @@ class GraphedEvaluator:
     capture fails (a host sync inside the dynamics or the reward, say), the evaluations stay
     eager until the key changes, logged once. Where the first evaluation's working memory and
     inputs would take the graphs past ``GRAPH_MAX_MEMORY_SHARE`` of the card, the shape stays
-    eager. ``captures`` and ``replays`` count the graphs captured and replayed; ``graphs`` is
-    the number alive and ``graph_bytes`` the memory their captures reserved.
+    eager. ``owned()`` (None: 0) gives the bytes of the buffers the dynamics keep for their
+    rollouts outside any graph's pool (``models/vjepa2_ac.py``'s cache of earlier frames): they
+    are no working memory of a graph, and the first evaluation's growth of them is left out of
+    that sum. ``captures`` and ``replays`` count the graphs captured and replayed; ``graphs``
+    is the number alive and ``graph_bytes`` the memory their captures reserved.
     """
 
-    def __init__(self, evaluate: TrajectoryEvaluator, reads):
+    def __init__(self, evaluate: TrajectoryEvaluator, reads, owned=None):
         self._evaluate = evaluate
         self._reads = reads
+        self._owned = owned if owned is not None else (lambda: 0)
         self._key = None
         self._held = ()  # the tensors of the key, kept alive while graphs read them
         self._graphs = {}  # the inputs' shapes and dtypes -> _Graph, or None: eager
@@ -344,8 +364,9 @@ class GraphedEvaluator:
         if self._eager or shapes in self._graphs:
             return self._evaluate(*inputs)
         before, card = _memory(initial_states.device, release=True)
+        owned = self._owned()
         rewards = self._evaluate(*inputs)
-        need = (_memory(initial_states.device)[0] - before
+        need = (_memory(initial_states.device)[0] - before - (self._owned() - owned)
                 + sum(x.nbytes for x in inputs if x is not None))
         with span("evaluator.capture"):
             self._graphs[shapes] = self._capture(inputs, need, card)

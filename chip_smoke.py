@@ -66,7 +66,16 @@ It imports nothing of JAX and nothing of the JAX package. Phases, each fatal on 
    launches of the block kernel must be 4 (the filter's and the lookahead's core steps; the
    first ``act()``'s 52), and one traced, whose device launches of it must be 244 (2 a core
    step); its line gives the ``act()``'s ms, the weights' and their pack's bytes and the
-   card's peak over the ``act()``s alone.
+   card's peak over the ``act()``s alone. V-JEPA 2-AC at the published widths (a ViT-g
+   encoder, the 300M predictor), under its cell's CEM (128 x 10 elites x 3 iterations, H=2)
+   toward a seeded goal image on ``"auto"`` (eager, graphed), acts 4 times: the first (eager
+   evaluation, capture), two timed, and one traced, whose host must wait twice, whose
+   evaluations must all replay, and whose device must run one attention kernel of
+   ``port_bench/metrics/models.attention_share.py``'s names per attention call (208: 40
+   encoder blocks, 24 predictor blocks a frame, 7 frames); its line gives the ``act()``s' ms,
+   the cache's bytes (6.49 GB: 24 blocks' keys and values of 128 rows of one 258-token
+   frame), the weights' bytes and the card's peak over the ``act()``s. ``python3
+   chip_smoke.py --vjepa2`` runs it alone.
 6. MBRL loop: ``learn_dynamics_iteratively_w_mpc`` on the native pendulum (2 envs, episodes of
    50 steps; S=3, U=1) with the flagship ensemble (3x500 tanh, 5 members, mean, f32) and CEM
    (H=50, population 1000, 50 elites, 5 iterations): one random bootstrap rollout, then 2
@@ -269,6 +278,9 @@ BLOCK_ROWS = (1, 104, 1000)
 # The RSSM cell's solve (port_bench/traffic/planet_closed_loop.json): PlaNet's CEM at H=12.
 RSSM_SOLVE = dict(planning_horizon=12, population=1000, num_elite=100, max_iterations=10,
                   alpha=0.0, warm_start=False)
+# The V-JEPA 2-AC cell's solve (port_bench/traffic/goal_cem_closed_loop.json).
+VJEPA2_SOLVE = dict(planning_horizon=2, population=128, num_elite=10, max_iterations=3,
+                    alpha=0.0, warm_start=False)
 H100_BYTES_PER_S = 3.35e12
 # Operations of one clipped normal draw of the counter RNG (K3), counted as float32 operations
 # at the SIMT rate, a transcendental as one: the counter (2), two keyed uniforms (14 each:
@@ -450,6 +462,76 @@ def rssm_act_drive(device) -> dict:
         raise AssertionError(f"RSSM act(): launches off: {run}")
     if (graphs.captures, graphs.replays) != (1, 3 * iters - 1):
         raise AssertionError(f"RSSM act(): {graphs.captures} captures, {graphs.replays} replays")
+    return run
+
+
+def vjepa2_act_drive(device) -> dict:
+    """V-JEPA 2-AC at the published widths planned by its cell's CEM on ``"auto"`` (eager,
+    graphed) toward a seeded goal image, four ``act()``s: the first (its first evaluation
+    eager, then the capture), two timed, and one traced. Gates: ``"auto"`` resolves to
+    ``"eager"``; one capture and every later evaluation a replay; the cache 6.49 GB; the
+    traced ``act()``'s host waits 2, and its device runs one attention kernel named as
+    ``models.attention_share`` names them per attention call (40 encoder blocks, and 24
+    predictor blocks in each of the 3 x 2 imagined frames and the lookahead's)."""
+    import importlib.util
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+
+    from blackbox_mpc_torch import MPCPolicy
+    from blackbox_mpc_torch.core.spaces import BoxSpace
+    from blackbox_mpc_torch.models import vjepa2_ac as vj
+    from blackbox_mpc_torch.utils import profiling
+
+    spec = importlib.util.spec_from_file_location(
+        "attention_share", in_repo("port_bench/metrics/models.attention_share.py"))
+    reader = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(reader)
+    config = vj.VJEPA2ACConfig()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = vj.VJEPA2ACWorldModel(config, seed=26, device=device)
+    weights = torch.cuda.memory_allocated() - base
+    policy = MPCPolicy(BoxSpace.of(-0.075, 0.075, dim=config.action_dim), model.reward_fn,
+                       model, rollout_backend="auto", seed=5, device=device, **VJEPA2_SOLVE)
+    if policy.rollout_backend != "eager":
+        raise AssertionError(f"V-JEPA 2-AC: auto resolved to {policy.rollout_backend!r}")
+    rng = np.random.default_rng(26)
+    obs = rng.uniform(0.0, 1.0, (5, config.obs_dim)).astype(np.float32)
+    obs[:, -config.state_dim:] = rng.normal(0.0, 0.1, (5, config.state_dim))
+    model.set_goal(obs[4, :-config.state_dim])
+    torch.cuda.reset_peak_memory_stats()
+    policy.act(obs[0], 0)
+    act_ms = []
+    for t in (1, 2):
+        t0 = time.perf_counter()
+        policy.act(obs[t], t)  # returns host arrays: synchronised
+        act_ms.append((time.perf_counter() - t0) * 1e3)
+    with tempfile.TemporaryDirectory() as log_dir, profiling.trace(log_dir) as prof:
+        policy.act(obs[3], 3)
+    events = profiled_events(prof)
+    attention = sum(1 for e in events if e.device_type == DeviceType.CUDA
+                    and any(k in e.name for k in reader.ATTENTION_KERNELS))
+    waits = sum(1 for e in events if e.name == "cudaStreamSynchronize")
+    iters, horizon = VJEPA2_SOLVE["max_iterations"], VJEPA2_SOLVE["planning_horizon"]
+    want_attention = config.enc_depth + config.pred_depth * (iters * horizon + 1)
+    graphs = policy.rollout_graphs
+    run = {"vjepa2_act": "ViT-g encoder, 300M predictor, CEM 128 x 3 iterations, H=2",
+           "act_ms": act_ms, "kv_cache_bytes": model.kv_cache_bytes, "weights_bytes": weights,
+           "acts_peak_bytes": torch.cuda.max_memory_allocated(),
+           "attention_kernels_per_act": attention, "waits": waits,
+           "captures": graphs.captures, "replays": graphs.replays, "card": nvidia_smi()}
+    print(json.dumps(run), flush=True)
+    if model.kv_cache_bytes != 24 * 2 * 128 * 258 * 1024 * 4:
+        raise AssertionError(f"V-JEPA 2-AC: the cache holds {model.kv_cache_bytes} bytes")
+    if (graphs.captures, graphs.replays) != (1, 4 * iters - 1):
+        raise AssertionError(f"V-JEPA 2-AC: {graphs.captures} captures, {graphs.replays} "
+                             "replays")
+    if (attention, waits) != (want_attention, 2):
+        raise AssertionError(f"V-JEPA 2-AC traced act(): {attention} attention kernels "
+                             f"(want {want_attention}), {waits} waits (want 2)")
     return run
 
 
@@ -4175,6 +4257,11 @@ def main() -> int:
         block_gemm_cases(device)
         rssm_act_drive(device)
         return 0
+    if "--vjepa2" in sys.argv[1:]:  # phase 5's V-JEPA 2-AC drive alone
+        with phase_timer("5"):
+            vjepa2_act_drive(device)
+        print(json.dumps({"phase_seconds": PHASE_SECONDS}))
+        return 0
     if "--compiled-flagship" in sys.argv[1:]:  # phase 11 Part A alone, at the flagship
         with tempfile.TemporaryDirectory() as workdir:
             compiled_cache_times(*compiled_cache_on_card(device, workdir, COMPILED_FLAGSHIP))
@@ -4220,6 +4307,7 @@ def main() -> int:
         family = {label: drive_policy(device, "fused", STEPS, label) for label in FUSED_FAMILY}
         drive_policy(device, "eager", 3)
         rssm_run = rssm_act_drive(device)
+        vjepa2_act_drive(device)
     with phase_timer("6"):
         mbrl = {backend: mbrl_loop(device, backend) for backend in ("kernel", "fused")}
     with phase_timer("7A"):

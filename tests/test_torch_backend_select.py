@@ -20,6 +20,7 @@ from blackbox_mpc_torch import DynamicsHandler, LearnedDynamicsConfig, MPCPolicy
 from blackbox_mpc_torch.core.spaces import BoxSpace
 from blackbox_mpc_torch.models.latent import LatentModelConfig
 from blackbox_mpc_torch.models.rssm import RSSMConfig
+from blackbox_mpc_torch.models.vjepa2_ac import VJEPA2ACConfig
 from blackbox_mpc_torch.parallel import PopMesh
 from blackbox_mpc_torch.solvers import SOLVER_REGISTRY
 
@@ -218,6 +219,7 @@ PETS = LearnedDynamicsConfig(dim_s=18, dim_u=6, hidden=(200, 200, 200, 200),
 TDMPC2_317M = LatentModelConfig(obs_dim=17, action_dim=6, latent_dim=1376, enc_dim=4096,
                                 mlp_dim=4096, num_enc_layers=5, num_q=8)
 DREAMERV3_200M = RSSMConfig(obs_dim=17, action_dim=6)
+VJEPA2_AC_300M = VJEPA2ACConfig()
 CELLS = {
     "cheetah_cem_3x500.cem_closed_loop": (
         CHEETAH, "CEM", dict(population=1000, num_elite=50, max_iterations=5, alpha=0.25,
@@ -233,6 +235,9 @@ CELLS = {
     "dreamerv3_200m.planet_closed_loop": (
         DREAMERV3_200M, "CEM", dict(population=1000, num_elite=100, max_iterations=10,
                                     alpha=0.0), 12, 1.0, "eager"),
+    "vjepa2_ac_300m.goal_cem_closed_loop": (
+        VJEPA2_AC_300M, "CEM", dict(population=128, num_elite=10, max_iterations=3, alpha=0.0),
+        2, 1.0, "eager"),
 }
 
 
